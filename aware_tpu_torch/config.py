@@ -1,0 +1,161 @@
+"""Typed configuration of the port.
+
+The fields this slice reads, with the default card's values written in
+Python (``aware_tpu/config.py`` holds the same defaults).  No YAML is read
+here; ``service.api.load`` parses a card file given by path, lazily.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectorNetConfig:
+    """Architecture of the keyed detector CNN (the default card's)."""
+
+    sample_rate: int = 16000
+    n_fft: int = 1024
+    n_mels: int = 128
+    num_blocks: int = 3
+    initial_pool_size: int = 2
+    initial_pool_stride: int = 2
+    n_filters: tuple[int, ...] = (512, 1024, 1024)
+    output_length: int = 20
+
+    def __post_init__(self) -> None:
+        if len(self.n_filters) != self.num_blocks:
+            raise ValueError("Number of filters must match number of blocks")
+
+    @property
+    def channels(self) -> tuple[int, ...]:
+        """Channel sizes of the num_blocks+1 conv blocks, input first."""
+        return (self.n_mels, *self.n_filters, 2 * self.output_length)
+
+
+@dataclasses.dataclass(frozen=True)
+class AwareConfig:
+    """Framework configuration: the default card's values."""
+
+    frame_length: int = 1024
+    hop_length: int = 256
+    window: str = "hann"
+    win_length: int = 1024
+    pattern_mode: str = "bits2bipolar"
+    watermark_length: int = 20
+    embedding_bands: tuple[float, float] = (500.0, 4000.0)
+    tolerance_db: float = 6.0
+    num_iterations: int = 400
+    optimizer_name: str = "nadam"
+    # sorted (key, value) tuples keep the config hashable; read them
+    # through .opt_params / .sched_params
+    optimizer_params: Any = (("lr", 0.1),)
+    scheduler_name: str = "reduce_lr_on_plateau"
+    scheduler_params: Any = (("factor", 0.9), ("patience", 500))
+    loss: str = "push_extremes"
+    vad: str = "spectral"
+    detection_net: DetectorNetConfig = dataclasses.field(
+        default_factory=DetectorNetConfig
+    )
+    threshold: float = 0.0
+    # the two solver paths of the JAX package this port mirrors: the
+    # round trip through the synth_norm / band_analysis kernels, with the
+    # detector in plain torch (the fused detector kernels are not ported)
+    use_pallas_roundtrip: bool = True
+    use_pallas_detector: bool = False
+
+    def __post_init__(self) -> None:
+        if self.window not in ("hann", "hamming"):
+            raise ValueError(f"Invalid window type: {self.window}")
+        for field in ("optimizer_params", "scheduler_params", "embedding_bands"):
+            value = getattr(self, field)
+            if isinstance(value, Mapping):
+                value = tuple(sorted(value.items()))
+            elif isinstance(value, list):
+                value = tuple(value)
+            object.__setattr__(self, field, value)
+
+    @property
+    def opt_params(self) -> dict[str, Any]:
+        return dict(self.optimizer_params)
+
+    @property
+    def sched_params(self) -> dict[str, Any]:
+        return dict(self.scheduler_params)
+
+    @classmethod
+    def from_dict(cls, card: Mapping[str, Any]) -> "AwareConfig":
+        """Config from a card's mapping (the JAX package's key names).
+
+        Keys this port does not read raise, so that a card never selects
+        an unported path silently.
+        """
+        simple = {
+            "frame_length", "hop_length", "window", "win_length",
+            "pattern_mode", "watermark_length", "tolerance_db",
+            "num_iterations", "loss", "threshold", "vad",
+            "use_pallas_roundtrip", "use_pallas_detector",
+        }
+        # read by the JAX package only; their default values change
+        # nothing here
+        inert = {"verbose": False, "dtype": "float32"}
+        kwargs: dict[str, Any] = {}
+        for key, value in card.items():
+            if key in simple:
+                kwargs[key] = value
+            elif key == "embedding_bands":
+                kwargs[key] = tuple(value)
+            elif key == "optimizer_cfg":
+                kwargs["optimizer_name"] = value.get("name", "nadam")
+                kwargs["optimizer_params"] = dict(value.get("params", {"lr": 0.1}))
+            elif key == "scheduler_cfg":
+                kwargs["scheduler_name"] = value.get(
+                    "name", "reduce_lr_on_plateau"
+                )
+                kwargs["scheduler_params"] = dict(value.get("params", {}))
+            elif key == "detection_net_cfg":
+                net = dict(value)
+                for k in ("activation", "final_activation", "norm_layer"):
+                    default = {"activation": "leaky_relu",
+                               "final_activation": "tanh",
+                               "norm_layer": "instance"}[k]
+                    if net.pop(k, default) != default:
+                        raise NotImplementedError(
+                            f"detection_net_cfg.{k} other than {default!r} "
+                            "is not ported"
+                        )
+                if "n_filters" in net:
+                    net["n_filters"] = tuple(net["n_filters"])
+                kwargs["detection_net"] = DetectorNetConfig(**net)
+            elif key in inert and value == inert[key]:
+                continue
+            else:
+                raise NotImplementedError(
+                    f"card key {key!r} = {value!r} selects a path this port "
+                    "does not have"
+                )
+        return cls(**kwargs)
+
+    def replace(self, **kwargs: Any) -> "AwareConfig":
+        return dataclasses.replace(self, **kwargs)
+
+
+def in_band_bins(
+    sample_rate: int, n_fft: int, bands: Sequence[float]
+) -> tuple[int, int]:
+    """Half-open bin range [lo, hi) of the FFT bins inside the band.
+
+    The frequency grid is a linspace, so the selected bins are always one
+    contiguous run.
+    """
+    freqs = np.linspace(0.0, sample_rate / 2.0, n_fft // 2 + 1)
+    mask = (freqs >= bands[0]) & (freqs <= bands[1])
+    idx = np.where(mask)[0]
+    if len(idx) == 0:
+        raise ValueError(f"No FFT bins inside embedding band {bands}")
+    if not np.array_equal(idx, np.arange(idx[0], idx[-1] + 1)):
+        raise AssertionError("embedding band bins are not contiguous")
+    return int(idx[0]), int(idx[-1] + 1)
