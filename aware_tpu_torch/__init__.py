@@ -5,9 +5,10 @@ The public surface mirrors ``aware_tpu``::
     from aware_tpu_torch import load, embed_watermark, detect_watermark
 
 Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.  The embed solver's synthesis and analysis round trip
-runs through hand-written CUDA kernels (``csrc/roundtrip.cu``), built with
-nvcc at first use.  This package imports torch, numpy and the standard
+``device="cpu"``.  The embed solver's iteration runs through hand-written
+CUDA kernels (``csrc/*.cu``: the synthesis round trip, the reflect-pad
+analysis and the fused detector, forward and VJP), built with nvcc at
+first use.  This package imports torch, numpy and the standard
 library only; it never imports jax or aware_tpu.
 """
 

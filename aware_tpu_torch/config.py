@@ -61,11 +61,17 @@ class AwareConfig:
         default_factory=DetectorNetConfig
     )
     threshold: float = 0.0
-    # the two solver paths of the JAX package this port mirrors: the
-    # round trip through the synth_norm / band_analysis kernels, with the
-    # detector in plain torch (the fused detector kernels are not ported)
+    # the solver paths of the JAX package this port mirrors, all through
+    # the round-trip kernels: with use_pallas_detector (the default, as in
+    # the JAX package) synth_norm -> the merged analysis_detector kernels;
+    # without it synth_norm -> band_analysis -> edge corrections -> the
+    # detector in plain torch
     use_pallas_roundtrip: bool = True
-    use_pallas_detector: bool = False
+    use_pallas_detector: bool = True
+    # the whole-iteration kernels (iteration_forward, iteration_step) are
+    # not ported yet, so the port keeps the two-kernel composition that
+    # the JAX package runs with this flag off; its own default is True
+    use_pallas_iteration: bool = False
 
     def __post_init__(self) -> None:
         if self.window not in ("hann", "hamming"):
@@ -97,7 +103,7 @@ class AwareConfig:
             "frame_length", "hop_length", "window", "win_length",
             "pattern_mode", "watermark_length", "tolerance_db",
             "num_iterations", "loss", "threshold", "vad",
-            "use_pallas_roundtrip", "use_pallas_detector",
+            "use_pallas_roundtrip", "use_pallas_detector", "use_pallas_iteration",
         }
         # read by the JAX package only; their default values change
         # nothing here

@@ -1,16 +1,21 @@
 """The batched adversarial embed solver.
 
-The port of ``aware_tpu/embed/solver.py`` on the path it takes with
-``use_pallas_roundtrip=True, use_pallas_detector=False`` (its
+The port of ``aware_tpu/embed/solver.py`` on the paths it takes with
+``use_pallas_roundtrip=True, use_pallas_iteration=False`` (its
 ``build_problem`` slab-kernel geometry, ``embed_core``, ``embed_batch``
 and ``_reconstruct``).  Each of ``num_iterations`` steps, for all B clips
 at once, in the padded time-major (B, T, P) coefficient layout:
 
     synth_norm (kernel)   coeffs -> slab synthesis -> OLA -> envelope
                           -> + out-of-band waveform -> double peak-norm -> y2
+    then, with use_pallas_detector (the default) where the JAX gate holds:
+    analysis_detector (kernels) y2 -> exact reflect-pad framing -> in-band
+                          Re/Im -> |.| -> the fused conv/norm detector -> bits
+    or else:
     band_analysis (kernel) y2 -> zero-pad framing -> in-band Re/Im
     + edge_corrections    the reflect-pad rows the kernel leaves out
-    safe_magnitude -> banded detector -> push_extremes loss (per clip)
+    safe_magnitude -> banded detector (plain torch)
+    push_extremes loss (per clip)
     backward through the same chain (the kernels' VJPs)
     NAdam step at the lr from before this step's scheduler tick,
     scheduler tick, clamp to the +/- tolerance_db box, best snapshot.
@@ -36,12 +41,23 @@ from aware_tpu_torch.embed.losses import push_extremes
 from aware_tpu_torch.embed.optim import nadam
 from aware_tpu_torch.embed.schedulers import reduce_lr_on_plateau
 from aware_tpu_torch.models.detector import DetectorNet
+from aware_tpu_torch.ops.kernels.analysis_detector import (
+    MIN_FRAMES,
+    AnalysisDetConsts,
+    analysis_detector,
+)
+from aware_tpu_torch.ops.kernels.detector import (
+    P_BAND,
+    fused_detector_consts,
+    fused_detector_supported,
+)
 from aware_tpu_torch.ops.kernels.roundtrip import (
     R,
     band_analysis,
     edge_corrections,
     synth_norm,
 )
+from aware_tpu_torch.ops.mel import mel_filter_bank
 from aware_tpu_torch.ops.stft import (
     _ola_envelope,
     irfft_basis,
@@ -73,8 +89,11 @@ def check_supported(cfg: AwareConfig) -> None:
     unported = []
     if not cfg.use_pallas_roundtrip:
         unported.append("use_pallas_roundtrip=False (the XLA slab path)")
-    if cfg.use_pallas_detector:
-        unported.append("use_pallas_detector=True (the fused detector kernels)")
+    if cfg.use_pallas_iteration:
+        unported.append(
+            "use_pallas_iteration=True (the whole-iteration kernels iteration_forward "
+            "and iteration_step, aware_tpu/ops/pallas/iteration.py)"
+        )
     if cfg.optimizer_name != "nadam":
         unported.append(f"optimizer {cfg.optimizer_name!r}")
     if cfg.loss != "push_extremes":
@@ -116,6 +135,9 @@ class Problem:
     phase: torch.Tensor     # (B, F, T)
     lo: int
     hi: int
+    # the merged analysis + detector kernels' constants where they run
+    # this problem, else None
+    fused: AnalysisDetConsts | None = None
 
     @property
     def nb(self) -> int:
@@ -123,10 +145,13 @@ class Problem:
 
 
 def build_problem(
-    audios: torch.Tensor, watermarks: torch.Tensor, cfg: AwareConfig
+    net: DetectorNet, audios: torch.Tensor, watermarks: torch.Tensor, cfg: AwareConfig
 ) -> Problem:
     """Preprocess B equal-length clips (B, L) and build the kernels'
-    constants (peak-norm -> STFT -> magnitude/phase -> bases)."""
+    constants (peak-norm -> STFT -> magnitude/phase -> bases).  With
+    ``cfg.use_pallas_detector``, where the JAX package's gate holds
+    (``aware_tpu/embed/solver.py:451-457``), also the merged analysis + detector kernels'
+    constants from the keyed ``net``."""
     n_fft, hop = cfg.frame_length, cfg.hop_length
     dev = audios.device
     window = get_window(cfg.window, cfg.win_length)
@@ -193,6 +218,25 @@ def build_problem(
         out[..., :nb] = c.transpose(1, 2)
         return out
 
+    csw, cswt = bf16(csw_np), bf16(csw_np.T)
+    fused = None
+    if (
+        cfg.use_pallas_detector
+        and p == P_BAND
+        and t_frames >= MIN_FRAMES
+        and fused_detector_supported(net_cfg, nb, t_frames, n_fft)
+    ):
+        params = {k: v for k, v in net.named_buffers() if k.startswith("conv")}
+        fused = AnalysisDetConsts(
+            csw=csw,
+            cswt=cswt,
+            det=fused_detector_consts(
+                params,
+                mel_filter_bank(net_cfg.sample_rate, n_fft, net_cfg.n_mels),
+                lo, hi, dev,
+            ),
+        )
+
     return Problem(
         ct0=to_carry(coeffs0),
         lower=to_carry(lower),
@@ -203,8 +247,8 @@ def build_problem(
         env=env,
         ab=bf16(ab_np),
         abt=bf16(ab_np.T),
-        csw=bf16(csw_np),
-        cswt=bf16(csw_np.T),
+        csw=csw,
+        cswt=cswt,
         csw_k=[
             torch.from_numpy(csw_np[k * hop : (k + 1) * hop].copy()).to(dev)
             for k in range(R)
@@ -213,6 +257,7 @@ def build_problem(
         phase=phase,
         lo=lo,
         hi=hi,
+        fused=fused,
     )
 
 
@@ -220,6 +265,8 @@ def objective(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig)
     """Per-clip loss (B,) of the coefficients ct (B, T, P)."""
     t_frames, p = ct.shape[1], ct.shape[2]
     y2 = synth_norm(ct, pb.csin, pb.y_const, pb.env, pb.ab, pb.abt)
+    if pb.fused is not None:
+        return push_extremes(analysis_detector(y2, pb.fused), pb.wm)
     cs2 = band_analysis(y2, pb.csw, pb.cswt) + edge_corrections(
         y2.reshape(y2.shape[0], -1), pb.csw_k, cfg.frame_length,
         cfg.hop_length, t_frames,
@@ -247,7 +294,7 @@ def embed_batch(
     """Embed B bipolar patterns (B, n_bits) into B equal-length clips
     (B, L), all on ``audios.device``."""
     check_supported(cfg)
-    pb = build_problem(audios, watermarks, cfg)
+    pb = build_problem(net, audios, watermarks, cfg)
     opt = nadam(**{k: v for k, v in cfg.opt_params.items() if k != "lr"})
     sched = reduce_lr_on_plateau(**cfg.sched_params)
     batch = audios.shape[0]

@@ -134,9 +134,18 @@ def load(
     the CUDA card and raises where there is none.  A card or keyword that
     asks for a path this port does not have raises NotImplementedError.
 
+    The embed solver runs the JAX package's kernel path: the round-trip
+    synthesis kernel, then, with ``use_pallas_detector`` (the default), the
+    merged analysis + fused detector kernels (bf16 operands, float32
+    accumulation, as the TPU kernels); ``use_pallas_detector=False`` takes
+    the analysis kernel and the float32 plain-torch detector instead.
+    ``use_pallas_iteration`` (the whole-iteration kernels) is not ported
+    and stays False.  Detection is the float32 plain-torch detector, as in
+    the JAX package, which has no detection kernel.
+
     TF32 is turned off for float32 matmuls and convolutions (process-wide
-    switches of torch): the detector runs in float32, as in the JAX
-    package, and TF32 would not match it.
+    switches of torch): the float32 detector would not match the JAX
+    package's with it.
     """
     dev = _resolve_device(device)
     if card is not None:

@@ -8,21 +8,32 @@ Phases, each printing one progress line (plus details) and failing the run
 with a non-zero exit on any error:
 
 0. the card: nvidia-smi's name and power limit, torch and CUDA versions;
-1. build: nvcc of aware_tpu_torch/csrc into aware_tpu_torch/_build, with
-   its seconds and the ptxas register / shared-memory lines;
+1. build: nvcc of aware_tpu_torch/csrc into aware_tpu_torch/_build (one
+   nvcc per source, started together, then one link), with its seconds and
+   the ptxas register / shared-memory lines;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
-   main path's shapes (B = 8 clips of T = 626 frames, P = 256, hop = 256),
-   error <= 1e-3 * max|plain| (float32 sums in another order on the card);
-   device times of kernel and plain version (CUDA-graph replays timed by
-   CUDA events), per-call times from Python, and the bound of each;
+   main path's operands (B = 8 clips of T = 626 frames, P = 256, hop = 256):
+   the round-trip kernels to 1e-3 * max|plain| (float32 sums in another
+   order on the card); the detector kernels to the bounds of
+   aware_tpu_torch/ops/kernels/agreement.py, which says why they are what
+   they are: each forward on pred and on every residual its VJP reads,
+   each VJP from the plain forward's residuals, and the chain the solver
+   runs (the forward kernel, then the VJP kernel on the kernel's own
+   residuals) against the plain chain.  Device times of kernel
+   and plain version (CUDA-graph replays timed by CUDA events), per-call
+   times from Python, and the bound of each;
 3. main path: load() -> embed_watermark_batch on 8 speech-like 10 s 16 kHz
    clips with random 20-bit messages (400 iterations) -> detect_watermark_
-   batch; every lane must read back at 0 % BER, and every kernel must have
-   been launched by the solve.  Then a small reference (a short solve on
-   the card against the same solve through the plain versions on the CPU)
-   and a torch.profiler breakdown of a 20-iteration solve;
+   batch, on the default solver path (synth_norm -> analysis_detector ->
+   detector_fused kernels) and then on the first slice's path
+   (load(use_pallas_detector=False): synth_norm -> band_analysis -> plain
+   detector); every lane must read back at 0 % BER, and each kernel of a
+   path must have been launched once per iteration by its solve.  Then, for
+   both paths, a small reference (a short solve on the card against the
+   same solve through the plain versions on the CPU) and a torch.profiler
+   breakdown of a 20-iteration solve;
 4. single clip: embed_watermark / detect_watermark of a 2 s clip given at
-   44.1 kHz (the resample path).
+   44.1 kHz (the resample path), on the default path.
 
 The last lines are one JSON object with a record per kernel
 ({"kernels": [...]}), nvidia-smi's name/power line, and
@@ -42,7 +53,7 @@ import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
-TOL = 1e-3                # kernel vs plain, relative to max|plain|
+TOL = 1e-3                # round-trip kernels vs plain, relative to max|plain|
 F32, BF16 = 4, 2          # bytes
 BATCH = 8                 # clips of the main path
 REPS = 20                 # timed launches per kernel
@@ -104,8 +115,10 @@ def profile_solve(torch, run) -> str:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ours = ("shift_gemm", "peak_scale", "synth_bwd_scalars", "fold_phase")
-    kinds = {"round-trip kernels": 0.0, "cuBLAS GEMM": 0.0, "FFT": 0.0, "other": 0.0}
+    ours = ("shift_gemm", "peak_scale", "synth_bwd_scalars", "fold_phase", "in_norm_fwd",
+            "mel_norm_fwd", "brh_fwd", "brh_bwd", "in_norm_bwd_stats", "mel_bwd_stats",
+            "reflect_fold")
+    kinds = {"our kernels": 0.0, "cuBLAS GEMM": 0.0, "FFT": 0.0, "other": 0.0}
     top = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.device_time_total <= 0:
@@ -114,7 +127,7 @@ def profile_solve(torch, run) -> str:
         name = ev.key.replace("void ", "").replace("(anonymous namespace)::", "")
         low = name.lower()
         if any(k in name for k in ours):
-            kinds["round-trip kernels"] += t
+            kinds["our kernels"] += t
         elif "gemm" in low or "xmma" in low:
             kinds["cuBLAS GEMM"] += t
         elif "fft" in low:
@@ -134,22 +147,95 @@ def profile_solve(torch, run) -> str:
     )
 
 
-def check_kernels(torch, rt, pb, hop, rng, quick: bool) -> dict:
+def _close(name, outs_k, outs_p) -> float:
+    """Round-trip kernels: every output within TOL * max|plain|."""
+    err = 0.0
+    for a, ref in zip(outs_k, outs_p):
+        if a.shape != ref.shape or not a.isfinite().all():
+            raise RuntimeError(f"{name}: bad output {tuple(a.shape)}")
+        e = float((a - ref).abs().max())
+        if e > TOL * float(ref.abs().max()):
+            raise RuntimeError(f"{name}: max error {e:.3e} over {TOL} * max|plain|")
+        err = max(err, e)
+    return err
+
+
+def _close_det(name, outs_k, outs_p) -> float:
+    """Detector forwards: pred and every residual within agreement.py's
+    bounds; returns the largest error of pred."""
+    from aware_tpu_torch.ops.kernels import agreement as ag
+
+    report = ag.check_forward(outs_k[1], outs_p[1], outs_p[1].nph.shape[1])
+    say(f"  {name} vs plain, max error / max|plain|: {ag.fmt(report)}")
+    return float((outs_k[0] - outs_p[0]).abs().max())
+
+
+def _close_vjp(name, out_k, out_p, chain=False) -> float:
+    """Detector VJPs (or, ``chain``, forward then VJP) within agreement.py's
+    bounds; returns the largest error."""
+    from aware_tpu_torch.ops.kernels import agreement as ag
+
+    report = ag.check_vjp(out_k, out_p, chain=chain)
+    say(f"  {name}{' chain' if chain else ''} vs plain: {ag.fmt(report)}")
+    return float((out_k - out_p).abs().max())
+
+
+def _det_counts(bsz, t, p, td):
+    """FLOP and bytes of the detector forward and VJP: the five GEMMs
+    (the norms' and activations' elementwise work is small beside them),
+    and each input read once, each output written once."""
+    t2 = t // 2
+    ch = td.CH
+    conv_macs = sum(ch[i] * ch[i + 1] for i in range(4))
+    flops = 2 * bsz * (t * p * ch[0] + t2 * conv_macs)
+    weights = (p * ch[0] + conv_macs) * BF16 + 4 * ch[2] * F32 + ch[4] * ch[4] * F32
+    residuals = (
+        bsz * ch[4] * F32 + bsz * t * 2 * p * BF16 + bsz * t * ch[0] * BF16
+        + bsz * t2 * sum(ch[1:]) * BF16 + 2 * bsz * ch[0] * F32
+        + bsz * sum(ch[1:]) * F32 + 3 * bsz * F32
+    )
+    cs = bsz * t * 2 * p * F32
+    fwd_bytes = cs + weights + residuals
+    bwd_bytes = bsz * ch[4] * F32 + residuals + weights + cs
+    return flops, fwd_bytes, bwd_bytes
+
+
+def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
     """Phase 2: each kernel against its plain version on the main path's
     operands; returns one record per kernel."""
+    from aware_tpu_torch.ops.kernels import analysis_detector as tad
+    from aware_tpu_torch.ops.kernels import detector as td
+    from aware_tpu_torch.ops.kernels import roundtrip as rt
+
     bsz, t, p = pb.ct0.shape
     lr = t - 1
     dev = pb.ct0.device
     ct = pb.ct0.contiguous()
+    ac = pb.fused
     y2, m1 = rt.synth_norm_fwd_plain(ct, pb.csin, pb.y_const, pb.env, pb.ab)
+    cs = rt.band_analysis_fwd_plain(y2, pb.csw) + rt.edge_corrections(
+        y2.reshape(bsz, -1), pb.csw_k, rt.R * hop, hop, t)
     g_y2 = torch.as_tensor(rng.standard_normal((bsz, lr, hop)).astype(np.float32), device=dev)
     g_cs = torch.as_tensor(rng.standard_normal((bsz, t, 2 * p)).astype(np.float32), device=dev)
+    g_det = torch.zeros(bsz, td.CH[4], device=dev)
+    g_det[:, : td.N_BITS] = torch.as_tensor(
+        rng.standard_normal((bsz, td.N_BITS)).astype(np.float32), device=dev)
+    _, res_det = td.detector_fused_fwd_plain(cs, ac.det)
+    _, res_ad = tad.analysis_detector_fwd_plain(y2, ac)
     basis = rt.R * hop * 2 * p * BF16
-    cases = {  # name: (kernel, plain, replaces, FLOP, bytes in + out)
+    det_flops, det_fwd_bytes, det_bwd_bytes = _det_counts(bsz, t, p, td)
+    ana_flops = 2 * bsz * t * (2 * p) * (rt.R * hop)
+    ana_bwd_flops = 2 * bsz * (lr + 2 * rt.PAD) * hop * (rt.R * 2 * p)
+    cs_bytes = bsz * t * 2 * p * F32
+    y2_bytes = bsz * lr * hop * F32
+    rt_src = "aware_tpu_torch/csrc/roundtrip.cu"
+    det_src = "aware_tpu_torch/csrc/detector.cu"
+    ad_src = "aware_tpu_torch/csrc/analysis_detector.cu"  # then detector.cu's chain
+    cases = {  # name: (kernel, plain, compare, source, replaces, FLOP, bytes in + out)
         "synth_norm_fwd": (
             lambda: rt.synth_norm_fwd(ct, pb.csin, pb.y_const, pb.env, pb.ab),
             lambda: rt.synth_norm_fwd_plain(ct, pb.csin, pb.y_const, pb.env, pb.ab),
-            "aware_tpu/ops/pallas/roundtrip.py:179",
+            _close, rt_src, "aware_tpu/ops/pallas/roundtrip.py:179",
             2 * bsz * lr * hop * (rt.R * 2 * p),
             bsz * t * p * F32 + bsz * t * 2 * p * BF16 + 2 * bsz * lr * hop * F32
             + lr * hop * F32 + basis + bsz * F32,
@@ -157,7 +243,7 @@ def check_kernels(torch, rt, pb, hop, rng, quick: bool) -> dict:
         "synth_norm_bwd": (
             lambda: rt.synth_norm_bwd(g_y2, y2, m1, pb.csin, pb.env, pb.abt),
             lambda: rt.synth_norm_bwd_plain(g_y2, y2, m1, pb.csin, pb.env, pb.abt),
-            "aware_tpu/ops/pallas/roundtrip.py:223",
+            _close, rt_src, "aware_tpu/ops/pallas/roundtrip.py:223",
             2 * bsz * t * (2 * p) * (rt.R * hop) + 2 * bsz * t * p,
             2 * bsz * lr * hop * F32 + bsz * F32 + bsz * t * 2 * p * BF16
             + lr * hop * F32 + basis + bsz * t * p * F32,
@@ -165,39 +251,56 @@ def check_kernels(torch, rt, pb, hop, rng, quick: bool) -> dict:
         "band_analysis_fwd": (
             lambda: rt.band_analysis_fwd(y2, pb.csw),
             lambda: rt.band_analysis_fwd_plain(y2, pb.csw),
-            "aware_tpu/ops/pallas/roundtrip.py:254",
-            2 * bsz * t * (2 * p) * (rt.R * hop),
-            bsz * lr * hop * F32 + basis + bsz * t * 2 * p * F32,
+            _close, rt_src, "aware_tpu/ops/pallas/roundtrip.py:254",
+            ana_flops, y2_bytes + basis + cs_bytes,
         ),
         "band_analysis_bwd": (
             lambda: rt.band_analysis_bwd(g_cs, pb.cswt),
             lambda: rt.band_analysis_bwd_plain(g_cs, pb.cswt),
-            "aware_tpu/ops/pallas/roundtrip.py:281",
-            2 * bsz * lr * hop * (rt.R * 2 * p),
-            bsz * t * 2 * p * F32 + basis + bsz * lr * hop * F32,
+            _close, rt_src, "aware_tpu/ops/pallas/roundtrip.py:281",
+            2 * bsz * lr * hop * (rt.R * 2 * p), cs_bytes + basis + y2_bytes,
+        ),
+        "detector_fused_fwd": (
+            lambda: td.detector_fused_fwd(cs, ac.det),
+            lambda: td.detector_fused_fwd_plain(cs, ac.det),
+            _close_det, det_src, "aware_tpu/ops/pallas/detector.py:310",
+            det_flops, det_fwd_bytes,
+        ),
+        "detector_fused_bwd": (
+            lambda: td.detector_fused_bwd(g_det, res_det, ac.det),
+            lambda: td.detector_fused_bwd_plain(g_det, res_det, ac.det),
+            _close_vjp, det_src, "aware_tpu/ops/pallas/detector.py:401",
+            det_flops, det_bwd_bytes,
+        ),
+        "analysis_detector_fwd": (
+            lambda: tad.analysis_detector_fwd(y2, ac),
+            lambda: tad.analysis_detector_fwd_plain(y2, ac),
+            _close_det, ad_src, "aware_tpu/ops/pallas/analysis_detector.py:177",
+            ana_flops + det_flops, y2_bytes + basis + det_fwd_bytes - cs_bytes,
+        ),
+        "analysis_detector_bwd": (
+            lambda: tad.analysis_detector_bwd(g_det, res_ad, ac),
+            lambda: tad.analysis_detector_bwd_plain(g_det, res_ad, ac),
+            _close_vjp, ad_src, "aware_tpu/ops/pallas/analysis_detector.py:251",
+            ana_bwd_flops + det_flops, det_bwd_bytes - cs_bytes + basis + y2_bytes,
         ),
     }
     records = {}
-    for name, (kern, plain, replaces, flops, nbytes) in cases.items():
+    for name, (kern, plain, close, source, replaces, flops, nbytes) in cases.items():
         out_k = kern()
         torch.cuda.synchronize()
         out_p = plain()
-        outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
-        outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        err = 0.0
-        for a, ref in zip(outs_k, outs_p):
-            if a.shape != ref.shape or not torch.isfinite(a).all():
-                raise RuntimeError(f"{name}: bad output {tuple(a.shape)}")
-            e = float((a - ref).abs().max())
-            if e > TOL * float(ref.abs().max()):
-                raise RuntimeError(f"{name}: max error {e:.3e} over {TOL} * max|plain|")
-            err = max(err, e)
+        if close is _close:
+            err = close(name, out_k if isinstance(out_k, tuple) else (out_k,),
+                        out_p if isinstance(out_p, tuple) else (out_p,))
+        else:
+            err = close(name, out_k, out_p)
         t_flop = flops / PEAK_BF16_FLOPS * 1e3
         t_byte = nbytes / PEAK_BYTES * 1e3
         rec = {
             "name": name,
             "route": "cuda",
-            "source": "aware_tpu_torch/csrc/roundtrip.cu",
+            "source": source,
             "replaces": replaces,
             "launches": 0,
             "max_abs_err": err,
@@ -206,7 +309,7 @@ def check_kernels(torch, rt, pb, hop, rng, quick: bool) -> dict:
             "bound_ms": max(t_flop, t_byte),
             "bound_by": "operations" if t_flop >= t_byte else "bytes",
             # no single PyTorch call computes a shifted-slab product with
-            # these prologues and epilogues
+            # these prologues and epilogues, nor the detector's chain
             "library_ms": None,
         }
         call = (None, None)
@@ -219,9 +322,59 @@ def check_kernels(torch, rt, pb, hop, rng, quick: bool) -> dict:
             f"phase 2 kernel {name}: max_abs_err {err:.3e} device ms {rec['ms']} "
             f"plain device ms {rec['plain_ms']} (per call from Python: kernel "
             f"{call[0]} plain {call[1]}) bound_us {rec['bound_ms'] * 1e3:.2f} "
-            f"({rec['bound_by']})"
+            f"({rec['bound_by']}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)"
         )
+    # the chain the solver runs: the forward kernel, then the VJP kernel on
+    # the forward kernel's own residuals, against the plain chain
+    for name, fwd, bwd, x, c in (
+        ("detector_fused_bwd", td.detector_fused_fwd, td.detector_fused_bwd, cs, ac.det),
+        ("analysis_detector_bwd", tad.analysis_detector_fwd, tad.analysis_detector_bwd, y2, ac),
+    ):
+        _close_vjp(name, bwd(g_det, fwd(x, c)[1], c), cases[name][1](), chain=True)
     return records
+
+
+def solve_path(torch, kernels, label, emb, det, clips, bits, path_kernels, records) -> None:
+    """Phase 3 for one solver path: the 400-iteration batch embed and
+    detect, with every count set to 0 just before and read just after; the
+    path's kernels must each have launched once per iteration."""
+    from aware_tpu_torch import detect_watermark_batch, embed_watermark_batch
+
+    cfg = emb.cfg
+    sr = cfg.detection_net.sample_rate
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = embed_watermark_batch(clips, sr, bits, emb)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    got = detect_watermark_batch(out, sr, det)
+    launches = {k.__name__: k.launches for k in kernels}
+    n_out = (clips.shape[1] // cfg.hop_length) * cfg.hop_length
+    if out.shape != (BATCH, n_out) or not np.isfinite(out).all():
+        raise RuntimeError(f"embed output {out.shape} is not finite of (B, (T-1)*hop)")
+    ber = np.mean(got != bits, axis=1) * 100.0
+    ref = clips[:, :n_out]
+    snr = 10 * np.log10(np.mean(out**2, 1) / np.mean((out - ref) ** 2, 1))
+    say(
+        f"phase 3 {label}: B={BATCH} x 10 s x {cfg.num_iterations} iterations: "
+        f"embed {embed_s:.3f} s, {BATCH / embed_s:.3f} clips/s, "
+        f"BER % per lane {ber.tolist()}, mean SNR {snr.mean():.2f} dB, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
+    )
+    say(f"phase 3 {label} launches: {launches}")
+    if ber.any():
+        raise RuntimeError(f"{label}: a lane did not read back its message")
+    for name in path_kernels:
+        if launches[name] != cfg.num_iterations:
+            raise RuntimeError(
+                f"{label}: kernel {name} launched {launches[name]} times, "
+                f"not once per iteration ({cfg.num_iterations})")
+        if records[name]["launches"] == 0:  # the first path that runs it
+            records[name]["launches"] = launches[name]
 
 
 def main() -> int:
@@ -235,17 +388,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
-    from aware_tpu_torch import (
-        detect_watermark,
-        detect_watermark_batch,
-        embed_watermark,
-        embed_watermark_batch,
-        load,
-    )
+    from aware_tpu_torch import detect_watermark, embed_watermark, load
     from aware_tpu_torch.embed.solver import build_problem, embed_batch
+    from aware_tpu_torch.ops.kernels import analysis_detector as tad
+    from aware_tpu_torch.ops.kernels import detector as td
     from aware_tpu_torch.ops.kernels import roundtrip as rt
     from aware_tpu_torch.ops.kernels.build import build
 
+    kernels = rt.KERNELS + td.KERNELS + tad.KERNELS
     t_start = time.perf_counter()
     # ---- phase 0: the card
     smi = subprocess.run(
@@ -272,59 +422,51 @@ def main() -> int:
     bits = rng.integers(0, 2, (BATCH, cfg.detection_net.output_length))
     x = torch.as_tensor(clips, device=dev)
     wm = torch.as_tensor(2.0 * bits - 1.0, device=dev)
-    records = check_kernels(torch, rt, build_problem(x, wm, cfg), cfg.hop_length, rng,
-                            args.quick)
+    pb = build_problem(det.net, x, wm, cfg)
+    if pb.fused is None:
+        raise RuntimeError("the default path did not select the fused detector kernels")
+    records = check_kernels(torch, pb, cfg.hop_length, rng, args.quick)
+    del pb
 
     if not args.quick:
-        # ---- phase 3: the main path
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        rt.reset_launches()
-        t0 = time.perf_counter()
-        out = embed_watermark_batch(clips, sr, bits, emb)
-        torch.cuda.synchronize()
-        embed_s = time.perf_counter() - t0
-        got = detect_watermark_batch(out, sr, det)
-        launches = {k.__name__: k.launches for k in rt.KERNELS}
-        n_out = (clips.shape[1] // cfg.hop_length) * cfg.hop_length
-        if out.shape != (BATCH, n_out) or not np.isfinite(out).all():
-            raise RuntimeError(f"embed output {out.shape} is not finite of (B, (T-1)*hop)")
-        ber = np.mean(got != bits, axis=1) * 100.0
-        ref = clips[:, :n_out]
-        snr = 10 * np.log10(np.mean(out**2, 1) / np.mean((out - ref) ** 2, 1))
-        say(
-            f"phase 3 main path: B={BATCH} x 10 s x {cfg.num_iterations} iterations: "
-            f"embed {embed_s:.3f} s, {BATCH / embed_s:.3f} clips/s, "
-            f"BER % per lane {ber.tolist()}, mean SNR {snr.mean():.2f} dB, "
-            f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
+        # ---- phase 3: the main path, then the first slice's path
+        emb4, det4 = load(device=dev, use_pallas_detector=False)
+        paths = (
+            ("main path (fused detector)", emb, det,
+             ("synth_norm_fwd", "synth_norm_bwd", "analysis_detector_fwd",
+              "analysis_detector_bwd", "detector_fused_fwd", "detector_fused_bwd")),
+            ("first-slice path (use_pallas_detector=False)", emb4, det4,
+             ("synth_norm_fwd", "synth_norm_bwd", "band_analysis_fwd", "band_analysis_bwd")),
         )
-        say(f"phase 3 launches: {launches}")
-        if ber.any():
-            raise RuntimeError("a lane did not read back its message")
-        for name, n in launches.items():
-            if n < 1:
-                raise RuntimeError(f"kernel {name} was not launched on the main path")
-            records[name]["launches"] = n
+        for label, e, d, names in paths:
+            solve_path(torch, kernels, label, e, d, clips, bits, names, records)
+        for name, rec in records.items():
+            if rec["launches"] < 1:
+                raise RuntimeError(f"kernel {name} was not launched on any path")
 
-        # the same short solve on the card (kernels) and on the CPU (plain)
+        # the same short solve on the card (kernels) and on the CPU (plain),
+        # on each path
         small = clips[:2, : 2 * sr]
         wm2 = torch.as_tensor(2.0 * bits[:2] - 1.0)
-        short = cfg.replace(num_iterations=10)
-        res_k = embed_batch(det.net, torch.as_tensor(small, device=dev), wm2.to(dev), short)
         _, det_cpu = load(device="cpu")
-        res_p = embed_batch(det_cpu.net, torch.as_tensor(small), wm2, short)
-        dloss = float((res_k.best_loss.cpu() - res_p.best_loss).abs().max())
-        say(f"phase 3 reference: 10-iteration best_loss card vs CPU plain |diff| {dloss:.3e}")
-        if not dloss < 0.02:
-            raise RuntimeError("the card's solve departs from the plain solve")
+        for label, e, d, _ in paths:
+            short = e.cfg.replace(num_iterations=10)
+            res_k = embed_batch(d.net, torch.as_tensor(small, device=dev), wm2.to(dev), short)
+            res_p = embed_batch(det_cpu.net, torch.as_tensor(small), wm2, short)
+            dloss = float((res_k.best_loss.cpu() - res_p.best_loss).abs().max())
+            say(f"phase 3 reference, {label}: 10-iteration best_loss card vs CPU plain "
+                f"|diff| {dloss:.3e}")
+            if not dloss < 0.02:
+                raise RuntimeError(f"{label}: the card's solve departs from the plain solve")
 
-        prof_cfg = cfg.replace(num_iterations=20)
-        say(f"phase 3 profile, B={BATCH} x 20 iterations: " + profile_solve(
-            torch, lambda: embed_batch(det.net, x, wm, prof_cfg)))
+        for label, e, d, _ in paths:
+            prof_cfg = e.cfg.replace(num_iterations=20)
+            say(f"phase 3 profile, {label}, B={BATCH} x 20 iterations: " + profile_solve(
+                torch, lambda: embed_batch(d.net, x, wm, prof_cfg)))
 
         # ---- phase 4: one clip at 44.1 kHz
-        rt.reset_launches()
+        for k in kernels:
+            k.launches = 0
         clip44 = speechlike(rng, 2.0, 44100)
         msg = rng.integers(0, 2, cfg.detection_net.output_length)
         t0 = time.perf_counter()
@@ -334,7 +476,7 @@ def main() -> int:
         ber44 = float(np.mean(got44 != msg) * 100.0)
         say(
             f"phase 4 single clip 2 s @ 44.1 kHz: embed {one_s:.3f} s, "
-            f"BER {ber44} %, launches {[k.launches for k in rt.KERNELS]}"
+            f"BER {ber44} %, launches {({k.__name__: k.launches for k in kernels})}"
         )
         if ber44 != 0.0 or wm44.shape != clip44.shape or not np.isfinite(wm44).all():
             raise RuntimeError("single-clip round trip failed")

@@ -1,0 +1,218 @@
+"""The port's merged analysis + detector against
+``aware_tpu.ops.pallas.analysis_detector``.
+
+The plain PyTorch versions of the CUDA kernels (``analysis_detector``
+forward and VJP) are held against the JAX package's Pallas kernels, run in
+interpret mode on the CPU as its own tests run them, on signal rows made
+from a seeded numpy generator (the realistic post-peak-norm scale of
+``tests/test_analysis_detector.py``).  T = 126 (a 2 s clip) and T = 63
+(odd: the pool drops the last frame).
+
+Tolerances:
+* the flip matrices and the pad rows: exact;
+* the reflect-pad framing + slab DFT against numpy's reflect pad: 1e-5 of
+  max|ref| (the same bf16 operands, float32 sums in another order);
+* forward pred within 1e-3 absolute and VJP within 1e-2 * max|ref| with
+  cosine >= 0.99999 (from the JAX kernel's own residuals), for the reasons
+  given in tests/test_torch_kernels_detector.py;
+* the autograd.Function's gradient against autograd through the plain
+  forward: 2 % of the max element, the bound of
+  ``tests/test_analysis_detector.py:135-154``, and cosine > 0.9999,
+  tighter than its 0.999 (measured: 0.5-0.7 % and 1 - cosine 1.8e-5).
+
+The CUDA kernels themselves run only on the card: tests/test_torch_gpu.py.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from aware_tpu.config import AwareConfig as JaxConfig
+from aware_tpu.config import in_band_bins
+from aware_tpu.models import init_params
+from aware_tpu.ops.mel import mel_filter_bank
+from aware_tpu.ops.pallas import analysis_detector as jad
+from aware_tpu.ops.pallas import detector as jd
+from aware_tpu.ops.stft import rfft_basis
+from aware_tpu.ops.windows import get_window
+from aware_tpu_torch.models.detector import load_key_params, params_from_jax
+from aware_tpu_torch.ops.kernels import analysis_detector as tad
+from aware_tpu_torch.ops.kernels import detector as td
+from test_torch_kernels_detector import _cos, _residuals_from_jax
+
+CFG = JaxConfig()
+NET = CFG.detection_net
+N_FFT, HOP = CFG.frame_length, CFG.hop_length
+LO, HI = in_band_bins(NET.sample_rate, N_FFT, CFG.embedding_bands)
+NB = HI - LO
+P = td.P_BAND
+FRAMES = [126, 63]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the tier-1 run shares the cores among its xdist workers; torch's own
+    # thread pool on top of that oversubscribes them many times over
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def csw_np():
+    c, s = rfft_basis(N_FFT)
+    w = np.asarray(get_window(CFG.window, CFG.win_length), np.float32)
+    out = np.zeros((N_FFT, 2 * P), np.float32)
+    out[:, :NB] = c[:, LO:HI] * w[:, None]
+    out[:, P : P + NB] = s[:, LO:HI] * w[:, None]
+    return out
+
+
+@pytest.fixture(scope="module")
+def consts(csw_np):
+    basis = mel_filter_bank(NET.sample_rate, N_FFT, NET.n_mels)
+    csw = torch.from_numpy(csw_np).to(torch.bfloat16)
+    return tad.AnalysisDetConsts(
+        csw=csw, cswt=csw.t().contiguous(),
+        det=td.fused_detector_consts(params_from_jax(load_key_params()), basis, LO, HI),
+    )
+
+
+@pytest.fixture(scope="module")
+def jax_consts(csw_np):
+    params = {k: jnp.asarray(v) for k, v in init_params(NET).items()}
+    basis = mel_filter_bank(NET.sample_rate, N_FFT, NET.n_mels)
+    return {
+        "csw": jnp.asarray(csw_np, jnp.bfloat16),
+        "cswt": jnp.asarray(csw_np.T.copy(), jnp.bfloat16),
+        "pads": jad.reflect_pad_matrices(HOP),
+        **{t: jd.fused_detector_consts(params, basis, LO, HI, t) for t in FRAMES},
+    }
+
+
+def _y2(t, batch=2, seed=45):
+    r = np.random.default_rng(seed + t)
+    return (np.tanh(r.standard_normal((batch, t - 1, HOP))) * 0.8).astype(np.float32)
+
+
+@jax.jit
+def _jax_fwd(y2, pads, csw, c):
+    return jad._ad_fwd_impl(y2, pads, csw, c)
+
+
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def _jax_bwd(g, outs, lr, hop, cswt, pads, c):
+    return jad._ad_bwd_impl(g, (*outs, lr, hop, cswt, pads, c))
+
+
+def test_pad_matrices_equal_jax():
+    np.testing.assert_array_equal(
+        tad.reflect_pad_matrices(HOP).float().numpy(),
+        np.asarray(jad.reflect_pad_matrices(HOP).astype(jnp.float32)),
+    )
+
+
+@pytest.mark.parametrize("t", FRAMES)
+def test_pad_rows_are_exact_bf16_reflections(t):
+    """Each flip product picks one bf16 sample, so the pad rows equal the
+    reversed bf16 slices of the signal exactly: the index-reading loader
+    of the CUDA kernel is the same function."""
+    y2 = torch.from_numpy(_y2(t))
+    lr = t - 1
+    y2b = y2.to(torch.bfloat16).float()
+    rows = tad._pad_rows(y2b, tad.reflect_pad_matrices(HOP), lr, HOP)
+    yfb = y2b.reshape(2, -1)
+    half = N_FFT // 2
+    lp = yfb[:, 1 : half + 1].flip(-1)
+    rp = yfb[:, -half - 1 : -1].flip(-1)
+    for got, want in zip(rows, (lp[:, :HOP], lp[:, HOP:], rp[:, :HOP], rp[:, HOP:])):
+        assert torch.equal(got, want)
+    ref = jad._pad_rows(jnp.asarray(y2b[0].numpy(), jnp.bfloat16), jad.reflect_pad_matrices(HOP),
+                        lr, HOP)
+    for got, want in zip(rows, ref):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want)[0])
+
+
+@pytest.mark.parametrize("t", FRAMES)
+def test_reflect_analysis_equals_numpy_reflect_pad(consts, csw_np, t):
+    """The framing the detector sees: centre reflect padding of the flat
+    signal (np.pad, mode='reflect'), frames of n_fft every hop, bf16."""
+    y2 = _y2(t)
+    cs2 = tad.reflect_analysis_fwd_plain(torch.from_numpy(y2), consts)
+    cswb = torch.from_numpy(csw_np).to(torch.bfloat16).double().numpy()
+    for i in range(2):
+        yp = np.pad(y2[i].reshape(-1), N_FFT // 2, mode="reflect")
+        yp = torch.from_numpy(yp).to(torch.bfloat16).double().numpy()
+        frames = np.stack([yp[k * HOP : k * HOP + N_FFT] for k in range(t)])
+        want = frames @ cswb
+        got = cs2[i].numpy()
+        assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("t", FRAMES)
+def test_forward_matches_jax(consts, jax_consts, t):
+    y2 = _y2(t)
+    pred, res = tad.analysis_detector_fwd_plain(torch.from_numpy(y2), consts)
+    for i in range(2):
+        outs = _jax_fwd(jnp.asarray(y2[i]), jax_consts["pads"], jax_consts["csw"], jax_consts[t])
+        ref = _residuals_from_jax(outs)
+        np.testing.assert_allclose(pred[i].numpy(), ref.pred[0].numpy(), rtol=0, atol=1e-3)
+        for name in ("mu1", "r1", "gr", "s"):
+            np.testing.assert_allclose(getattr(res, name)[i].numpy(),
+                                       getattr(ref, name)[0].numpy(), rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("t", FRAMES)
+def test_vjp_matches_jax(consts, jax_consts, t):
+    y2 = _y2(t)
+    g = np.zeros((2, 128), np.float32)
+    g[:, :20] = np.random.default_rng(46 + t).standard_normal((2, 20))
+    for i in range(2):
+        outs = _jax_fwd(jnp.asarray(y2[i]), jax_consts["pads"], jax_consts["csw"], jax_consts[t])
+        ref = np.asarray(_jax_bwd(jnp.asarray(g[i : i + 1]), outs, t - 1, HOP,
+                                  jax_consts["cswt"], jax_consts["pads"], jax_consts[t]))
+        ours = tad.analysis_detector_bwd_plain(torch.from_numpy(g[i : i + 1]),
+                                               _residuals_from_jax(outs), consts)[0].numpy()
+        assert ours.shape == ref.shape == (t - 1, HOP)
+        assert np.max(np.abs(ours - ref)) <= 1e-2 * np.max(np.abs(ref))
+        assert _cos(ours, ref) >= 0.99999
+
+
+@pytest.mark.parametrize("t", FRAMES)
+def test_function_gradient_matches_plain_autograd(consts, t):
+    y2 = torch.from_numpy(_y2(t))
+    g = torch.from_numpy(np.random.default_rng(47 + t).standard_normal((2, 20)).astype(np.float32))
+    x = y2.clone().requires_grad_(True)
+    out = tad.analysis_detector(x, consts)
+    (g_fn,) = torch.autograd.grad((out * g).sum(), x)
+    x2 = y2.clone().requires_grad_(True)
+    (g_ad,) = torch.autograd.grad(
+        (tad.analysis_detector_fwd_plain(x2, consts)[0][:, :20] * g).sum(), x2)
+    assert out.shape == (2, 20) and torch.isfinite(g_fn).all()
+    assert float((g_fn - g_ad).abs().max()) <= 0.02 * float(g_ad.abs().max())
+    assert _cos(g_fn.numpy(), g_ad.numpy()) > 0.9999
+
+
+def test_wrappers_take_the_plain_version_on_cpu_without_counting(consts):
+    y2 = torch.from_numpy(_y2(63))
+    tad.reset_launches()
+    td.reset_launches()
+    pred, res = tad.analysis_detector_fwd(y2, consts)
+    pred_p, res_p = tad.analysis_detector_fwd_plain(y2, consts)
+    assert all(torch.equal(a, b) for a, b in zip(res, res_p))
+    g = torch.zeros(2, 128)
+    g[:, :20] = 1.0
+    assert torch.equal(tad.analysis_detector_bwd(g, res, consts),
+                       tad.analysis_detector_bwd_plain(g, res, consts))
+    assert [k.launches for k in tad.KERNELS + td.KERNELS] == [0, 0, 0, 0]
+
+
+def test_short_clips_are_refused(consts):
+    with pytest.raises(ValueError, match="T >= 8"):
+        tad._check_analysis(consts, 7, HOP, torch.device("cpu"))

@@ -1,6 +1,8 @@
-"""The slice as a whole: the port's batched embed against the JAX package's
-``embed_batch`` on the same path (round-trip kernels on, fused detector
-off), then the port's public API end to end on the CPU.
+"""The first slice as a whole: the port's batched embed against the JAX
+package's ``embed_batch`` on the same path (round-trip kernels on, fused
+detector off), then the port's public API end to end on the CPU (now on
+the default path, the fused detector's: tests/test_torch_slice_detector.py
+holds that path against the JAX package).
 
 The embed loop is chaotic (fp differences amplify over the iterations),
 so the solve is held at the outcome level, as ``tests/test_pallas.py``
@@ -84,7 +86,9 @@ def _ber(values, bits):
 def test_first_objective_and_gradient_match_jax(jax_cfg, jax_params, net, batch):
     clips, bits = batch
     wm = (2.0 * bits - 1.0).astype(np.float32)
-    pb = solver.build_problem(torch.from_numpy(clips), torch.from_numpy(wm), AwareConfig())
+    cfg = AwareConfig(use_pallas_detector=False)
+    pb = solver.build_problem(net, torch.from_numpy(clips), torch.from_numpy(wm), cfg)
+    assert pb.fused is None
     for i in range(2):
         jpb = jax_build_problem(jax_params, jnp.asarray(clips[i]), jnp.asarray(wm[i]), jax_cfg)
         objective_ct, to_carry = jpb.carry[0], jpb.carry[1]
@@ -97,7 +101,7 @@ def test_first_objective_and_gradient_match_jax(jax_cfg, jax_params, net, batch)
         sub = dataclasses.replace(
             pb, **{f: getattr(pb, f)[i : i + 1] for f in
                    ("ct0", "lower", "upper", "wm", "csin", "y_const", "mag", "phase")})
-        loss = solver.objective(ct, sub, net, AwareConfig())
+        loss = solver.objective(ct, sub, net, cfg)
         (grad,) = torch.autograd.grad(loss.sum(), ct)
         assert abs(loss.item() - float(jl)) <= 1e-4 * abs(float(jl))
         jg = np.asarray(jg)
@@ -109,7 +113,7 @@ def test_embed_batch_matches_jax_outcome(jax_cfg, jax_params, net, batch):
     wm = (2.0 * bits - 1.0).astype(np.float32)
     ref = jax_embed_batch(jax_params, jnp.asarray(clips), jnp.asarray(wm), jax_cfg)
     ours = solver.embed_batch(net, torch.from_numpy(clips), torch.from_numpy(wm),
-                              AwareConfig(num_iterations=ITERS))
+                              AwareConfig(num_iterations=ITERS, use_pallas_detector=False))
     audio = ours.audio.numpy()
     assert audio.shape == np.asarray(ref.audio).shape == (2, 125 * 256)
     assert np.all(np.isfinite(audio))
@@ -130,7 +134,7 @@ def test_solver_keeps_the_box_and_the_padding(net, batch):
     clips, bits = batch
     wm = torch.from_numpy((2.0 * bits - 1.0).astype(np.float32))
     cfg = AwareConfig(num_iterations=5)
-    pb = solver.build_problem(torch.from_numpy(clips), wm, cfg)
+    pb = solver.build_problem(net, torch.from_numpy(clips), wm, cfg)
     res = solver.embed_batch(net, torch.from_numpy(clips), wm, cfg)
     lower = pb.lower[..., : pb.nb].transpose(1, 2)
     upper = pb.upper[..., : pb.nb].transpose(1, 2)
@@ -145,7 +149,8 @@ def handles():
 
 def test_load_sets_the_slice_configuration(handles):
     emb, det = handles
-    assert emb.cfg.use_pallas_roundtrip and not emb.cfg.use_pallas_detector
+    assert emb.cfg.use_pallas_roundtrip and emb.cfg.use_pallas_detector
+    assert not emb.cfg.use_pallas_iteration
     assert emb.net is det.net and emb.device == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
@@ -206,7 +211,7 @@ def test_service_rejects_bad_input(handles, speechlike):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"use_pallas_detector": True}, {"use_pallas_roundtrip": False},
+    {"use_pallas_iteration": True}, {"use_pallas_roundtrip": False},
     {"optimizer_name": "adam"}, {"loss": "hinge"}, {"vad": "webrtc_gmm"},
     {"frame_length": 2048, "win_length": 2048},
 ])
@@ -218,7 +223,7 @@ def test_unported_paths_raise(overrides):
 def test_long_clips_name_the_tiled_kernels(net):
     long_clip = torch.zeros(1, 1030 * 256)
     with pytest.raises(NotImplementedError, match="tiled"):
-        solver.build_problem(long_clip, torch.ones(1, 20), AwareConfig())
+        solver.build_problem(net, long_clip, torch.ones(1, 20), AwareConfig())
 
 
 def test_card_file_is_read_by_path(tmp_path):
