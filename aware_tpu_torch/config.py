@@ -62,16 +62,17 @@ class AwareConfig:
     )
     threshold: float = 0.0
     # the solver paths of the JAX package this port mirrors, all through
-    # the round-trip kernels: with use_pallas_detector (the default, as in
-    # the JAX package) synth_norm -> the merged analysis_detector kernels;
-    # without it synth_norm -> band_analysis -> edge corrections -> the
-    # detector in plain torch
+    # the kernels (embed/solver.py), with the JAX package's defaults: with
+    # use_pallas_iteration and use_pallas_detector, where the fused
+    # detector's gate holds, the whole-iteration kernels (iteration_step
+    # for push_extremes + NAdam without weight decay, else
+    # iteration_forward and its VJP); with use_pallas_iteration=False
+    # synth_norm -> the merged analysis_detector kernels; with
+    # use_pallas_detector=False synth_norm -> band_analysis -> edge
+    # corrections -> the detector in plain torch
     use_pallas_roundtrip: bool = True
     use_pallas_detector: bool = True
-    # the whole-iteration kernels (iteration_forward, iteration_step) are
-    # not ported yet, so the port keeps the two-kernel composition that
-    # the JAX package runs with this flag off; its own default is True
-    use_pallas_iteration: bool = False
+    use_pallas_iteration: bool = True
 
     def __post_init__(self) -> None:
         if self.window not in ("hann", "hamming"):
@@ -96,8 +97,8 @@ class AwareConfig:
     def from_dict(cls, card: Mapping[str, Any]) -> "AwareConfig":
         """Config from a card's mapping (the JAX package's key names).
 
-        Keys this port does not read raise, so that a card never selects
-        an unported path silently.
+        Keys this port does not read raise, all of them named in one
+        error, so that a card never selects an unported path silently.
         """
         simple = {
             "frame_length", "hop_length", "window", "win_length",
@@ -109,6 +110,7 @@ class AwareConfig:
         # nothing here
         inert = {"verbose": False, "dtype": "float32"}
         kwargs: dict[str, Any] = {}
+        unread = []
         for key, value in card.items():
             if key in simple:
                 kwargs[key] = value
@@ -139,10 +141,11 @@ class AwareConfig:
             elif key in inert and value == inert[key]:
                 continue
             else:
-                raise NotImplementedError(
-                    f"card key {key!r} = {value!r} selects a path this port "
-                    "does not have"
-                )
+                unread.append(f"{key!r} = {value!r}")
+        if unread:
+            raise NotImplementedError(
+                f"card keys {', '.join(unread)} select paths this port does not have"
+            )
         return cls(**kwargs)
 
     def replace(self, **kwargs: Any) -> "AwareConfig":

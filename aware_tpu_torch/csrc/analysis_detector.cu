@@ -31,51 +31,15 @@
 // for T >= 8, so no two threads touch one sample).  Bounds: as
 // band_analysis (roundtrip.cu), a GEMM of 2 * T * 2P * 4 hop FLOP per clip.
 
-#include "tile_gemm.cuh"
+#include "analysis_detector.cuh"
 
 namespace {
-
-constexpr int kR = 4;    // slabs: n_fft / hop
-constexpr int kPad = 2;  // rows of centre padding: (n_fft / 2) / hop
-
-struct ReflectA {  // padded row s in [-2, lr + 2) of y2 (B, lr, hop)
-  const float* y2;
-  int lr;
-  int hop;
-  __device__ float operator()(int b, int s, int c) const {
-    const long long len = (long long)lr * hop;
-    long long f = (long long)s * hop + c;
-    if (f < 0) f = -f;
-    else if (f >= len) f = 2 * (len - 1) - f;
-    return y2[b * len + f];
-  }
-};
-
-struct ReflectBwdEpi {  // padded row j: interior -> gy2, pad rows -> bf16 gpad
-  float* gy2;   // (B, lr, hop)
-  float* gpad;  // (B, 4, hop): the rows before the clip, then the rows after it
-  int lr;
-  int hop;
-  __device__ float operator()(int b, int j, int col, float acc) const {
-    if (j >= kPad && j < lr + kPad) {
-      gy2[((long long)b * lr + j - kPad) * hop + col] = acc;
-    } else {
-      const int pr = j < kPad ? j : j - lr;  // 0, 1 | 2, 3
-      gpad[((long long)b * 2 * kPad + pr) * hop + col] = bf16_round(acc);
-    }
-    return 0.f;
-  }
-};
 
 // gy2[reflected sample] += gpad, one block per clip.
 __global__ void reflect_fold(const float* gpad, float* gy2, int lr, int hop) {
   const int b = blockIdx.x;
-  const long long len = (long long)lr * hop;
-  const int half = kPad * hop;
-  for (int e = threadIdx.x; e < 2 * half; e += blockDim.x) {
-    const long long f = e < half ? half - e : len - 2 - (e - half);
-    gy2[b * len + f] += gpad[(long long)b * 2 * half + e];
-  }
+  reflect_fold_clip(gpad + (long long)b * 2 * kPad * hop, gy2 + (long long)b * lr * hop, lr,
+                    hop);
 }
 
 }  // namespace
@@ -85,11 +49,7 @@ extern "C" {
 // y2 (B, T-1, hop) f32, csw (4 hop, 2P) bf16 -> cs2 (B, T, 2P) f32.
 int aw_reflect_analysis_fwd(const float* y2, const __nv_bfloat16* csw, float* cs2,
                             int batch, int t, int p2, int hop, void* stream) {
-  const int lr = t - 1;
-  const Geometry geo{t, -kPad, lr + kPad, hop, p2, kR, +1, kPad, csw, (long long)p2,
-                     (long long)hop * p2};
-  launch_shift_gemm(ReflectA{y2, lr, hop}, StoreEpi{cs2, t, p2}, geo, batch, nullptr,
-                    (cudaStream_t)stream);
+  launch_reflect_analysis(y2, nullptr, csw, cs2, batch, t, p2, hop, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -98,14 +58,9 @@ int aw_reflect_analysis_fwd(const float* y2, const __nv_bfloat16* csw, float* cs
 int aw_reflect_analysis_bwd(const float* dcs, const __nv_bfloat16* cswt, float* gy2,
                             float* gpad, int batch, int t, int p2, int hop, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int lr = t - 1;
-  // output row j of the padded signal reads dcs row j - k
-  const Geometry geo{lr + 2 * kPad, 0, t, p2, hop, kR, -1, 0, cswt, (long long)kR * hop,
-                     (long long)hop};
-  launch_shift_gemm(LoadA{dcs, p2, t}, ReflectBwdEpi{gy2, gpad, lr, hop}, geo, batch,
-                    nullptr, st);
+  launch_reflect_analysis_bwd(dcs, cswt, gy2, gpad, batch, t, p2, hop, st);
   reflect_fold<<<batch, 2 * kPad * hop < 1024 ? 2 * kPad * hop : 1024, 0, st>>>(
-      gpad, gy2, lr, hop);
+      gpad, gy2, t - 1, hop);
   return (int)cudaGetLastError();
 }
 

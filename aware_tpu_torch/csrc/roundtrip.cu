@@ -40,131 +40,30 @@
 // Every kernel runs on the caller's stream and allocates nothing; each C
 // entry returns cudaGetLastError() so that a refused launch is reported.
 
-#include "tile_gemm.cuh"
+#include "roundtrip.cuh"
 
 namespace {
 
-constexpr int kR = 4;      // slabs: n_fft / hop
-constexpr int kPad = 2;    // rows of centre padding: (n_fft / 2) / hop
-constexpr float kEps = 1e-8f;
-
-// A operands: the f32 value of A[b, s, c] before its rounding to bf16.
-
-struct SynthA {  // reim = coeffs * csin, coeffs (B, T, P), csin (B, T, 2P) bf16
-  const float* coeffs;
-  const __nv_bfloat16* csin;
-  int t;
-  int p;
-  __device__ float operator()(int b, int s, int c) const {
-    long long row = (long long)b * t + s;
-    int cc = c < p ? c : c - p;
-    return coeffs[row * p + cc] * __bfloat162float(csin[row * 2 * p + c]);
-  }
-};
-
-struct SynthBwdA {  // gcrop = g_u / env, from g, y2 (B, T-1, hop), env (T-1, hop)
-  const float* g;
-  const float* y2;
-  const float* env;
-  const float* scal;  // per clip: cden, q (1+e) / cden, max |y2|, ties
-  int lr;
-  int hop;
-  __device__ float operator()(int b, int s, int c) const {
-    long long i = ((long long)b * lr + s) * hop + c;
-    const float* sc = scal + 4 * b;
-    float yv = y2[i];
-    float mask = fabsf(yv) == sc[2] ? 1.f : 0.f;
-    float sgn = (float)((yv > 0.f) - (yv < 0.f));
-    float gu = g[i] / sc[0] - sc[1] * sgn * mask / sc[3];
-    return gu / env[(long long)s * hop + c];
-  }
-};
-
-// Epilogues: take the f32 sum at (b, row, col); return the value whose
-// per-clip maximum the kernel reduces (0 where none is wanted).
-
-struct SynthEpi {  // u = acc / env + y_const, kept for the peak-norm scale
-  float* u;
-  const float* env;
-  const float* y_const;
-  int lr;
-  int hop;
-  __device__ float operator()(int b, int row, int col, float acc) const {
-    long long e = (long long)row * hop + col;
-    long long i = (long long)b * lr * hop + e;
-    float v = acc / env[e] + y_const[i];
-    u[i] = v;
-    return fabsf(v);
-  }
-};
-
-// y2 = u / (m1 (1 + e) + e^2) in place; m1 out.
+// y2 = u / peak_den(m1) in place; m1 out.
 __global__ void peak_scale(float* y, const unsigned int* max_bits, float* m1,
                            long long per_clip, int batch) {
   const long long total = per_clip * batch;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
     const float m = __uint_as_float(max_bits[i / per_clip]);
-    y[i] = y[i] / (m * (1.f + kEps) + kEps * kEps);
+    y[i] = y[i] / peak_den(m);
     if (i < batch) m1[i] = __uint_as_float(max_bits[i]);
   }
 }
 
-__device__ float block_max(float v, float* sh) {
-  for (int o = 16; o > 0; o /= 2) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if (threadIdx.x % 32 == 0) sh[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < kRedThreads / 32; ++w) s = fmaxf(s, sh[w]);
-  return s;
-}
-
-int elementwise_blocks(long long total) {
-  long long blocks = (total + 255) / 256;
-  return (int)(blocks < 4096 ? blocks : 4096);
-}
-
-// Per clip (one block each): cden, q (1+e) / cden with q = sum g * y2,
-// max |y2| and the number of elements that tie at it.
+// Per clip (one block each): the peak-norm VJP's scalars.
 __global__ void __launch_bounds__(kRedThreads)
 synth_bwd_scalars(const float* g, const float* y2, const float* m1, float* scal,
                   int per_clip) {
   __shared__ float sh[kRedThreads / 32];
   const int b = blockIdx.x;
-  const float* gb = g + (long long)b * per_clip;
-  const float* yb = y2 + (long long)b * per_clip;
-  float q = 0.f, mx = 0.f;
-  for (int i = threadIdx.x; i < per_clip; i += kRedThreads) {
-    q += gb[i] * yb[i];
-    mx = fmaxf(mx, fabsf(yb[i]));
-  }
-  q = block_sum(q, sh);
-  mx = block_max(mx, sh);
-  float ties = 0.f;
-  for (int i = threadIdx.x; i < per_clip; i += kRedThreads) ties += fabsf(yb[i]) == mx;
-  ties = block_sum(ties, sh);
-  if (threadIdx.x == 0) {
-    const float cden = m1[b] * (1.f + kEps) + kEps * kEps;
-    scal[4 * b + 0] = cden;
-    scal[4 * b + 1] = q * (1.f + kEps) / cden;
-    scal[4 * b + 2] = mx;
-    scal[4 * b + 3] = ties;
-  }
-}
-
-// dcoeffs = dreim[:, :P] * csin[:, :P] + dreim[:, P:] * csin[:, P:]
-__global__ void fold_phase(const float* dreim, const __nv_bfloat16* csin, float* dcoeffs,
-                           long long rows, int p) {
-  const long long total = rows * p;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i / p;
-    const int c = (int)(i % p);
-    const long long base = row * 2 * p + c;
-    dcoeffs[i] = dreim[base] * __bfloat162float(csin[base]) +
-                 dreim[base + p] * __bfloat162float(csin[base + p]);
-  }
+  synth_bwd_scalars_clip(g + (long long)b * per_clip, y2 + (long long)b * per_clip, m1[b],
+                         false, scal + 4 * b, per_clip, sh);
 }
 
 }  // namespace
@@ -203,7 +102,7 @@ int aw_synth_norm_bwd(const float* g, const float* y2, const float* m1,
   synth_bwd_scalars<<<batch, kRedThreads, 0, st>>>(g, y2, m1, scal, lr * hop);
   Geometry geo{t, 0, lr, hop, 2 * p, kR, +1, kPad, abt, (long long)2 * p,
                (long long)hop * 2 * p};
-  launch_shift_gemm<SynthBwdA, StoreEpi, false>(SynthBwdA{g, y2, env, scal, lr, hop},
+  launch_shift_gemm<SynthBwdA, StoreEpi, false>(SynthBwdA{g, y2, env, scal, lr, hop, false},
                                                 StoreEpi{dreim, t, 2 * p}, geo, batch,
                                                 nullptr, st);
   const long long rows = (long long)batch * t;

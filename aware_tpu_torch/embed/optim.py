@@ -18,6 +18,15 @@ class Optimizer(NamedTuple):
     update: Callable[..., tuple]
 
 
+def nadam_schedule(step, mu_prod, b1: float, psi: float):
+    """One step of NAdam's momentum schedule from the state before it:
+    (t, mu_t, mu_next, mu_prod * mu_t), float32 tensors like ``step``."""
+    t = step + 1.0
+    mu_t = b1 * (1.0 - 0.5 * 0.96 ** (t * psi))
+    mu_next = b1 * (1.0 - 0.5 * 0.96 ** ((t + 1.0) * psi))
+    return t, mu_t, mu_next, mu_prod * mu_t
+
+
 def nadam(
     betas: tuple[float, float] = (0.9, 0.999),
     eps: float = 1e-8,
@@ -40,12 +49,9 @@ def nadam(
     def update(g, s, p, lr):
         lr = torch.as_tensor(lr, dtype=p.dtype, device=p.device)
         lr = lr.reshape(lr.shape + (1,) * (p.ndim - lr.ndim))
-        t = s["step"] + 1.0
         if weight_decay:
             g = g + weight_decay * p
-        mu_t = b1 * (1.0 - 0.5 * 0.96 ** (t * psi))
-        mu_next = b1 * (1.0 - 0.5 * 0.96 ** ((t + 1.0) * psi))
-        mu_prod = s["mu_prod"] * mu_t
+        t, mu_t, mu_next, mu_prod = nadam_schedule(s["step"], s["mu_prod"], b1, psi)
         mu_prod_next = mu_prod * mu_next
         m = s["m"] + (1.0 - b1) * (g - s["m"])
         v = b2 * s["v"] + (1.0 - b2) * (g * g)

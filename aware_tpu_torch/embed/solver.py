@@ -1,24 +1,39 @@
 """The batched adversarial embed solver.
 
-The port of ``aware_tpu/embed/solver.py`` on the paths it takes with
-``use_pallas_roundtrip=True, use_pallas_iteration=False`` (its
-``build_problem`` slab-kernel geometry, ``embed_core``, ``embed_batch``
-and ``_reconstruct``).  Each of ``num_iterations`` steps, for all B clips
-at once, in the padded time-major (B, T, P) coefficient layout:
+The port of ``aware_tpu/embed/solver.py`` on its kernel paths
+(``use_pallas_roundtrip=True``: its ``build_problem`` slab-kernel geometry
+and path selection, ``embed_core``, ``embed_batch`` and ``_reconstruct``).
+Each of ``num_iterations`` steps, for all B clips at once, in the padded
+time-major (B, T, P) coefficient layout, on one of four paths that
+``build_problem`` selects as the JAX package does
+(``aware_tpu/embed/solver.py:451-511``) and records in ``Problem.path``:
 
-    synth_norm (kernel)   coeffs -> slab synthesis -> OLA -> envelope
-                          -> + out-of-band waveform -> double peak-norm -> y2
-    then, with use_pallas_detector (the default) where the JAX gate holds:
-    analysis_detector (kernels) y2 -> exact reflect-pad framing -> in-band
-                          Re/Im -> |.| -> the fused conv/norm detector -> bits
-    or else:
-    band_analysis (kernel) y2 -> zero-pad framing -> in-band Re/Im
-    + edge_corrections    the reflect-pad rows the kernel leaves out
-    safe_magnitude -> banded detector (plain torch)
-    push_extremes loss (per clip)
-    backward through the same chain (the kernels' VJPs)
-    NAdam step at the lr from before this step's scheduler tick,
-    scheduler tick, clamp to the +/- tolerance_db box, best snapshot.
+    "iteration_step" (the default card: use_pallas_iteration, the fused
+        detector's gate, push_extremes + NAdam without weight decay):
+        the whole step is the iteration_step kernel (ops/kernels/iteration.py):
+        synthesis -> double peak-norm -> reflect-pad analysis -> the fused
+        detector -> push_extremes loss and gradient -> backward -> NAdam at
+        the lr from before this step's scheduler tick -> clamp to the
+        +/- tolerance_db box -> best snapshot; then the scheduler tick.
+        Only the NAdam schedule's per-clip scalars and the tick are torch
+        ops, with no host sync;
+    "iteration_forward" (use_pallas_iteration otherwise; in the port, NAdam
+        with weight decay): the iteration_forward kernel and its VJP
+        through autograd, then the generic step below;
+    "analysis_detector" (use_pallas_iteration=False, the fused detector's
+        gate): synth_norm (kernel) coeffs -> slab synthesis -> OLA ->
+        envelope -> + out-of-band waveform -> double peak-norm -> y2, then
+        analysis_detector (kernels) y2 -> exact reflect-pad framing ->
+        in-band Re/Im -> |.| -> the fused conv/norm detector -> bits;
+    "band_analysis" (use_pallas_detector=False, or off the gate): synth_norm,
+        then band_analysis (kernel) y2 -> zero-pad framing -> in-band Re/Im
+        + edge_corrections (the reflect-pad rows the kernel leaves out) ->
+        safe_magnitude -> banded detector (plain torch).
+
+The generic step of the last three: push_extremes loss (per clip),
+backward through the same chain (the kernels' VJPs), NAdam step at the lr
+from before this step's scheduler tick, scheduler tick, clamp to the box,
+best snapshot.
 
 Reference quirks kept: the best snapshot pairs iteration t's loss with the
 post-step, post-clamp coefficients; the box comes from the initial
@@ -38,7 +53,7 @@ import torch
 
 from aware_tpu_torch.config import AwareConfig, in_band_bins
 from aware_tpu_torch.embed.losses import push_extremes
-from aware_tpu_torch.embed.optim import nadam
+from aware_tpu_torch.embed.optim import nadam, nadam_schedule
 from aware_tpu_torch.embed.schedulers import reduce_lr_on_plateau
 from aware_tpu_torch.models.detector import DetectorNet
 from aware_tpu_torch.ops.kernels.analysis_detector import (
@@ -47,9 +62,17 @@ from aware_tpu_torch.ops.kernels.analysis_detector import (
     analysis_detector,
 )
 from aware_tpu_torch.ops.kernels.detector import (
+    CH,
     P_BAND,
     fused_detector_consts,
     fused_detector_supported,
+)
+from aware_tpu_torch.ops.kernels.iteration import (
+    IterConsts,
+    iteration_forward,
+    iteration_step,
+    nadam_coefs,
+    step_buffers,
 )
 from aware_tpu_torch.ops.kernels.roundtrip import (
     R,
@@ -89,11 +112,6 @@ def check_supported(cfg: AwareConfig) -> None:
     unported = []
     if not cfg.use_pallas_roundtrip:
         unported.append("use_pallas_roundtrip=False (the XLA slab path)")
-    if cfg.use_pallas_iteration:
-        unported.append(
-            "use_pallas_iteration=True (the whole-iteration kernels iteration_forward "
-            "and iteration_step, aware_tpu/ops/pallas/iteration.py)"
-        )
     if cfg.optimizer_name != "nadam":
         unported.append(f"optimizer {cfg.optimizer_name!r}")
     if cfg.loss != "push_extremes":
@@ -138,6 +156,11 @@ class Problem:
     # the merged analysis + detector kernels' constants where they run
     # this problem, else None
     fused: AnalysisDetConsts | None = None
+    # the whole-iteration kernels' constants where they run it, else None
+    iteration: IterConsts | None = None
+    # the solver path (module docstring): "iteration_step",
+    # "iteration_forward", "analysis_detector" or "band_analysis"
+    path: str = "band_analysis"
 
     @property
     def nb(self) -> int:
@@ -148,10 +171,12 @@ def build_problem(
     net: DetectorNet, audios: torch.Tensor, watermarks: torch.Tensor, cfg: AwareConfig
 ) -> Problem:
     """Preprocess B equal-length clips (B, L) and build the kernels'
-    constants (peak-norm -> STFT -> magnitude/phase -> bases).  With
-    ``cfg.use_pallas_detector``, where the JAX package's gate holds
-    (``aware_tpu/embed/solver.py:451-457``), also the merged analysis + detector kernels'
-    constants from the keyed ``net``."""
+    constants (peak-norm -> STFT -> magnitude/phase -> bases), and select
+    the solver path.  With ``cfg.use_pallas_detector``, where the JAX
+    package's gate holds (``aware_tpu/embed/solver.py:451-457``), also the
+    merged analysis + detector kernels' constants from the keyed ``net``,
+    and with ``cfg.use_pallas_iteration`` the whole-iteration kernels'
+    (``aware_tpu/embed/solver.py:483-511``)."""
     n_fft, hop = cfg.frame_length, cfg.hop_length
     dev = audios.device
     window = get_window(cfg.window, cfg.win_length)
@@ -237,16 +262,30 @@ def build_problem(
             ),
         )
 
+    ab, abt = bf16(ab_np), bf16(ab_np.T)
+    csin = csin.to(torch.bfloat16)
+    y_const = y_const.contiguous()
+    iteration, path = None, "band_analysis" if fused is None else "analysis_detector"
+    if fused is not None and cfg.use_pallas_iteration:
+        iteration = IterConsts(csin=csin, y_const=y_const, env=env, ab=ab, abt=abt,
+                               csw=csw, cswt=cswt, det=fused.det)
+        step_whole = (
+            cfg.loss == "push_extremes"
+            and cfg.optimizer_name == "nadam"
+            and not cfg.opt_params.get("weight_decay", 0.0)
+        )
+        path = "iteration_step" if step_whole else "iteration_forward"
+
     return Problem(
         ct0=to_carry(coeffs0),
         lower=to_carry(lower),
         upper=to_carry(upper),
         wm=watermarks.to(dev, torch.float32),
-        csin=csin.to(torch.bfloat16),
-        y_const=y_const.contiguous(),
+        csin=csin,
+        y_const=y_const,
         env=env,
-        ab=bf16(ab_np),
-        abt=bf16(ab_np.T),
+        ab=ab,
+        abt=abt,
         csw=csw,
         cswt=cswt,
         csw_k=[
@@ -258,12 +297,16 @@ def build_problem(
         lo=lo,
         hi=hi,
         fused=fused,
+        iteration=iteration,
+        path=path,
     )
 
 
 def objective(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig):
     """Per-clip loss (B,) of the coefficients ct (B, T, P)."""
     t_frames, p = ct.shape[1], ct.shape[2]
+    if pb.iteration is not None:
+        return push_extremes(iteration_forward(ct, pb.iteration), pb.wm)
     y2 = synth_norm(ct, pb.csin, pb.y_const, pb.env, pb.ab, pb.abt)
     if pb.fused is not None:
         return push_extremes(analysis_detector(y2, pb.fused), pb.wm)
@@ -285,6 +328,85 @@ def _reconstruct(pb: Problem, best_coeffs: torch.Tensor, cfg: AwareConfig):
     )
 
 
+def _solve_steps(pb: Problem, cfg: AwareConfig):
+    """The "iteration_step" path's loop: one iteration_step call per
+    iteration, updating ct, m, v, best and best_loss in place, then the
+    scheduler tick on its loss.  NAdam's schedule comes from the same
+    float32 mu-product recursion as ``embed.optim.nadam``, per clip where
+    the lr is, on the device.  Returns (best, best_loss, final loss)."""
+    params = cfg.opt_params
+    b1, b2 = params.get("betas", (0.9, 0.999))
+    psi = params.get("momentum_decay", 4e-3)
+    coefs = nadam_coefs((b1, b2), params.get("eps", 1e-8))
+    sched = reduce_lr_on_plateau(**cfg.sched_params)
+    batch, t_frames, p = pb.ct0.shape
+    dev = pb.ct0.device
+
+    ct = pb.ct0.clone()
+    m, v = torch.zeros_like(ct), torch.zeros_like(ct)
+    best = ct.clone()
+    best_loss = torch.full((batch,), float("inf"), device=dev)
+    wm = torch.zeros(batch, CH[4], device=dev)
+    wm[:, : pb.wm.shape[1]] = pb.wm
+    step, mu_prod = torch.zeros((), device=dev), torch.ones((), device=dev)
+    sched_state = sched.init(float(params.get("lr", 0.1)), batch, dev)
+    bufs = None
+    if dev.type == "cuda":
+        bufs = step_buffers(batch, t_frames, 2 * p, cfg.hop_length, dev)
+    loss = best_loss
+    for _ in range(cfg.num_iterations):
+        lr = sched_state["lr"]  # the lr from before this step's tick
+        step, mu_t, mu_next, mu_prod = nadam_schedule(step, mu_prod, b1, psi)
+        s1 = lr * (1.0 - mu_t) / (1.0 - mu_prod)
+        s2 = lr * mu_next / (1.0 - mu_prod * mu_next)
+        d2 = (1.0 - b2**step).reshape(1)
+        loss = iteration_step(ct, m, v, best, best_loss, pb.lower, pb.upper, wm, s1, s2, d2,
+                              pb.iteration, coefs, bufs)
+        sched_state = sched.step(sched_state, loss)
+    return best, best_loss, loss.clone()
+
+
+def _solve_autograd(pb: Problem, net: DetectorNet, cfg: AwareConfig):
+    """The other paths' loop: the objective's gradient by autograd through
+    the kernels' VJPs, then NAdam, the tick, the clamp and the best
+    snapshot in torch (under the caller's no_grad).  Returns (best,
+    best_loss, final loss)."""
+    opt = nadam(**{k: v for k, v in cfg.opt_params.items() if k != "lr"})
+    sched = reduce_lr_on_plateau(**cfg.sched_params)
+    batch = pb.ct0.shape[0]
+    dev = pb.ct0.device
+
+    ct = pb.ct0
+    opt_state = opt.init(ct)
+    sched_state = sched.init(float(cfg.opt_params.get("lr", 0.1)), batch, dev)
+    best_loss = torch.full((batch,), float("inf"), device=dev)
+    best = ct
+    loss = best_loss
+    for _ in range(cfg.num_iterations):
+        leaf = ct.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = objective(leaf, pb, net, cfg)
+            (g,) = torch.autograd.grad(loss.sum(), leaf)
+        loss = loss.detach()
+        lr = sched_state["lr"]  # the lr from before this step's tick
+        ct, opt_state = opt.update(g, opt_state, ct, lr)
+        sched_state = sched.step(sched_state, loss)
+        ct = torch.clamp(ct, pb.lower, pb.upper)
+        better = loss < best_loss
+        best_loss = torch.where(better, loss, best_loss)
+        best = torch.where(better[:, None, None], ct, best)
+    return best, best_loss, loss
+
+
+def solve(pb: Problem, net: DetectorNet, cfg: AwareConfig):
+    """The solver loop on ``pb.path``: (best (B, T, P), best_loss (B,),
+    final loss (B,))."""
+    with torch.no_grad():
+        if pb.path == "iteration_step":
+            return _solve_steps(pb, cfg)
+        return _solve_autograd(pb, net, cfg)
+
+
 def embed_batch(
     net: DetectorNet,
     audios: torch.Tensor,
@@ -295,33 +417,8 @@ def embed_batch(
     (B, L), all on ``audios.device``."""
     check_supported(cfg)
     pb = build_problem(net, audios, watermarks, cfg)
-    opt = nadam(**{k: v for k, v in cfg.opt_params.items() if k != "lr"})
-    sched = reduce_lr_on_plateau(**cfg.sched_params)
-    batch = audios.shape[0]
-
-    ct = pb.ct0
-    opt_state = opt.init(ct)
-    sched_state = sched.init(float(cfg.opt_params.get("lr", 0.1)), batch, audios.device)
-    best_loss = torch.full((batch,), float("inf"), device=audios.device)
-    best = ct
-    loss = best_loss
-    for _ in range(cfg.num_iterations):
-        leaf = ct.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss = objective(leaf, pb, net, cfg)
-            (g,) = torch.autograd.grad(loss.sum(), leaf)
-        with torch.no_grad():
-            loss = loss.detach()
-            lr = sched_state["lr"]  # the lr from before this step's tick
-            ct, opt_state = opt.update(g, opt_state, ct, lr)
-            sched_state = sched.step(sched_state, loss)
-            ct = torch.clamp(ct, pb.lower, pb.upper)
-            better = loss < best_loss
-            best_loss = torch.where(better, loss, best_loss)
-            best = torch.where(better[:, None, None], ct, best)
-
+    best, best_loss, loss = solve(pb, net, cfg)
     with torch.no_grad():
         best_coeffs = best[..., : pb.nb].transpose(1, 2)
         audio = _reconstruct(pb, best_coeffs, cfg)
     return EmbedResult(audio, best_loss, loss, best_coeffs)
-

@@ -1,8 +1,10 @@
-"""How closely the detector kernels must agree with their plain versions.
+"""How closely the detector and whole-iteration kernels must agree with
+their plain versions.
 
 ``chip_smoke.py`` and ``tests/test_torch_gpu.py`` hold the CUDA kernels of
-``detector.py`` and ``analysis_detector.py`` to these bounds.  Run on a
-card, this module takes the readings the bounds were set from:
+``detector.py``, ``analysis_detector.py`` and ``iteration.py`` to these
+bounds.  Run on a card, this module takes the readings the detector
+bounds were set from:
 
     python3 -m aware_tpu_torch.ops.kernels.agreement [--seeds 8]
 
@@ -24,7 +26,17 @@ the bf16 residuals also to a share of elements more than one ulp apart
 the chain the solver runs (kernel forward, then the VJP kernel on its own
 residuals) against the plain chain, by direction and by norm.  Each bound
 is about twice the largest reading of the kernel or of the plain
-version's own spread over eight seeds (PERF.md has the readings).
+version's own spread over eight seeds (PERF.md has the readings); below
+32 frames the chain is held to twice the JAX kernels' own spread
+(SHORT_CHAIN_TOL).
+
+The whole-iteration kernels (``check_iteration``) run the same detector
+chains behind the synthesis and a bf16 rounding of its output, which
+widens their spread: they are held to bounds read the same way (ITER_*),
+plus what no bf16 rounding sits in front of: y2 and m1 (Y2_TOL, float32
+sums in another order) and the step's NAdam / clamp / best epilogue given
+the same input (EPILOGUE_TOL: the same IEEE operations; the best snapshot
+and best_loss exactly).
 """
 
 from __future__ import annotations
@@ -50,8 +62,47 @@ SHARE_TOL = {"nph": 5e-3, "mel": 1e-3, **{f"y{i}": 0.4 for i in range(4)}}
 # 1 - cosine, |norm ratio - 1|
 VJP_TOL = {"err": 1e-2, "1-cos": 1e-5, "norm": 5e-4}
 # kernel forward then VJP kernel against the plain chain, from 32 frames
-# (below, one flip turns the plain chain itself by up to 1 - cosine 0.19)
 CHAIN_TOL = {"1-cos": 3e-2, "norm": 5e-3}
+# the same below 32 frames: twice the JAX kernels' own chain spread at
+# T = 8, 9 (moving their input by 1e-6 of itself turns their chain by up to
+# 1 - cosine 1.23 and changes its norm by up to 51 %), so the direction
+# bound is its whole range and only the norm binds; short clips are held at
+# the outcome level on the card (chip_smoke.py's short-clip phase)
+SHORT_CHAIN_TOL = {"1-cos": 2.0, "norm": 1.0}
+
+
+# The whole-iteration kernels run the detector chains behind the
+# synthesis, whose output y2 is rounded to bf16 before the analysis: each
+# ulp of difference in y2 flips some of those roundings too, so their
+# detector outputs spread wider than the detector kernels' own.  Bounds,
+# about twice the larger reading of the kernel and of the plain version
+# with ct moved by 1e-6 of itself, on speech-like problems
+# (``iteration_problem``), eight seeds at T = 8, 9 and at T = 33, 97, 626
+# (``--only iteration``; PERF.md has the readings):
+ITER_FWD_TOL = {
+    "pred": (5e-2, 0.3),
+    "mu1": (6e-4, 1e-3), "r1": (1.6e-3, 7e-3), "gr": (3e-5, 1.6e-4), "s": (3e-5, 1.6e-4),
+    "gmu": (3e-7, 3e-7),
+    **{f"rin{i}": (2e-2, 0.35) for i in range(4)},
+    **{f"y{i}": (4e-2, 0.3) for i in range(4)},
+    "mel": (2.0**-6, 2.0**-6),
+}
+ITER_SHARE_TOL = {"nph": 0.15, "mel": 1.2e-2, **{f"y{i}": 0.55 for i in range(4)}}
+# the chain (and the step's own gradient) from 32 frames; below it
+# SHORT_CHAIN_TOL (the iteration chain turns by up to 1 - cosine 0.13)
+ITER_CHAIN_TOL = {"1-cos": 0.2, "norm": 6e-2}
+# the step's loss: max error / max|plain|, (from 32 frames, below 32 frames)
+ITER_LOSS_TOL = (1e-3, 4e-3)
+# the step's loss against push_extremes of the step's own pred: max error
+# / max|plain| (a sum of 20 terms in another order)
+STEP_LOSS_TOL = 1e-5
+# q = sum gy2 y2 of the step's peak-norm VJP: error / sum |gy2 y2|
+SCALAR_TOL = 1e-5
+# y2 and m1 of the iteration forward, before any bf16 rounding: max error
+# / max|plain| (float32 sums in another order; measured 1.3e-6)
+Y2_TOL = 1e-5
+# the step's epilogue given the same dreim: ct, m, v, max error / max|plain|
+EPILOGUE_TOL = 1e-6
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -75,7 +126,7 @@ def forward_report(res_k, res_p) -> dict:
     return out
 
 
-def check_forward(res_k, res_p, t: int) -> dict:
+def check_forward(res_k, res_p, t: int, fwd_tol=FWD_TOL, share_tol=SHARE_TOL) -> dict:
     """Raise AssertionError where the kernel's forward (pred and every
     residual) departs from the plain one's by more than the bounds; return
     the report."""
@@ -84,8 +135,8 @@ def check_forward(res_k, res_p, t: int) -> dict:
         assert bool(torch.isfinite(a.float()).all()), f"{name} is not finite"
     r = forward_report(res_k, res_p)
     short = int(t < SHORT_FRAMES)
-    bad = [n for n, tol in FWD_TOL.items() if not r[n] <= tol[short]]
-    bad += [n + "_share" for n, tol in SHARE_TOL.items() if not r[n + "_share"] <= tol]
+    bad = [n for n, tol in fwd_tol.items() if not r[n] <= tol[short]]
+    bad += [n + "_share" for n, tol in share_tol.items() if not r[n + "_share"] <= tol]
     assert not bad, f"forward departs from the plain version in {bad}: {fmt(r)}"
     return r
 
@@ -101,15 +152,136 @@ def vjp_report(out_k: torch.Tensor, out_p: torch.Tensor) -> dict:
     }
 
 
-def check_vjp(out_k: torch.Tensor, out_p: torch.Tensor, chain: bool = False) -> dict:
+def check_vjp(out_k: torch.Tensor, out_p: torch.Tensor, chain: bool = False,
+              t: int = SHORT_FRAMES, chain_tol=CHAIN_TOL) -> dict:
     """The VJP kernel against the plain VJP from the same residuals, or
-    (``chain``) the kernel forward then backward against the plain chain."""
+    (``chain``) the kernel forward then backward against the plain chain
+    on clips of ``t`` frames."""
     assert out_k.shape == out_p.shape, (out_k.shape, out_p.shape)
     assert bool(torch.isfinite(out_k).all()), "the cotangent is not finite"
     r = vjp_report(out_k, out_p)
-    bad = [k for k, tol in (CHAIN_TOL if chain else VJP_TOL).items() if not r[k] <= tol]
+    tols = VJP_TOL
+    if chain:
+        tols = SHORT_CHAIN_TOL if t < SHORT_FRAMES else chain_tol
+    bad = [k for k, tol in tols.items() if not r[k] <= tol]
     assert not bad, f"{'chain' if chain else 'VJP'} departs from the plain one in {bad}: {fmt(r)}"
     return r
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-30))
+
+
+def check_iteration(ct, c, wm, g, k, t: int, seed: int = 0) -> dict:
+    """The three whole-iteration kernels (ops/kernels/iteration.py) against
+    their plain versions on ct (B, T, P), the constants c, the padded
+    message wm (B, 128), a cotangent g (B, 128) and the NAdam constants k:
+
+    * iteration_forward_fwd on pred and every residual (check_forward with
+      ITER_FWD_TOL, ITER_SHARE_TOL), y2 and m1 to Y2_TOL;
+    * iteration_forward_bwd from the plain residuals (VJP_TOL), and the
+      chain from its own forward's (ITER_CHAIN_TOL, below 32 frames
+      SHORT_CHAIN_TOL);
+    * iteration_step at t = 1 (m = v = 0, lr 0.1): the loss to
+      ITER_LOSS_TOL, its gradient (the phase fold of the dreim it leaves in
+      its scratch) against the plain chain's as a chain; its loss and
+      gradient against push_extremes of its own pred (STEP_LOSS_TOL) taken
+      back through the VJP kernel on its own residuals (VJP_TOL), which
+      holds its loss gradient and its chain tightly; the peak-norm VJP's
+      per-clip scalars against the same reductions of its own gy2 and y2
+      (exact, q to SCALAR_TOL); and its epilogue alone
+      given one random dreim and state (``seed``) to EPILOGUE_TOL, best and
+      best_loss exactly.
+
+    Raises AssertionError on a departure; returns the readings, with the
+    largest absolute error of each kernel's output under its name."""
+    from aware_tpu_torch.embed.optim import nadam_schedule
+    from aware_tpu_torch.ops.kernels import iteration as it
+    from aware_tpu_torch.ops.kernels.roundtrip import peak_den, phase_fold_plain
+
+    out: dict = {}
+    _, res_k = it.iteration_forward_fwd(ct, c)
+    _, res_p = it.iteration_forward_fwd_plain(ct, c)
+    out["fwd"] = check_forward(res_k.det, res_p.det, t, ITER_FWD_TOL, ITER_SHARE_TOL)
+    # the peak-normalized signal rows (not the detector's residual y2)
+    out["signal"] = {"y2": _rel(res_k.y2, res_p.y2), "m1": _rel(res_k.m1, res_p.m1)}
+    assert all(v <= Y2_TOL for v in out["signal"].values()), fmt(out["signal"])
+    out["iteration_forward_fwd"] = float((res_k.det.pred - res_p.det.pred).abs().max())
+
+    ref = it.iteration_forward_bwd_plain(g, res_p, c)
+    vjp = it.iteration_forward_bwd(g, res_p, c)
+    out["bwd"] = check_vjp(vjp, ref)
+    out["bwd chain"] = check_vjp(it.iteration_forward_bwd(g, res_k, c), ref, chain=True, t=t,
+                                 chain_tol=ITER_CHAIN_TOL)
+    out["iteration_forward_bwd"] = float((vjp - ref).abs().max())
+
+    b, _, p = ct.shape
+    hop = c.env.shape[-1]
+    lr = torch.full((b,), 0.1, device=ct.device)
+    t1, _, mu_next, mu_prod = nadam_schedule(torch.zeros((), device=ct.device),
+                                             torch.ones((), device=ct.device), 0.9, 4e-3)
+    s1, s2 = lr, lr * mu_next / (1.0 - mu_prod * mu_next)  # at t = 1, mu_prod = mu_t
+    d2 = (1.0 - 0.999**t1).reshape(1)
+
+    def fresh():
+        return [ct.clone(), torch.zeros_like(ct), torch.zeros_like(ct), ct.clone(),
+                torch.full((b,), float("inf"), device=ct.device)]
+
+    lower, upper = ct - ct.abs() / 2, ct + ct.abs() / 2
+    state_k, state_p = fresh(), fresh()
+    bufs = it.step_buffers(b, t, 2 * p, hop, ct.device) if ct.is_cuda else None
+    loss_k = it.iteration_step(*state_k, lower, upper, wm, s1, s2, d2, c, k, bufs)
+    loss_p = it.iteration_step_plain(*state_p, lower, upper, wm, s1, s2, d2, c, k)
+    out["step loss"] = _rel(loss_k, loss_p)
+    assert out["step loss"] <= ITER_LOSS_TOL[int(t < SHORT_FRAMES)], out["step loss"]
+    out["iteration_step"] = float((loss_k - loss_p).abs().max())
+    if bufs is not None:  # the gradient the kernel stepped with
+        g_k = phase_fold_plain(bufs.scratch.big, c.csin)
+        pred_p, res = it.iteration_forward_fwd_plain(ct, c)
+        g_p = it.iteration_forward_bwd_plain(it.push_extremes_grad(pred_p, wm)[1], res, c)
+        out["step gradient"] = check_vjp(g_k, g_p, chain=True, t=t, chain_tol=ITER_CHAIN_TOL)
+        # and, tighter, against the plain loss and gradient of the step's
+        # own pred, taken back through the VJP kernel on its own residuals
+        loss_own, dpred_own = it.push_extremes_grad(bufs.res.det.pred, wm)
+        out["step own loss"] = _rel(loss_k, loss_own)
+        assert out["step own loss"] <= STEP_LOSS_TOL, out["step own loss"]
+        out["step own gradient"] = check_vjp(
+            g_k, it.iteration_forward_bwd(dpred_own, bufs.res, c))
+        # the peak-norm VJP's per-clip scalars (cden, q (1+e) / cden, max |y2|,
+        # ties) against the same reductions of the step's own folded gy2 and
+        # y2: exact but for q, a sum in another order
+        y2, gy2, scal = bufs.res.y2, bufs.scratch.gy2, bufs.scratch.scal
+        mx = y2.abs().amax(dim=(1, 2))
+        cden = peak_den(bufs.res.m1)[:, 0, 0]
+        q = (gy2.double() * y2.double()).sum(dim=(1, 2)) * (1.0 + 1e-8) / cden.double()
+        q_scale = (gy2.double() * y2.double()).abs().sum(dim=(1, 2)) / cden.double()
+        out["step scalars"] = {"q": float(((scal[:, 1].double() - q).abs() / q_scale).max())}
+        assert torch.equal(scal[:, 0], cden) and torch.equal(scal[:, 2], mx), "cden, max|y2|"
+        assert torch.equal(scal[:, 3], (y2.abs() == mx[:, None, None]).sum(dim=(1, 2)).float()), \
+            "ties"
+        assert out["step scalars"]["q"] <= SCALAR_TOL, fmt(out["step scalars"])
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(ct.device)
+
+    dreim = rand(b, t, 2 * p, scale=1e-2)
+    loss = rand(b)
+    best_loss = loss + torch.tensor([(-0.1) ** i for i in range(b)], device=ct.device)
+    state = [ct, rand(b, t, p, scale=1e-3), rand(b, t, p, scale=1e-3).abs(),
+             ct + rand(b, t, p), best_loss]
+    state_k = [x.clone() for x in state]
+    state_p = [x.clone() for x in state]
+    args = (lower, upper, loss, s1 * rand(b).abs(), s2 * rand(b).abs(), d2)
+    it._step_epilogue(dreim, c.csin, *state_k, *args, k)
+    it.step_epilogue_plain(phase_fold_plain(dreim, c.csin), *state_p, *args, k)
+    out["epilogue"] = {n: _rel(a, r) for n, a, r in zip(("ct", "m", "v"), state_k, state_p)}
+    assert all(v <= EPILOGUE_TOL for v in out["epilogue"].values()), fmt(out["epilogue"])
+    better = (loss < state[4])[:, None, None]
+    assert torch.equal(state_k[3], torch.where(better, state_k[0], state[3])), "best"
+    assert torch.equal(state_k[4], state_p[4]), "best_loss"
+    return out
 
 
 def fmt(report: dict) -> str:
@@ -190,16 +362,114 @@ def _readings(seeds: int, frames: tuple[int, ...], batch: int, dev: torch.device
         print(f"  {name} T={t} {k}: {v:.3e}")
 
 
+def iteration_problem(t: int, batch: int, seed: int, device):
+    """Operands of the whole-iteration kernels for ``batch`` speech-like
+    clips of ``t`` frames (noise and pitch from ``seed``), built by the
+    solver's build_problem on the default card: (ct0 (B, T, P), IterConsts,
+    the padded messages wm (B, 128), a cotangent g (B, 128))."""
+    import numpy as np
+
+    from aware_tpu_torch.config import AwareConfig
+    from aware_tpu_torch.embed.solver import build_problem
+    from aware_tpu_torch.models.detector import DetectorNet, load_key_params, params_from_jax
+
+    rng = np.random.default_rng(seed)
+    cfg = AwareConfig()
+    sr, n = 16000, (t - 1) * cfg.hop_length
+    tt = np.arange(n) / sr
+    clips = []
+    for _ in range(batch):
+        ph = np.cumsum(2 * np.pi * (rng.uniform(100, 180) + 25 * np.sin(2 * np.pi * 2.3 * tt)) / sr)
+        x = sum(np.cos(k * ph) / k for k in range(1, 25))
+        x = x * (0.4 + 0.6 * np.clip(np.sin(2 * np.pi * 3.1 * tt), 0, None))
+        x = x + 0.02 * rng.standard_normal(n)
+        clips.append(x / np.max(np.abs(x)))
+    bits = rng.integers(0, 2, (batch, 20))
+    wm = torch.zeros(batch, 128, device=device)
+    wm[:, :20] = torch.as_tensor(2.0 * bits - 1.0, dtype=torch.float32, device=device)
+    g = torch.zeros(batch, 128, device=device)
+    g[:, :20] = torch.as_tensor(rng.standard_normal((batch, 20)), dtype=torch.float32,
+                                device=device)
+    net = DetectorNet(params_from_jax(load_key_params()), cfg.detection_net).to(device)
+    pb = build_problem(net, torch.as_tensor(np.stack(clips), dtype=torch.float32, device=device),
+                       wm[:, :20], cfg)
+    return pb.ct0, pb.iteration, wm, g
+
+
+def _iteration_readings(seeds: int, frames: tuple[int, ...], batch: int, dev) -> None:
+    """The readings behind the whole-iteration kernels' bounds: each
+    kernel against its plain version, and the plain version against itself
+    with its input (ct, or g for the VJP) moved by 1e-6 of itself."""
+    from aware_tpu_torch.ops.kernels import iteration as it
+    from aware_tpu_torch.ops.kernels.roundtrip import phase_fold_plain
+
+    worst: dict = {}
+    k = it.nadam_coefs()
+    for t in frames:
+        for seed in range(seeds):
+            ct, c, wm, g = iteration_problem(t, batch, 1000 * seed + t, dev)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            moved = ct * (1 + 1e-6 * torch.randn(ct.shape, generator=gen, device=dev))
+            g_moved = g * (1 + 1e-6 * torch.randn(g.shape, generator=gen, device=dev))
+            _, rk = it.iteration_forward_fwd(ct, c)
+            _, rp = it.iteration_forward_fwd_plain(ct, c)
+            _, rm = it.iteration_forward_fwd_plain(moved, c)
+            row = {f"fwd {n}": v for n, v in forward_report(rk.det, rp.det).items()}
+            row.update({f"self {n}": v for n, v in forward_report(rm.det, rp.det).items()})
+            row.update({"fwd signal y2": _rel(rk.y2, rp.y2), "self signal y2": _rel(rm.y2, rp.y2)})
+            ref = it.iteration_forward_bwd_plain(g, rp, c)
+            for label, got in (("vjp", it.iteration_forward_bwd(g, rp, c)),
+                               ("self vjp", it.iteration_forward_bwd_plain(g_moved, rp, c)),
+                               ("chain", it.iteration_forward_bwd(g, rk, c)),
+                               ("self chain", it.iteration_forward_bwd_plain(g, rm, c))):
+                row.update({f"{label} {n}": v for n, v in vjp_report(got, ref).items()})
+            b, _, p = ct.shape
+            s = torch.full((b,), 0.1, device=dev)
+            d2 = torch.full((1,), 1e-3, device=dev)
+            losses, grads = [], []
+            for fn, x in ((it.iteration_step, ct), (it.iteration_step_plain, ct),
+                          (it.iteration_step_plain, moved)):
+                state = [x.clone(), torch.zeros_like(x), torch.zeros_like(x), x.clone(),
+                         torch.full((b,), float("inf"), device=dev)]
+                bufs = it.step_buffers(b, t, 2 * p, c.env.shape[-1], dev)
+                args = (x - x.abs() / 2, x + x.abs() / 2, wm, s, s, d2, c, k)
+                if fn is it.iteration_step:
+                    losses.append(fn(*state, *args, bufs).clone())
+                    grads.append(phase_fold_plain(bufs.scratch.big, c.csin))
+                else:
+                    losses.append(fn(*state, *args))
+                    pred, res = it.iteration_forward_fwd_plain(x, c)
+                    grads.append(it.iteration_forward_bwd_plain(
+                        it.push_extremes_grad(pred, wm)[1], res, c))
+            row["step loss"] = _rel(losses[0], losses[1])
+            row["self step loss"] = _rel(losses[2], losses[1])
+            row.update({f"step grad {n}": v for n, v in vjp_report(grads[0], grads[1]).items()})
+            row.update({f"self step grad {n}": v
+                        for n, v in vjp_report(grads[2], grads[1]).items()})
+            print(f"iteration T={t} B={batch} seed {seed}: {fmt(row)}", flush=True)
+            for key, v in row.items():
+                worst[(t, key)] = max(worst.get((t, key), 0.0), v)
+    print(f"iteration: largest readings over {seeds} seeds:")
+    for (t, key), v in sorted(worst.items()):
+        print(f"  iteration T={t} {key}: {v:.3e}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, default=8)
     ap.add_argument("--frames", type=int, nargs="+", default=[8, 9, 33, 97, 626])
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--only", choices=("detector", "iteration"), default=None,
+                    help="the detector kernels' readings, or the whole-iteration kernels'")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("agreement: no CUDA card")
         return 1
-    _readings(args.seeds, tuple(args.frames), args.batch, torch.device("cuda"))
+    dev = torch.device("cuda")
+    if args.only != "iteration":
+        _readings(args.seeds, tuple(args.frames), args.batch, dev)
+    if args.only != "detector":
+        _iteration_readings(args.seeds, tuple(args.frames), args.batch, dev)
     return 0
 
 

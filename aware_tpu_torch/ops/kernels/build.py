@@ -30,6 +30,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argument types of each C entry (csrc/*.cu); every entry returns its
 # cudaGetLastError()
 SIGNATURES = {
@@ -41,6 +42,11 @@ SIGNATURES = {
     "aw_detector_bwd": [_P] * 30 + [_I] * 3 + [_P],
     "aw_reflect_analysis_fwd": [_P] * 3 + [_I] * 4 + [_P],
     "aw_reflect_analysis_bwd": [_P] * 4 + [_I] * 4 + [_P],
+    # a host array of device pointers and its length, then the sizes
+    "aw_iteration_fwd": [_P] + [_I] * 5 + [_P],
+    "aw_iteration_bwd": [_P] + [_I] * 5 + [_P],
+    "aw_iteration_step": [_P] + [_I] * 5 + [_F] * 4 + [_P],
+    "aw_step_epilogue": [_P] + [_I] * 4 + [_F] * 4 + [_P],
 }
 
 

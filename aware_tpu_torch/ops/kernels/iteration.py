@@ -1,0 +1,423 @@
+"""The whole-iteration kernels: iteration_forward (forward and VJP) and
+iteration_step.
+
+The port of ``aware_tpu/ops/pallas/iteration.py``: the embed solver's
+whole differentiable iteration for a batch of B clips, in the padded
+time-major coefficient layout,
+
+    ct (B, T, P) -> synthesis u (B, T-1, hop), m1 = max |u|, y2 = u / cden
+       -> reflect-pad slab analysis -> the fused detector -> pred (B, 128)
+
+(``synth_norm`` then ``analysis_detector`` in one chain), its VJP back to
+the coefficients, and the solver's whole step on top of them: the
+push_extremes loss and gradient, the backward, torch's NAdam update, the
+clamp to the box and the best snapshot.  Three CUDA entries of
+``csrc/iteration.cu``, each a fixed chain of launches on the current
+stream (their launches are listed there):
+
+* ``iteration_forward_fwd`` replaces ``_iter_fwd_kernel``
+  (aware_tpu/ops/pallas/iteration.py:72, pallas_call :173): ct (B, T, P)
+  f32 -> pred (B, 128) f32 and ``IterResiduals`` (the detector's 16, u and
+  m1; 13 launches);
+* ``iteration_forward_bwd`` replaces ``_iter_bwd_kernel`` (:193,
+  pallas_call :285): g (B, 128) -> dct (B, T, P) f32 (15 launches);
+* ``iteration_step`` replaces ``_step_kernel`` (:341, pallas_call :513):
+  ct, m, v, best (B, T, P) and best_loss (B,) updated in place, loss (B,)
+  out (29 launches).
+
+Each wrapper checks its operands, counts its own launches in
+``launches``, and on CUDA tensors launches its kernel or raises; on CPU
+tensors it runs its plain version (``*_plain``), built from the plain
+versions of ``roundtrip.py`` and ``analysis_detector.py``, which the CPU
+tests hold against the JAX kernels and the chip check holds the kernels
+against.
+
+The backward's residual is u, the synthesis before the peak-norm, never
+y2: every consumer forms y2 = u / cden (cden = m1 (1 + 1e-8) + 1e-16)
+itself, the same float as the forward's.  ``_IterationForward`` is the
+``torch.autograd.Function`` over the two directions (``iteration_forward``
+returns (B, 20)); the solver's step path calls ``iteration_step`` with
+buffers allocated once per solve (``step_buffers``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from aware_tpu_torch.embed.losses import push_extremes
+from aware_tpu_torch.ops.kernels.analysis_detector import (
+    MIN_FRAMES,
+    AnalysisDetConsts,
+    analysis_detector_bwd_plain,
+    analysis_detector_fwd_plain,
+)
+from aware_tpu_torch.ops.kernels.detector import (
+    CH,
+    N_BITS,
+    P_BAND,
+    DetConsts,
+    DetResiduals,
+    _check_consts,
+    _residual_shapes,
+)
+from aware_tpu_torch.ops.kernels.roundtrip import (
+    PAD,
+    R,
+    _check,
+    _check_geometry,
+    _run,
+    peak_den,
+    phase_fold_plain,
+    synth_norm_bwd_plain,
+    synth_u_plain,
+)
+
+_BF16 = torch.bfloat16
+_F32 = torch.float32
+
+
+class IterConsts(NamedTuple):
+    """The constants of every iteration, batched over B where per clip
+    (the solver's ``Problem`` holds them).  The JAX kernels' reflect-pad
+    flip matrices are built by the plain versions where they need them."""
+
+    csin: torch.Tensor     # (B, T, 2P) bf16 [cos | sin] of the in-band phase
+    y_const: torch.Tensor  # (B, T-1, hop) f32 envelope-divided out-of-band wave
+    env: torch.Tensor      # (T-1, hop) f32 OLA envelope
+    ab: torch.Tensor       # (2P, n_fft) bf16 synthesis basis, window folded
+    abt: torch.Tensor      # (n_fft, 2P) bf16
+    csw: torch.Tensor      # (n_fft, 2P) bf16 windowed analysis basis
+    cswt: torch.Tensor     # (2P, n_fft) bf16
+    det: DetConsts
+
+    @property
+    def analysis(self) -> AnalysisDetConsts:
+        return AnalysisDetConsts(csw=self.csw, cswt=self.cswt, det=self.det)
+
+
+class IterResiduals(NamedTuple):
+    """What the forward keeps for the VJP."""
+
+    det: DetResiduals  # the detector's 16 (pred first)
+    u: torch.Tensor    # (B, T-1, hop) f32 synthesis before the peak-norm
+    m1: torch.Tensor   # (B,) f32 max |u|
+
+    @property
+    def y2(self) -> torch.Tensor:
+        """The peak-normalized signal rows, u / cden."""
+        return self.u / peak_den(self.m1)
+
+
+class NadamCoefs(NamedTuple):
+    """torch.optim.NAdam's constants of the step's epilogue."""
+
+    c_m: float  # 1 - b1
+    b2: float
+    c_v: float  # 1 - b2
+    eps: float
+
+
+def nadam_coefs(betas=(0.9, 0.999), eps: float = 1e-8) -> NadamCoefs:
+    b1, b2 = betas
+    return NadamCoefs(1.0 - b1, b2, 1.0 - b2, eps)
+
+
+class Scratch(NamedTuple):
+    """The chains' scratch (csrc/iteration.cu ``IterScratch``), all f32."""
+
+    big: torch.Tensor    # (B, T, 2P): cs2, then dcs, then dreim
+    mel32: torch.Tensor  # (B, T, 128)
+    ha: torch.Tensor     # (B, T2, 1024)
+    hb: torch.Tensor     # (B, T2, 1024)
+    mu: torch.Tensor     # (B, 1024)
+    m2: torch.Tensor     # (B, 1024)
+    small: torch.Tensor  # (B, 128)
+    clip2: torch.Tensor  # (B, 2)
+    gy2: torch.Tensor    # (B, T-1, hop)
+    gpad: torch.Tensor   # (B, 4, hop)
+    scal: torch.Tensor   # (B, 4)
+
+
+class StepBuffers(NamedTuple):
+    """What ``iteration_step`` writes besides the state: the forward's
+    residuals, the scratch and the loss; allocated once per solve."""
+
+    res: IterResiduals
+    scratch: Scratch
+    loss: torch.Tensor  # (B,) f32, the last step's loss
+
+
+def _scratch_shapes(b: int, t: int, p2: int, hop: int) -> tuple:
+    t2 = t // 2
+    return ((b, t, p2), (b, t, CH[0]), (b, t2, CH[2]), (b, t2, CH[2]), (b, CH[2]), (b, CH[2]),
+            (b, CH[4]), (b, 2), (b, t - 1, hop), (b, 2 * PAD, hop), (b, 4))
+
+
+def _scratch(b: int, t: int, p2: int, hop: int, dev) -> Scratch:
+    return Scratch(*(torch.empty(s, dtype=_F32, device=dev)
+                     for s in _scratch_shapes(b, t, p2, hop)))
+
+
+def _residuals(b: int, t: int, p2: int, hop: int, dev) -> IterResiduals:
+    det = DetResiduals(**{
+        k: torch.empty(shape, dtype=dtype, device=dev)
+        for k, (shape, dtype) in _residual_shapes(b, t, p2).items()
+    })
+    return IterResiduals(det, torch.empty(b, t - 1, hop, device=dev), torch.empty(b, device=dev))
+
+
+def step_buffers(b: int, t: int, p2: int, hop: int, device) -> StepBuffers:
+    """The buffers of ``iteration_step`` for B clips of T frames (CUDA;
+    the plain version needs none)."""
+    return StepBuffers(_residuals(b, t, p2, hop, device), _scratch(b, t, p2, hop, device),
+                       torch.empty(b, device=device))
+
+
+# ---------------------------------------------------------- plain versions ---
+
+def iteration_forward_fwd_plain(ct: torch.Tensor, c: IterConsts):
+    """ct (B, T, P) -> (pred (B, 128), IterResiduals): ``synth_norm`` then
+    ``analysis_detector``.  Differentiable w.r.t. ct by autograd."""
+    u = synth_u_plain(ct, c.csin, c.y_const, c.env, c.ab)
+    m1 = u.abs().amax(dim=(1, 2))
+    pred, det = analysis_detector_fwd_plain(u / peak_den(m1), c.analysis)
+    return pred, IterResiduals(det, u, m1)
+
+
+def iteration_forward_bwd_plain(g: torch.Tensor, res: IterResiduals, c: IterConsts):
+    """VJP of :func:`iteration_forward_fwd_plain` w.r.t. ct: g (B, 128) ->
+    dct (B, T, P), from the forward's residuals."""
+    gy2 = analysis_detector_bwd_plain(g, res.det, c.analysis)
+    return synth_norm_bwd_plain(gy2, res.y2, res.m1, c.csin, c.env, c.abt)
+
+
+def push_extremes_grad(pred: torch.Tensor, wm: torch.Tensor):
+    """The push_extremes loss of the first 20 lanes of pred (B, 128) against
+    wm (B, 128), per clip (B,), and its gradient on pred (B, 128), 0 on the
+    other lanes: (2 (pred - wm) - 0.1 sgn(pred)) / 20, taken by autograd of
+    ``embed.losses.push_extremes`` so that it is the float the autograd
+    paths of the solver get."""
+    with torch.enable_grad():
+        p = pred[:, :N_BITS].detach().requires_grad_(True)
+        loss = push_extremes(p, wm[:, :N_BITS])
+        (dp,) = torch.autograd.grad(loss.sum(), p)
+    dpred = torch.zeros_like(pred)
+    dpred[:, :N_BITS] = dp
+    return loss.detach(), dpred
+
+
+def step_epilogue_plain(g, ct, m, v, best, best_loss, lower, upper, loss, s1, s2, d2,
+                        k: NadamCoefs) -> None:
+    """The step's epilogue, in place on ct, m, v, best and best_loss:
+    torch's NAdam update with the per-clip s1, s2 (B,) and the shared d2,
+    the clamp to [lower, upper], then best = new ct and best_loss = loss
+    where loss < best_loss.  The same operations in the same order as
+    ``embed.optim.nadam`` and the solver's generic loop."""
+    m_new = m + k.c_m * (g - m)
+    v_new = k.b2 * v + k.c_v * (g * g)
+    denom = torch.sqrt(v_new / d2) + k.eps
+    new = ct - s1[:, None, None] * g / denom
+    new = new - s2[:, None, None] * m_new / denom
+    new = torch.clamp(new, lower, upper)
+    better = loss < best_loss
+    best.copy_(torch.where(better[:, None, None], new, best))
+    best_loss.copy_(torch.where(better, loss, best_loss))
+    ct.copy_(new)
+    m.copy_(m_new)
+    v.copy_(v_new)
+
+
+def iteration_step_plain(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2,
+                         c: IterConsts, k: NadamCoefs) -> torch.Tensor:
+    """One whole solver step, in place on ct, m, v, best and best_loss;
+    returns the pre-step ct's loss (B,)."""
+    pred, res = iteration_forward_fwd_plain(ct, c)
+    loss, dpred = push_extremes_grad(pred, wm)
+    g = iteration_forward_bwd_plain(dpred, res, c)
+    step_epilogue_plain(g, ct, m, v, best, best_loss, lower, upper, loss, s1, s2, d2, k)
+    return loss
+
+
+# ---------------------------------------------------------------- wrappers ---
+
+_DET_FWD = ("melb", "w0t", "w1t", "w2t", "w3t", "biases", "eo")
+_DET_BWD = ("w0", "w1", "w2", "w3", "eot", "melbt")
+
+
+def _run_table(entry: str, device, tensors, *args) -> None:
+    """Launch a C entry that takes a host array of device pointers."""
+    table = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+    _run(entry, device, table, len(tensors), *args)
+
+
+def _check_iter(c: IterConsts, b: int, t: int, p: int, dev) -> int:
+    """Check the constants for B clips of T frames; returns hop."""
+    hop = c.env.shape[-1]
+    p2 = 2 * p
+    _check_geometry(p, hop, c.ab.shape[-1])
+    if p != P_BAND:
+        raise ValueError(f"the whole-iteration kernels need P == {P_BAND} (got {p})")
+    if not MIN_FRAMES <= t:
+        raise ValueError(f"the whole-iteration kernels need T >= {MIN_FRAMES} frames (got {t})")
+    _check("csin", c.csin, (b, t, p2), _BF16, dev)
+    _check("y_const", c.y_const, (b, t - 1, hop), _F32, dev)
+    _check("env", c.env, (t - 1, hop), _F32, dev)
+    _check("ab", c.ab, (p2, R * hop), _BF16, dev)
+    _check("abt", c.abt, (R * hop, p2), _BF16, dev)
+    _check("csw", c.csw, (R * hop, p2), _BF16, dev)
+    _check("cswt", c.cswt, (p2, R * hop), _BF16, dev)
+    _check_consts(c.det, p, dev)
+    return hop
+
+
+def _check_residuals(res: IterResiduals, b: int, t: int, p2: int, hop: int, dev) -> None:
+    for name, (shape, dtype) in _residual_shapes(b, t, p2).items():
+        _check(name, getattr(res.det, name), shape, dtype, dev)
+    _check("u", res.u, (b, t - 1, hop), _F32, dev)
+    _check("m1", res.m1, (b,), _F32, dev)
+
+
+def _check_scratch(ws: Scratch, b: int, t: int, p2: int, hop: int, dev) -> None:
+    for name, x, shape in zip(Scratch._fields, ws, _scratch_shapes(b, t, p2, hop)):
+        _check(name, x, shape, _F32, dev)
+
+
+def iteration_forward_fwd(ct: torch.Tensor, c: IterConsts):
+    """ct (B, T, P) -> (pred (B, 128), IterResiduals).  Replaces the TPU
+    kernel ``_iter_fwd_kernel`` (aware_tpu/ops/pallas/iteration.py:173)."""
+    if ct.device.type == "cpu":
+        return iteration_forward_fwd_plain(ct, c)
+    b, t, p = ct.shape
+    dev = ct.device
+    hop = _check_iter(c, b, t, p, dev)
+    _check("ct", ct, (b, t, p), _F32, dev)
+    res = _residuals(b, t, 2 * p, hop, dev)
+    ws = _scratch(b, t, 2 * p, hop, dev)
+    _run_table("aw_iteration_fwd", dev,
+               [ct, c.csin, c.y_const, c.env, c.ab, c.csw,
+                *(getattr(c.det, k) for k in _DET_FWD), *res.det, res.u, res.m1, *ws],
+               b, t, p, hop)
+    iteration_forward_fwd.launches += 1
+    return res.det.pred, res
+
+
+def iteration_forward_bwd(g: torch.Tensor, res: IterResiduals, c: IterConsts):
+    """g (B, 128) -> dct (B, T, P).  Replaces the TPU kernel
+    ``_iter_bwd_kernel`` (aware_tpu/ops/pallas/iteration.py:285)."""
+    if g.device.type == "cpu":
+        return iteration_forward_bwd_plain(g, res, c)
+    b, t, p2 = res.det.nph.shape
+    p = p2 // 2
+    dev = g.device
+    hop = _check_iter(c, b, t, p, dev)
+    _check("g", g, (b, CH[4]), _F32, dev)
+    _check_residuals(res, b, t, p2, hop, dev)
+    dct = torch.empty(b, t, p, device=dev)
+    _run_table("aw_iteration_bwd", dev,
+               [g, *res.det, res.u, res.m1, c.csin, c.env, c.abt, c.cswt,
+                *(getattr(c.det, k) for k in _DET_BWD), dct,
+                *_scratch(b, t, p2, hop, dev)],
+               b, t, p, hop)
+    iteration_forward_bwd.launches += 1
+    return dct
+
+
+def _check_state(names, tensors, shape, dev) -> None:
+    for name, x in zip(names, tensors):
+        _check(name, x, shape, _F32, dev)
+
+
+def iteration_step(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c: IterConsts,
+                   k: NadamCoefs, bufs: StepBuffers | None = None) -> torch.Tensor:
+    """One whole solver step for B clips: forward, the push_extremes loss
+    and gradient of the first 20 lanes of wm (B, 128), backward, NAdam with
+    the per-clip s1, s2 (B,) and the shared d2 (1,), the clamp to [lower,
+    upper] and the best snapshot.  ct, m, v, best (B, T, P) and best_loss
+    (B,) are updated in place; returns the pre-step ct's loss (B,), which
+    on the card is ``bufs.loss``, written again by the next step.
+    Replaces the TPU kernel ``_step_kernel``
+    (aware_tpu/ops/pallas/iteration.py:513)."""
+    if ct.device.type == "cpu":
+        return iteration_step_plain(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2,
+                                    c, k)
+    b, t, p = ct.shape
+    dev = ct.device
+    hop = _check_iter(c, b, t, p, dev)
+    _check_state(("ct", "m", "v", "best", "lower", "upper"), (ct, m, v, best, lower, upper),
+                 (b, t, p), dev)
+    _check_state(("best_loss", "s1", "s2"), (best_loss, s1, s2), (b,), dev)
+    _check("wm", wm, (b, CH[4]), _F32, dev)
+    _check("d2", d2, (1,), _F32, dev)
+    if bufs is None:
+        bufs = step_buffers(b, t, 2 * p, hop, dev)
+    _check_residuals(bufs.res, b, t, 2 * p, hop, dev)
+    _check_scratch(bufs.scratch, b, t, 2 * p, hop, dev)
+    _check("loss", bufs.loss, (b,), _F32, dev)
+    _run_table("aw_iteration_step", dev,
+               [ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, bufs.loss,
+                c.csin, c.y_const, c.env, c.ab, c.abt, c.csw, c.cswt,
+                *(getattr(c.det, n) for n in _DET_FWD), *(getattr(c.det, n) for n in _DET_BWD),
+                *bufs.res.det, bufs.res.u, bufs.res.m1, *bufs.scratch],
+               b, t, p, hop, *k)
+    iteration_step.launches += 1
+    return bufs.loss
+
+
+def _step_epilogue(dreim, csin, ct, m, v, best, best_loss, lower, upper, loss, s1, s2, d2,
+                   k: NadamCoefs) -> None:
+    """The CUDA step's epilogue alone (the kernels that follow its
+    synthesis-VJP GEMM), in place, for the chip check against
+    :func:`step_epilogue_plain` of ``phase_fold_plain(dreim, csin)``, which
+    it runs on CPU tensors."""
+    if ct.device.type == "cpu":
+        return step_epilogue_plain(phase_fold_plain(dreim, csin), ct, m, v, best, best_loss,
+                                   lower, upper, loss, s1, s2, d2, k)
+    b, t, p = ct.shape
+    dev = ct.device
+    _check("dreim", dreim, (b, t, 2 * p), _F32, dev)
+    _check("csin", csin, (b, t, 2 * p), _BF16, dev)
+    _check_state(("ct", "m", "v", "best", "lower", "upper"), (ct, m, v, best, lower, upper),
+                 (b, t, p), dev)
+    _check_state(("best_loss", "loss", "s1", "s2"), (best_loss, loss, s1, s2), (b,), dev)
+    _check("d2", d2, (1,), _F32, dev)
+    _run_table("aw_step_epilogue", dev,
+               [dreim, csin, ct, m, v, best, best_loss, lower, upper, loss, s1, s2, d2],
+               b, t, p, *k)
+
+
+KERNELS = (iteration_forward_fwd, iteration_forward_bwd, iteration_step)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+# ------------------------------------------------------------ autograd op ---
+
+class _IterationForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ct, c):
+        pred, res = iteration_forward_fwd(ct, c)
+        ctx.save_for_backward(*res.det, res.u, res.m1)
+        ctx.consts = c
+        return pred[:, :N_BITS]
+
+    @staticmethod
+    def backward(ctx, g):
+        *det, u, m1 = ctx.saved_tensors
+        gpad = g.new_zeros(g.shape[0], CH[4])  # the JAX kernel's (1, 128) cotangent
+        gpad[:, :N_BITS] = g
+        return iteration_forward_bwd(gpad, IterResiduals(DetResiduals(*det), u, m1),
+                                     ctx.consts), None
+
+
+def iteration_forward(ct: torch.Tensor, c: IterConsts) -> torch.Tensor:
+    """Padded coefficients (B, T, P) -> tanh bit values (B, 20),
+    differentiable w.r.t. ct."""
+    return _IterationForward.apply(ct, c)

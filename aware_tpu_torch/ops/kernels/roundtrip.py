@@ -41,8 +41,8 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------- plain versions ---
 
-def synth_norm_fwd_plain(coeffs, csin, y_const, env, ab):
-    """coeffs (B, T, P) -> (y2 (B, T-1, hop), m1 (B,))."""
+def synth_u_plain(coeffs, csin, y_const, env, ab):
+    """coeffs (B, T, P) -> the synthesis before its peak-norm, u (B, T-1, hop)."""
     _, t, p = coeffs.shape
     hop = env.shape[-1]
     cs = csin.float()
@@ -52,20 +52,35 @@ def synth_norm_fwd_plain(coeffs, csin, y_const, env, ab):
         F.pad(reim @ abf[:, k * hop : (k + 1) * hop], (0, 0, k, R - 1 - k))
         for k in range(R)
     )
-    u = yd[:, PAD : PAD + t - 1] / env + y_const
+    return yd[:, PAD : PAD + t - 1] / env + y_const
+
+
+def peak_den(m1: torch.Tensor) -> torch.Tensor:
+    """The peak-norm's denominator m1 (1 + e) + e^2, as (B, 1, 1)."""
+    return (m1 * (1.0 + _EPS) + _EPS * _EPS)[:, None, None]
+
+
+def synth_norm_fwd_plain(coeffs, csin, y_const, env, ab):
+    """coeffs (B, T, P) -> (y2 (B, T-1, hop), m1 (B,))."""
+    u = synth_u_plain(coeffs, csin, y_const, env, ab)
     m1 = u.abs().amax(dim=(1, 2))
-    y2 = u / (m1 * (1.0 + _EPS) + _EPS * _EPS)[:, None, None]
-    return y2, m1
+    return u / peak_den(m1), m1
+
+
+def phase_fold_plain(dreim: torch.Tensor, csin: torch.Tensor) -> torch.Tensor:
+    """dreim (B, T, 2P) -> dreim_re * csin_re + dreim_im * csin_im (B, T, P)."""
+    p = csin.shape[-1] // 2
+    cs = csin.float()
+    return dreim[..., :p] * cs[..., :p] + dreim[..., p:] * cs[..., p:]
 
 
 def synth_norm_bwd_plain(g, y2, m1, csin, env, abt):
     """VJP of :func:`synth_norm_fwd_plain` w.r.t. coeffs, from the
     forward's y2 and m1: the equal-tie-split max subgradient of the
     peak-norm, then the transposed slab products."""
-    b, lr, hop = g.shape
+    _, lr, hop = g.shape
     t = lr + 1
-    p = csin.shape[-1] // 2
-    cden = (m1 * (1.0 + _EPS) + _EPS * _EPS)[:, None, None]
+    cden = peak_den(m1)
     q = (g * y2).sum(dim=(1, 2))[:, None, None]
     a = y2.abs()
     mask = (a == a.amax(dim=(1, 2), keepdim=True)).float()
@@ -74,8 +89,7 @@ def synth_norm_bwd_plain(g, y2, m1, csin, env, abt):
     gyd = _bf16(F.pad(g_u / env, (0, 0, PAD, R - PAD)))
     abtf = abt.float()
     dreim = sum(gyd[:, k : k + t] @ abtf[k * hop : (k + 1) * hop] for k in range(R))
-    cs = csin.float()
-    return dreim[..., :p] * cs[..., :p] + dreim[..., p:] * cs[..., p:]
+    return phase_fold_plain(dreim, csin)
 
 
 def band_analysis_fwd_plain(y2, csw):

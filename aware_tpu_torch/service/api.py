@@ -39,6 +39,19 @@ _SILENT = (
 )
 
 
+# the JAX package's cards, read as data by bare name
+CARDS_DIR = pathlib.Path(__file__).resolve().parents[2] / "aware_tpu" / "cards"
+
+
+def _card_path(card: str | pathlib.Path) -> pathlib.Path:
+    """A card given by path, or by the bare name of one in CARDS_DIR (as
+    ``aware_tpu/service/api.py:167-174`` resolves it)."""
+    path = pathlib.Path(card)
+    if not path.exists() and (CARDS_DIR / f"{card}.yaml").exists():
+        return CARDS_DIR / f"{card}.yaml"
+    return path
+
+
 def _resolve_device(device: str | torch.device | None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -130,18 +143,22 @@ def load(
     """Build the (embedder, detector) pair sharing one keyed net.
 
     ``card`` is a YAML card file given by path (the JAX package's key
-    names); with none, the default card's values.  ``device`` defaults to
-    the CUDA card and raises where there is none.  A card or keyword that
-    asks for a path this port does not have raises NotImplementedError.
+    names), or the bare name of one of the JAX package's cards
+    (``aware_tpu/cards/<name>.yaml``, read as data); with none, the
+    default card's values.  ``device`` defaults to the CUDA card and raises
+    where there is none.  A card or keyword that asks for a path this port
+    does not have raises NotImplementedError.
 
-    The embed solver runs the JAX package's kernel path: the round-trip
-    synthesis kernel, then, with ``use_pallas_detector`` (the default), the
-    merged analysis + fused detector kernels (bf16 operands, float32
-    accumulation, as the TPU kernels); ``use_pallas_detector=False`` takes
-    the analysis kernel and the float32 plain-torch detector instead.
-    ``use_pallas_iteration`` (the whole-iteration kernels) is not ported
-    and stays False.  Detection is the float32 plain-torch detector, as in
-    the JAX package, which has no detection kernel.
+    The embed solver runs the JAX package's kernel paths (bf16 operands,
+    float32 accumulation, as the TPU kernels), selected as there: by
+    default the whole step is one ``iteration_step`` kernel chain per
+    iteration; with weight decay the ``iteration_forward`` kernels and
+    their VJP; ``use_pallas_iteration=False`` takes the round-trip
+    synthesis kernel and then the merged analysis + fused detector
+    kernels; ``use_pallas_detector=False`` the synthesis and analysis
+    kernels and the float32 plain-torch detector.  Detection is the
+    float32 plain-torch detector, as in the JAX package, which has no
+    detection kernel.
 
     TF32 is turned off for float32 matmuls and convolutions (process-wide
     switches of torch): the float32 detector would not match the JAX
@@ -151,9 +168,7 @@ def load(
     if card is not None:
         import yaml  # only for a card file; the default path needs none
 
-        cfg = AwareConfig.from_dict(
-            yaml.safe_load(pathlib.Path(card).read_text()) or {}
-        )
+        cfg = AwareConfig.from_dict(yaml.safe_load(_card_path(card).read_text()) or {})
     else:
         cfg = AwareConfig()
     if overrides:

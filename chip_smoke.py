@@ -14,24 +14,36 @@ with a non-zero exit on any error:
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    main path's operands (B = 8 clips of T = 626 frames, P = 256, hop = 256):
    the round-trip kernels to 1e-3 * max|plain| (float32 sums in another
-   order on the card); the detector kernels to the bounds of
-   aware_tpu_torch/ops/kernels/agreement.py, which says why they are what
-   they are: each forward on pred and on every residual its VJP reads,
-   each VJP from the plain forward's residuals, and the chain the solver
-   runs (the forward kernel, then the VJP kernel on the kernel's own
-   residuals) against the plain chain.  Device times of kernel
-   and plain version (CUDA-graph replays timed by CUDA events), per-call
-   times from Python, and the bound of each;
+   order on the card); the detector and whole-iteration kernels to the
+   bounds of aware_tpu_torch/ops/kernels/agreement.py, which says why they
+   are what they are: each forward on pred and on every residual its VJP
+   reads (iteration_forward also on y2 and m1), each VJP from the plain
+   forward's residuals, the chain the solver runs (the forward kernel,
+   then the VJP kernel on the kernel's own residuals) against the plain
+   chain, and iteration_step by its loss, its internal gradient (as a
+   chain, and against the VJP kernel on the step's own residuals) and its
+   NAdam / clamp / best epilogue given the same input.
+   Device times of kernel and plain version (CUDA-graph replays timed by
+   CUDA events), per-call times from Python, and the bound of each;
 3. main path: load() -> embed_watermark_batch on 8 speech-like 10 s 16 kHz
    clips with random 20-bit messages (400 iterations) -> detect_watermark_
-   batch, on the default solver path (synth_norm -> analysis_detector ->
-   detector_fused kernels) and then on the first slice's path
-   (load(use_pallas_detector=False): synth_norm -> band_analysis -> plain
-   detector); every lane must read back at 0 % BER, and each kernel of a
-   path must have been launched once per iteration by its solve.  Then, for
-   both paths, a small reference (a short solve on the card against the
-   same solve through the plain versions on the CPU) and a torch.profiler
-   breakdown of a 20-iteration solve;
+   batch, on the four solver paths: the default (the iteration_step kernel
+   once per iteration), use_pallas_iteration=False (synth_norm ->
+   analysis_detector -> detector_fused kernels), use_pallas_detector=False
+   (synth_norm -> band_analysis -> plain detector) and NAdam with weight
+   decay (the iteration_forward kernels and their VJP); every lane must
+   read back at 0 % BER, and each kernel of a path must have been launched
+   once per iteration by its solve, every other kernel never.  Then the
+   first two paths timed again in turns (default, two-kernel, two-kernel,
+   default); per path, a small reference (a short solve on the card against the same
+   solve through the plain versions on the CPU), a torch.profiler
+   breakdown of a 20-iteration solve, and, on the default path, a
+   20-iteration loop under torch.cuda.set_sync_debug_mode("error") (no
+   host sync);
+3s. short clips: on each of the four paths, 2 clips each of T = 8, 9, 16
+   and 31 frames through the solver: the 10-iteration best loss within
+   SHORT_LOSS_TOL of the CPU plain solve's, and after 400 iterations no
+   lane with a higher BER than the CPU plain solve's on the same lane;
 4. single clip: embed_watermark / detect_watermark of a 2 s clip given at
    44.1 kHz (the resample path), on the default path.
 
@@ -63,9 +75,10 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def speechlike(rng: np.random.Generator, seconds: float, sr: int) -> np.ndarray:
-    """Harmonic speech-like clip (the VAD rejects noise and silence)."""
-    t = np.arange(int(seconds * sr)) / sr
+def speechlike(rng: np.random.Generator, seconds: float, sr: int, samples: int = 0) -> np.ndarray:
+    """Harmonic speech-like clip (the VAD rejects noise and silence) of
+    ``seconds`` or, where given, ``samples``."""
+    t = np.arange(samples or int(seconds * sr)) / sr
     f0 = rng.uniform(100, 180) + rng.uniform(15, 40) * np.sin(
         2 * np.pi * rng.uniform(1.5, 3.0) * t
     )
@@ -104,8 +117,9 @@ def time_ms(torch, fn, reps: int) -> tuple[float, float]:
     return out[0], out[1]
 
 
-def profile_solve(torch, run) -> str:
-    """Device time by kind of kernel over one call of ``run``."""
+def profile_solve(torch, run, trace: str | None = None) -> str:
+    """Device time by kind of kernel over one call of ``run``; with
+    ``trace``, the Chrome trace is written to that file."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,12 +129,17 @@ def profile_solve(torch, run) -> str:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if trace:
+        prof.export_chrome_trace(trace)
     ours = ("shift_gemm", "peak_scale", "synth_bwd_scalars", "fold_phase", "in_norm_fwd",
             "mel_norm_fwd", "brh_fwd", "brh_bwd", "in_norm_bwd_stats", "mel_bwd_stats",
-            "reflect_fold")
+            "reflect_fold", "fold_scalars", "nadam_fold", "best_loss_update")
     kinds = {"our kernels": 0.0, "cuBLAS GEMM": 0.0, "FFT": 0.0, "other": 0.0}
     top = []
+    dtoh = 0
     for ev in prof.key_averages():
+        if "DtoH" in ev.key:
+            dtoh += ev.count
         if ev.device_type != DeviceType.CUDA or ev.device_time_total <= 0:
             continue
         t = ev.device_time_total / 1e3
@@ -138,11 +157,22 @@ def profile_solve(torch, run) -> str:
     busy = sum(kinds.values())
     if busy == 0:
         return f"wall {wall_ms:.1f} ms; device time not visible to torch.profiler"
+    # the solver loop's own window, from the start of the first of our GEMMs
+    # to the end of the last (set-up and reconstruction launch none), and
+    # the device's idle share inside it
+    spans = [(ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start]
+    gemms = [(a, b) for a, b, n in spans if "shift_gemm" in n]
+    lo, hi = min(a for a, _ in gemms), max(b for _, b in gemms)
+    in_loop = sum(min(b, hi) - max(a, lo) for a, b, _ in spans if b > lo and a < hi)
     top = sorted(top, reverse=True)[:6]
     return (
         f"wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f} %, idle {100 - 100 * busy / wall_ms:.1f} %); "
+        f"solver loop {(hi - lo) / 1e3:.1f} ms, device idle in it "
+        f"{100 - 100 * in_loop / (hi - lo):.1f} %; "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.items())
+        + f"; device-to-host copies {dtoh} (set-up and result included)"
         + "; top: " + "; ".join(f"{n} x{c} {t:.2f} ms" for t, n, c in top)
     )
 
@@ -197,14 +227,16 @@ def _det_counts(bsz, t, p, td):
     cs = bsz * t * 2 * p * F32
     fwd_bytes = cs + weights + residuals
     bwd_bytes = bsz * ch[4] * F32 + residuals + weights + cs
-    return flops, fwd_bytes, bwd_bytes
+    return flops, fwd_bytes, bwd_bytes, weights, residuals
 
 
 def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
     """Phase 2: each kernel against its plain version on the main path's
     operands; returns one record per kernel."""
+    from aware_tpu_torch.ops.kernels import agreement as ag
     from aware_tpu_torch.ops.kernels import analysis_detector as tad
     from aware_tpu_torch.ops.kernels import detector as td
+    from aware_tpu_torch.ops.kernels import iteration as it
     from aware_tpu_torch.ops.kernels import roundtrip as rt
 
     bsz, t, p = pb.ct0.shape
@@ -223,11 +255,49 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
     _, res_det = td.detector_fused_fwd_plain(cs, ac.det)
     _, res_ad = tad.analysis_detector_fwd_plain(y2, ac)
     basis = rt.R * hop * 2 * p * BF16
-    det_flops, det_fwd_bytes, det_bwd_bytes = _det_counts(bsz, t, p, td)
+    det_flops, det_fwd_bytes, det_bwd_bytes, det_weights, det_res = _det_counts(bsz, t, p, td)
     ana_flops = 2 * bsz * t * (2 * p) * (rt.R * hop)
     ana_bwd_flops = 2 * bsz * (lr + 2 * rt.PAD) * hop * (rt.R * 2 * p)
     cs_bytes = bsz * t * 2 * p * F32
     y2_bytes = bsz * lr * hop * F32
+    # the whole-iteration kernels: checked once (agreement.check_iteration),
+    # then timed on operands allocated once, as the solver does
+    c = pb.iteration
+    wm = torch.zeros(bsz, td.CH[4], device=dev)
+    wm[:, : pb.wm.shape[1]] = pb.wm
+    coefs = it.nadam_coefs()
+    rep = ag.check_iteration(ct, c, wm, g_det, coefs, t)
+    for key in ("fwd", "signal", "bwd", "bwd chain", "step gradient", "step own gradient",
+                "step scalars", "epilogue"):
+        say(f"  iteration {key} vs plain: {ag.fmt(rep[key])}")
+    say(f"  iteration step loss, max error / max|plain|: vs plain {rep['step loss']:.3e}, "
+        f"vs its own pred's {rep['step own loss']:.3e}")
+    _, res_it = it.iteration_forward_fwd_plain(ct, c)
+
+    def step_state():
+        return [ct.clone(), torch.zeros_like(ct), torch.zeros_like(ct), ct.clone(),
+                torch.full((bsz,), float("inf"), device=dev)]
+
+    st_k, st_p = step_state(), step_state()
+    bufs = it.step_buffers(bsz, t, 2 * p, hop, dev)
+    s12 = torch.full((bsz,), 0.1, device=dev)
+    d2 = torch.full((1,), 1e-3, device=dev)
+    step_args = (pb.lower, pb.upper, wm, s12, s12, d2, c, coefs)
+    synth_flops = 2 * bsz * lr * hop * (rt.R * 2 * p)
+    synth_bwd_flops = 2 * bsz * t * (2 * p) * (rt.R * hop)
+    it_fwd_flops = synth_flops + ana_flops + det_flops
+    it_bwd_flops = det_flops + ana_bwd_flops + synth_bwd_flops
+    state = bsz * t * p * F32              # one (B, T, P) f32 tensor
+    csin_env = bsz * t * 2 * p * BF16 + lr * hop * F32
+    u_m1 = y2_bytes + bsz * F32
+    it_fwd_bytes = state + csin_env + y2_bytes + 2 * basis + det_weights + det_res + u_m1
+    it_bwd_bytes = bsz * td.CH[4] * F32 + det_res + u_m1 + csin_env + 2 * basis + det_weights + state
+    # ct, m, v, best, lower, upper in, ct, m, v, best out; wm, s1, s2, d2,
+    # best_loss in, best_loss, loss out; csin, env, y_const, the four bases,
+    # the detector's weights both ways
+    it_step_bytes = (10 * state + bsz * td.CH[4] * F32 + 6 * bsz * F32 + F32 + csin_env
+                     + y2_bytes + 4 * basis + 2 * det_weights)
+    it_src = "aware_tpu_torch/csrc/iteration.cu"
     rt_src = "aware_tpu_torch/csrc/roundtrip.cu"
     det_src = "aware_tpu_torch/csrc/detector.cu"
     ad_src = "aware_tpu_torch/csrc/analysis_detector.cu"  # then detector.cu's chain
@@ -284,13 +354,33 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
             _close_vjp, ad_src, "aware_tpu/ops/pallas/analysis_detector.py:251",
             ana_bwd_flops + det_flops, det_bwd_bytes - cs_bytes + basis + y2_bytes,
         ),
+        "iteration_forward_fwd": (
+            lambda: it.iteration_forward_fwd(ct, c),
+            lambda: it.iteration_forward_fwd_plain(ct, c),
+            None, it_src, "aware_tpu/ops/pallas/iteration.py:173",
+            it_fwd_flops, it_fwd_bytes,
+        ),
+        "iteration_forward_bwd": (
+            lambda: it.iteration_forward_bwd(g_det, res_it, c),
+            lambda: it.iteration_forward_bwd_plain(g_det, res_it, c),
+            None, it_src, "aware_tpu/ops/pallas/iteration.py:285",
+            it_bwd_flops, it_bwd_bytes,
+        ),
+        "iteration_step": (
+            lambda: it.iteration_step(*st_k, *step_args, bufs),
+            lambda: it.iteration_step_plain(*st_p, *step_args),
+            None, it_src, "aware_tpu/ops/pallas/iteration.py:513",
+            it_fwd_flops + it_bwd_flops, it_step_bytes,
+        ),
     }
     records = {}
     for name, (kern, plain, close, source, replaces, flops, nbytes) in cases.items():
         out_k = kern()
         torch.cuda.synchronize()
         out_p = plain()
-        if close is _close:
+        if close is None:  # checked by agreement.check_iteration above
+            err = rep[name]
+        elif close is _close:
             err = close(name, out_k if isinstance(out_k, tuple) else (out_k,),
                         out_p if isinstance(out_p, tuple) else (out_p,))
         else:
@@ -368,19 +458,70 @@ def solve_path(torch, kernels, label, emb, det, clips, bits, path_kernels, recor
     say(f"phase 3 {label} launches: {launches}")
     if ber.any():
         raise RuntimeError(f"{label}: a lane did not read back its message")
+    for name, n in launches.items():
+        want = cfg.num_iterations if name in path_kernels else 0
+        if n != want:
+            raise RuntimeError(f"{label}: kernel {name} launched {n} times, not {want}")
     for name in path_kernels:
-        if launches[name] != cfg.num_iterations:
-            raise RuntimeError(
-                f"{label}: kernel {name} launched {launches[name]} times, "
-                f"not once per iteration ({cfg.num_iterations})")
         if records[name]["launches"] == 0:  # the first path that runs it
             records[name]["launches"] = launches[name]
+
+
+SHORT_LOSS_TOL = 0.1  # 10-iteration best loss, card vs CPU, below 32 frames
+
+
+def short_clips(torch, paths, det_cpu, rng) -> None:
+    """Phase 3s: clips of 8, 9, 16 and 31 frames through the solver on each
+    path, held at the outcome level against the CPU plain solve: the
+    10-iteration best loss within SHORT_LOSS_TOL, and after 400 iterations
+    no lane with a higher BER than the CPU's on the same lane.
+
+    SHORT_LOSS_TOL is twice the plain solve's own spread: moving the clips
+    by 1e-6 of themselves moves the CPU plain solve's 10-iteration best
+    loss by up to 0.053 at these lengths (six seeds; ``PYTHONPATH=. python
+    tests/test_torch_slice_iteration.py`` retakes the readings), where the
+    norms run over 4 to 15 pooled frames; 0.02, the bound at 626 frames,
+    is below that spread."""
+    from aware_tpu_torch.embed.solver import build_problem, embed_batch
+    from aware_tpu_torch.models.detector import detect_values_batch
+
+    for frames in (8, 9, 16, 31):
+        n = (frames - 1) * 256
+        clips = np.stack([speechlike(rng, 0.0, 16000, samples=n) for _ in range(2)])
+        bits = rng.integers(0, 2, (2, 20))
+        x = torch.as_tensor(clips)
+        wm = torch.as_tensor(2.0 * bits - 1.0, dtype=torch.float32)
+        for label, e, d, _ in paths:
+            pb = build_problem(d.net, x.to(e.device), wm.to(e.device), e.cfg)
+            if pb.ct0.shape[1] != frames:
+                raise RuntimeError(f"{frames} frames expected, got {pb.ct0.shape[1]}")
+            out = {}
+            for iters in (10, e.cfg.num_iterations):
+                cfg = e.cfg.replace(num_iterations=iters)
+                res_k = embed_batch(d.net, x.to(e.device), wm.to(e.device), cfg)
+                res_p = embed_batch(det_cpu.net, x, wm, cfg)
+                out[iters] = (res_k, res_p)
+            dloss = float((out[10][0].best_loss.cpu() - out[10][1].best_loss).abs().max())
+            res_k, res_p = out[e.cfg.num_iterations]
+            ber_k = np.mean((detect_values_batch(d.net, res_k.audio).cpu().numpy() > 0)
+                            != bits, axis=1) * 100.0
+            ber_p = np.mean((detect_values_batch(det_cpu.net, res_p.audio).numpy() > 0)
+                            != bits, axis=1) * 100.0
+            say(f"phase 3s {frames} frames, {label} ({pb.path}): 10-iteration best_loss card "
+                f"vs CPU plain |diff| {dloss:.3e}; {e.cfg.num_iterations}-iteration BER % per "
+                f"lane card {ber_k.tolist()} CPU {ber_p.tolist()}")
+            if not dloss < SHORT_LOSS_TOL:
+                raise RuntimeError(f"{frames} frames, {label}: the card departs from the CPU")
+            if np.any(ber_k > ber_p):
+                raise RuntimeError(f"{frames} frames, {label}: a lane reads worse on the card")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="phases 0-2, one launch each")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None,
+                    help="a directory for the Chrome traces of the phase 3 profiles")
     args = ap.parse_args()
 
     import torch
@@ -388,14 +529,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
-    from aware_tpu_torch import detect_watermark, embed_watermark, load
-    from aware_tpu_torch.embed.solver import build_problem, embed_batch
+    from aware_tpu_torch import detect_watermark, embed_watermark, embed_watermark_batch, load
+    from aware_tpu_torch.embed.solver import build_problem, embed_batch, solve
     from aware_tpu_torch.ops.kernels import analysis_detector as tad
     from aware_tpu_torch.ops.kernels import detector as td
+    from aware_tpu_torch.ops.kernels import iteration as it
     from aware_tpu_torch.ops.kernels import roundtrip as rt
     from aware_tpu_torch.ops.kernels.build import build
 
-    kernels = rt.KERNELS + td.KERNELS + tad.KERNELS
+    kernels = rt.KERNELS + td.KERNELS + tad.KERNELS + it.KERNELS
     t_start = time.perf_counter()
     # ---- phase 0: the card
     smi = subprocess.run(
@@ -423,26 +565,42 @@ def main() -> int:
     x = torch.as_tensor(clips, device=dev)
     wm = torch.as_tensor(2.0 * bits - 1.0, device=dev)
     pb = build_problem(det.net, x, wm, cfg)
-    if pb.fused is None:
-        raise RuntimeError("the default path did not select the fused detector kernels")
+    if pb.path != "iteration_step":
+        raise RuntimeError(f"the default card took the {pb.path} path, not iteration_step")
     records = check_kernels(torch, pb, cfg.hop_length, rng, args.quick)
     del pb
 
     if not args.quick:
-        # ---- phase 3: the main path, then the first slice's path
-        emb4, det4 = load(device=dev, use_pallas_detector=False)
-        paths = (
-            ("main path (fused detector)", emb, det,
-             ("synth_norm_fwd", "synth_norm_bwd", "analysis_detector_fwd",
-              "analysis_detector_bwd", "detector_fused_fwd", "detector_fused_bwd")),
-            ("first-slice path (use_pallas_detector=False)", emb4, det4,
-             ("synth_norm_fwd", "synth_norm_bwd", "band_analysis_fwd", "band_analysis_bwd")),
-        )
+        # ---- phase 3: the four solver paths
+        two = ("synth_norm_fwd", "synth_norm_bwd")
+        paths = []
+        for label, overrides, names in (
+            ("default path (whole step)", {}, ("iteration_step",)),
+            ("two-kernel path (use_pallas_iteration=False)", {"use_pallas_iteration": False},
+             two + ("analysis_detector_fwd", "analysis_detector_bwd", "detector_fused_fwd",
+                    "detector_fused_bwd")),
+            ("first-slice path (use_pallas_detector=False)", {"use_pallas_detector": False},
+             two + ("band_analysis_fwd", "band_analysis_bwd")),
+            ("iteration_forward path (NAdam weight decay 1e-4)",
+             {"optimizer_params": {"lr": 0.1, "weight_decay": 1e-4}},
+             ("iteration_forward_fwd", "iteration_forward_bwd")),
+        ):
+            e, d = (emb, det) if not overrides else load(device=dev, **overrides)
+            paths.append((label, e, d, names))
         for label, e, d, names in paths:
             solve_path(torch, kernels, label, e, d, clips, bits, names, records)
         for name, rec in records.items():
             if rec["launches"] < 1:
                 raise RuntimeError(f"kernel {name} was not launched on any path")
+        # the first two paths again, in turns (a later solve finds the
+        # process warm): the default, the two-kernel path, then both reversed
+        turns = []
+        for label, e, _, _ in (paths[0], paths[1], paths[1], paths[0]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            embed_watermark_batch(clips, sr, bits, e)
+            turns.append(f"{label} {time.perf_counter() - t0:.3f} s")
+        say("phase 3 in turns, embed of B=8 x 10 s x 400 iterations: " + "; ".join(turns))
 
         # the same short solve on the card (kernels) and on the CPU (plain),
         # on each path
@@ -459,10 +617,28 @@ def main() -> int:
             if not dloss < 0.02:
                 raise RuntimeError(f"{label}: the card's solve departs from the plain solve")
 
-        for label, e, d, _ in paths:
+        for i, (label, e, d, _) in enumerate(paths):
             prof_cfg = e.cfg.replace(num_iterations=20)
+            trace = f"{args.trace}/trace_path{i}.json" if args.trace else None
             say(f"phase 3 profile, {label}, B={BATCH} x 20 iterations: " + profile_solve(
-                torch, lambda: embed_batch(d.net, x, wm, prof_cfg)))
+                torch, lambda: embed_batch(d.net, x, wm, prof_cfg), trace))
+
+        # the default path's loop makes no host sync (no .item(), no copy to
+        # the host): torch raises on one in this mode
+        loop_cfg = cfg.replace(num_iterations=20)
+        pb = build_problem(det.net, x, wm, loop_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            solve(pb, det.net, loop_cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        say("phase 3 default path: a 20-iteration loop ran with no host sync")
+        del pb
+
+        # ---- phase 3s: short clips on every path
+        short_clips(torch, paths, det_cpu, rng)
 
         # ---- phase 4: one clip at 44.1 kHz
         for k in kernels:
@@ -474,12 +650,13 @@ def main() -> int:
         one_s = time.perf_counter() - t0
         got44 = detect_watermark(wm44, 44100, det)
         ber44 = float(np.mean(got44 != msg) * 100.0)
-        say(
-            f"phase 4 single clip 2 s @ 44.1 kHz: embed {one_s:.3f} s, "
-            f"BER {ber44} %, launches {({k.__name__: k.launches for k in kernels})}"
-        )
+        launches44 = {k.__name__: k.launches for k in kernels}
+        say(f"phase 4 single clip 2 s @ 44.1 kHz: embed {one_s:.3f} s, "
+            f"BER {ber44} %, launches {launches44}")
         if ber44 != 0.0 or wm44.shape != clip44.shape or not np.isfinite(wm44).all():
             raise RuntimeError("single-clip round trip failed")
+        if launches44["iteration_step"] != cfg.num_iterations:
+            raise RuntimeError("the single-clip embed did not run the whole-step kernel")
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}), flush=True)

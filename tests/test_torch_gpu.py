@@ -11,7 +11,7 @@ another order on the card); the detector kernels on pred and every
 residual, their VJPs from the plain residuals, and the forward-then-VJP
 chain from the kernel's own residuals, to the bounds of
 aware_tpu_torch/ops/kernels/agreement.py (which says why they are what
-they are).
+they are); the whole-iteration kernels by agreement.check_iteration.
 """
 
 import numpy as np
@@ -23,6 +23,7 @@ from aware_tpu_torch.models.detector import load_key_params, params_from_jax
 from aware_tpu_torch.ops.kernels import agreement as ag
 from aware_tpu_torch.ops.kernels import analysis_detector as tad
 from aware_tpu_torch.ops.kernels import detector as td
+from aware_tpu_torch.ops.kernels import iteration as it
 from aware_tpu_torch.ops.kernels import roundtrip as rt
 from aware_tpu_torch.ops.mel import mel_filter_bank
 
@@ -146,10 +147,9 @@ def test_detector_kernels_match_plain(cuda, t):
         ag.check_forward(res_k, res_p, t)
         ref = bwd_plain(g, res_p, c)
         ag.check_vjp(bwd(g, res_p, c), ref)
-        chain = bwd(g, res_k, c)  # the solver's chain: the VJP on the kernel's residuals
-        assert torch.isfinite(chain).all()
-        if t >= ag.SHORT_FRAMES:  # below, one flip turns even the plain chain
-            ag.check_vjp(chain, ref, chain=True)
+        # the solver's chain: the VJP on the kernel's residuals, below 32
+        # frames to the short-clip bound
+        ag.check_vjp(bwd(g, res_k, c), ref, chain=True, t=t)
     torch.cuda.synchronize()
     # the merged wrappers launch the detector kernels too
     assert [k.launches - n for k, n in zip(td.KERNELS + tad.KERNELS, before)] == [2, 4, 1, 2]
@@ -203,3 +203,63 @@ def test_detector_autograd_functions_launch_the_backward_kernels(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(x.grad).all() and torch.isfinite(c.grad).all()
     assert [k.launches - n for k, n in zip(td.KERNELS + tad.KERNELS, before)] == [2, 2, 1, 1]
+
+
+def _iter_inputs(t, device):
+    # speech-like clips through the solver's build_problem, as on the main path
+    return ag.iteration_problem(t, B, 200 + t, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 97, 626])
+def test_iteration_kernels_match_plain(cuda, t):
+    ct, c, wm, g = _iter_inputs(t, cuda)
+    before = [k.launches for k in it.KERNELS]
+    ag.check_iteration(ct, c, wm, g, it.nadam_coefs(), t)
+    torch.cuda.synchronize()
+    # the forward once, the VJP on the plain, the forward's and the step's
+    # residuals, the step once
+    assert [k.launches - n for k, n in zip(it.KERNELS, before)] == [1, 3, 1]
+
+
+@pytest.mark.gpu
+def test_iteration_launch_counts(cuda):
+    ct, c, wm, _ = _iter_inputs(33, cuda)
+    others = rt.KERNELS + td.KERNELS + tad.KERNELS
+    before = [k.launches for k in it.KERNELS + others]
+    x = ct.clone().requires_grad_(True)
+    it.iteration_forward(x, c).sum().backward()
+    state = [ct.clone(), torch.zeros_like(ct), torch.zeros_like(ct), ct.clone(),
+             torch.full((B,), float("inf"), device=cuda)]
+    s = torch.full((B,), 0.1, device=cuda)
+    loss = it.iteration_step(*state, ct - 1, ct + 1, wm, s, s, torch.full((1,), 1e-3, device=cuda),
+                             c, it.nadam_coefs())
+    torch.cuda.synchronize()
+    assert torch.isfinite(x.grad).all() and torch.isfinite(loss).all()
+    assert torch.equal(state[4], loss) and torch.equal(state[3], state[0])
+    # one forward and one VJP through the autograd function, one step, and
+    # nothing of the two-kernel chain
+    assert [k.launches - n for k, n in zip(it.KERNELS + others, before)] == [1, 1, 1] + [0] * 8
+
+
+@pytest.mark.gpu
+def test_iteration_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    ct, c, wm, g = _iter_inputs(8, cuda)
+    with pytest.raises(TypeError):
+        it.iteration_forward_fwd(ct.double(), c)
+    with pytest.raises(ValueError):
+        it.iteration_forward_fwd(ct[:, :7].contiguous(), c)  # T = 7 < 8
+    with pytest.raises(ValueError):
+        it.iteration_forward_fwd(ct, c._replace(csw=c.csw.cpu()))
+    _, res = it.iteration_forward_fwd(ct, c)
+    with pytest.raises(ValueError):
+        it.iteration_forward_bwd(g[:, :20].contiguous(), res, c)
+    s = torch.full((B,), 0.1, device=cuda)
+    state = [ct.clone(), torch.zeros_like(ct), torch.zeros_like(ct), ct.clone(),
+             torch.full((B,), float("inf"), device=cuda)]
+    with pytest.raises(ValueError):  # d2 is one value on the card
+        it.iteration_step(*state, ct - 1, ct + 1, wm, s, s, torch.full((B,), 1e-3, device=cuda),
+                          c, it.nadam_coefs())
+    with pytest.raises(ValueError):
+        it.iteration_step(*state, ct - 1, ct + 1, wm[:, :20].contiguous(), s, s,
+                          torch.full((1,), 1e-3, device=cuda), c, it.nadam_coefs())

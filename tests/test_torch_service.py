@@ -97,12 +97,13 @@ def test_config_defaults_equal_the_jax_package():
     for field in ("frame_length", "hop_length", "window", "win_length", "pattern_mode",
                   "watermark_length", "embedding_bands", "tolerance_db", "num_iterations",
                   "optimizer_name", "opt_params", "scheduler_name", "sched_params", "loss",
-                  "vad", "threshold", "use_pallas_detector"):
+                  "vad", "threshold", "use_pallas_detector", "use_pallas_iteration"):
         assert getattr(ours, field) == getattr(ref, field), field
-    # the port's solver path: the JAX package's with the whole-iteration
-    # kernels off (not ported yet)
+    # the port's solver path: the JAX package's kernel path (which the JAX
+    # package's own default takes on a TPU), with the whole-iteration
+    # kernels as there
     assert ours.use_pallas_roundtrip and ours.use_pallas_detector
-    assert not ours.use_pallas_iteration
+    assert ours.use_pallas_iteration == ref.use_pallas_iteration
 
 
 @pytest.mark.parametrize("bands", [(500.0, 4000.0), (300.0, 3400.0), (1000.0, 2000.0)])

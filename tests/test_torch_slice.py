@@ -150,7 +150,7 @@ def handles():
 def test_load_sets_the_slice_configuration(handles):
     emb, det = handles
     assert emb.cfg.use_pallas_roundtrip and emb.cfg.use_pallas_detector
-    assert not emb.cfg.use_pallas_iteration
+    assert emb.cfg.use_pallas_iteration
     assert emb.net is det.net and emb.device == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
@@ -211,7 +211,7 @@ def test_service_rejects_bad_input(handles, speechlike):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"use_pallas_iteration": True}, {"use_pallas_roundtrip": False},
+    {"scheduler_name": "cosine_annealing"}, {"use_pallas_roundtrip": False},
     {"optimizer_name": "adam"}, {"loss": "hinge"}, {"vad": "webrtc_gmm"},
     {"frame_length": 2048, "win_length": 2048},
 ])

@@ -111,9 +111,9 @@ def _first_step(jax_cfg, jax_params, net, clip, wm, move=0.0):
         noise = np.random.default_rng(0).standard_normal(ct0.shape).astype(np.float32)
         ml, mg = value_and_grad(jnp.asarray(ct0 * (1 + move * noise)))
         moved = (float(ml), np.asarray(mg, np.float64))
-    cfg = AwareConfig()
+    cfg = AwareConfig(use_pallas_iteration=False)
     pb = solver.build_problem(net, torch.from_numpy(clip)[None], torch.from_numpy(wm)[None], cfg)
-    assert pb.fused is not None
+    assert pb.fused is not None and pb.path == "analysis_detector"
     ct = torch.from_numpy(ct0)[None].requires_grad_(True)
     loss = solver.objective(ct, pb, net, cfg)
     (grad,) = torch.autograd.grad(loss.sum(), ct)
@@ -142,7 +142,7 @@ def test_embed_batch_matches_jax_outcome(jax_cfg, jax_params, net, batch):
     wm = (2.0 * bits - 1.0).astype(np.float32)
     ref = jax_embed_batch(jax_params, jnp.asarray(clips), jnp.asarray(wm), jax_cfg)
     ours = solver.embed_batch(net, torch.from_numpy(clips), torch.from_numpy(wm),
-                              AwareConfig(num_iterations=ITERS))
+                              AwareConfig(num_iterations=ITERS, use_pallas_iteration=False))
     audio = ours.audio.numpy()
     assert audio.shape == np.asarray(ref.audio).shape == (2, 125 * 256)
     assert np.all(np.isfinite(audio))
@@ -172,10 +172,11 @@ def test_objective_runs_the_banded_detector_only_off_the_gate(net, monkeypatch, 
     monkeypatch.setattr(DetectorNet, "forward_banded", counting)
     n = int(seconds * 16000)
     clip = torch.from_numpy(np.random.default_rng(5).standard_normal((1, n)).astype(np.float32))
-    pb = solver.build_problem(net, clip, torch.ones(1, 20), AwareConfig())
+    cfg = AwareConfig(use_pallas_iteration=False)
+    pb = solver.build_problem(net, clip, torch.ones(1, 20), cfg)
     assert (pb.fused is not None) == fused
     assert pb.ct0.shape[1] == (126 if fused else 7)
-    loss = solver.objective(pb.ct0, pb, net, AwareConfig())
+    loss = solver.objective(pb.ct0, pb, net, cfg)
     assert loss.shape == (1,) and torch.isfinite(loss).all()
     assert len(calls) == (0 if fused else 1)
 
