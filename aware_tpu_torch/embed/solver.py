@@ -4,7 +4,7 @@ The port of ``aware_tpu/embed/solver.py`` on its kernel paths
 (``use_pallas_roundtrip=True``: its ``build_problem`` slab-kernel geometry
 and path selection, ``embed_core``, ``embed_batch`` and ``_reconstruct``).
 Each of ``num_iterations`` steps, for all B clips at once, in the padded
-time-major (B, T, P) coefficient layout, on one of four paths that
+time-major (B, T, P) coefficient layout, on one of five paths that
 ``build_problem`` selects as the JAX package does
 (``aware_tpu/embed/solver.py:451-511``) and records in ``Problem.path``:
 
@@ -28,9 +28,16 @@ time-major (B, T, P) coefficient layout, on one of four paths that
     "band_analysis" (use_pallas_detector=False, or off the gate): synth_norm,
         then band_analysis (kernel) y2 -> zero-pad framing -> in-band Re/Im
         + edge_corrections (the reflect-pad rows the kernel leaves out) ->
-        safe_magnitude -> banded detector (plain torch).
+        safe_magnitude -> banded detector (plain torch);
+    "tiled" (clips over 1024 frames, whatever the other flags say: the
+        JAX package's time-tiled kernels, ``aware_tpu/embed/solver.py:383-398``):
+        synth_tiled_fwd (kernel) coeffs with the float32 phase -> u and m1
+        -> the peak-norm in torch, then band_analysis_tiled (the shift_mm
+        kernel) y2 -> zero-pad framing -> in-band Re/Im, then the
+        "band_analysis" path's tail; the VJPs are shift_mm twice more
+        (ops/kernels/roundtrip_tiled.py).
 
-The generic step of the last three: push_extremes loss (per clip),
+The generic step of the last four: push_extremes loss (per clip),
 backward through the same chain (the kernels' VJPs), NAdam step at the lr
 from before this step's scheduler tick, scheduler tick, clamp to the box,
 best snapshot.
@@ -80,6 +87,12 @@ from aware_tpu_torch.ops.kernels.roundtrip import (
     edge_corrections,
     synth_norm,
 )
+from aware_tpu_torch.ops.kernels.roundtrip_tiled import (
+    band_analysis_tiled,
+    build_tiled_bases,
+    make_csinp,
+    synth_norm_tiled,
+)
 from aware_tpu_torch.ops.mel import mel_filter_bank
 from aware_tpu_torch.ops.stft import (
     _ola_envelope,
@@ -95,8 +108,7 @@ from aware_tpu_torch.ops.stft import (
 )
 from aware_tpu_torch.ops.windows import get_window
 
-# the whole-clip kernels' reach; longer clips take the JAX package's
-# time-tiled kernels (ops/pallas/roundtrip_tiled.py), not ported yet
+# the whole-clip kernels' reach; longer clips take the time-tiled kernels
 MAX_FRAMES = 1024
 
 
@@ -133,6 +145,16 @@ def check_supported(cfg: AwareConfig) -> None:
         )
 
 
+class TiledConsts(NamedTuple):
+    """The long-clip kernels' constants (ops/kernels/roundtrip_tiled.py)."""
+
+    csinp: torch.Tensor  # (B, T+3, 2P) float32 [cos | sin], row m+1 = frame m
+    w_sf: torch.Tensor   # (4, 2P, hop) bf16 slab weights of the synthesis
+    w_sb: torch.Tensor   # (4, hop, 2P) of its VJP
+    w_af: torch.Tensor   # (4, hop, 2P) of the analysis
+    w_ab: torch.Tensor   # (4, 2P, hop) of its VJP
+
+
 @dataclasses.dataclass
 class Problem:
     """A batch's embed problem in the kernels' padded (B, T, P) layout."""
@@ -141,7 +163,8 @@ class Problem:
     lower: torch.Tensor     # (B, T, P) box
     upper: torch.Tensor
     wm: torch.Tensor        # (B, n_bits) bipolar targets
-    csin: torch.Tensor      # (B, T, 2P) bf16 [cos | sin] of the in-band phase
+    csin: torch.Tensor | None  # (B, T, 2P) bf16 [cos | sin] of the in-band
+    #                            phase; None on the "tiled" path (tiled.csinp)
     y_const: torch.Tensor   # (B, T-1, hop) envelope-divided out-of-band waveform
     env: torch.Tensor       # (T-1, hop) OLA envelope
     ab: torch.Tensor        # (2P, n_fft) bf16 synthesis basis, window folded
@@ -158,8 +181,10 @@ class Problem:
     fused: AnalysisDetConsts | None = None
     # the whole-iteration kernels' constants where they run it, else None
     iteration: IterConsts | None = None
+    # the long-clip kernels' constants on the "tiled" path, else None
+    tiled: TiledConsts | None = None
     # the solver path (module docstring): "iteration_step",
-    # "iteration_forward", "analysis_detector" or "band_analysis"
+    # "iteration_forward", "analysis_detector", "band_analysis" or "tiled"
     path: str = "band_analysis"
 
     @property
@@ -172,10 +197,12 @@ def build_problem(
 ) -> Problem:
     """Preprocess B equal-length clips (B, L) and build the kernels'
     constants (peak-norm -> STFT -> magnitude/phase -> bases), and select
-    the solver path.  With ``cfg.use_pallas_detector``, where the JAX
-    package's gate holds (``aware_tpu/embed/solver.py:451-457``), also the
-    merged analysis + detector kernels' constants from the keyed ``net``,
-    and with ``cfg.use_pallas_iteration`` the whole-iteration kernels'
+    the solver path.  Past ``MAX_FRAMES`` frames, the time-tiled kernels'
+    constants (``aware_tpu/embed/solver.py:434-443``) and nothing else.
+    Otherwise, with ``cfg.use_pallas_detector``, where the JAX package's
+    gate holds (``aware_tpu/embed/solver.py:451-457``), also the merged
+    analysis + detector kernels' constants from the keyed ``net``, and
+    with ``cfg.use_pallas_iteration`` the whole-iteration kernels'
     (``aware_tpu/embed/solver.py:483-511``)."""
     n_fft, hop = cfg.frame_length, cfg.hop_length
     dev = audios.device
@@ -187,12 +214,6 @@ def build_problem(
     x = peak_normalize(audios)
     mag, phase = magphase(stft(x, n_fft, hop, window))  # (B, F, T)
     t_frames = mag.shape[-1]
-    if t_frames > MAX_FRAMES:
-        raise NotImplementedError(
-            f"clips over {MAX_FRAMES} frames need the time-tiled round-trip "
-            "kernels (aware_tpu/ops/pallas/roundtrip_tiled.py), which are "
-            "not ported yet"
-        )
     coeffs0 = mag[:, lo:hi]
     delta = coeffs0 * (10.0 ** (-cfg.tolerance_db / 20.0))
     lower = torch.clamp(coeffs0 - delta, min=0.0)
@@ -234,19 +255,29 @@ def build_problem(
     def bf16(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, torch.bfloat16)
 
-    csin = torch.zeros(mag.shape[0], t_frames, 2 * p, device=dev)
-    csin[..., :nb] = cos_ph[:, lo:hi].transpose(1, 2)
-    csin[..., p : p + nb] = sin_ph[:, lo:hi].transpose(1, 2)
-
     def to_carry(c: torch.Tensor) -> torch.Tensor:
         out = c.new_zeros(c.shape[0], t_frames, p)
         out[..., :nb] = c.transpose(1, 2)
         return out
 
+    y_const = y_const.contiguous()
     csw, cswt = bf16(csw_np), bf16(csw_np.T)
-    fused = None
+    ab, abt = bf16(ab_np), bf16(ab_np.T)
+    csin = fused = iteration = tiled = None
+    if t_frames > MAX_FRAMES:
+        path = "tiled"
+        tiled = TiledConsts(
+            csinp=make_csinp(cos_ph[:, lo:hi], sin_ph[:, lo:hi], p),
+            **build_tiled_bases(ab_np, csw_np, dev),
+        )
+    else:
+        csin = torch.zeros(mag.shape[0], t_frames, 2 * p, device=dev)
+        csin[..., :nb] = cos_ph[:, lo:hi].transpose(1, 2)
+        csin[..., p : p + nb] = sin_ph[:, lo:hi].transpose(1, 2)
+        csin = csin.to(torch.bfloat16)
     if (
-        cfg.use_pallas_detector
+        tiled is None
+        and cfg.use_pallas_detector
         and p == P_BAND
         and t_frames >= MIN_FRAMES
         and fused_detector_supported(net_cfg, nb, t_frames, n_fft)
@@ -262,10 +293,8 @@ def build_problem(
             ),
         )
 
-    ab, abt = bf16(ab_np), bf16(ab_np.T)
-    csin = csin.to(torch.bfloat16)
-    y_const = y_const.contiguous()
-    iteration, path = None, "band_analysis" if fused is None else "analysis_detector"
+    if tiled is None:
+        path = "band_analysis" if fused is None else "analysis_detector"
     if fused is not None and cfg.use_pallas_iteration:
         iteration = IterConsts(csin=csin, y_const=y_const, env=env, ab=ab, abt=abt,
                                csw=csw, cswt=cswt, det=fused.det)
@@ -298,6 +327,7 @@ def build_problem(
         hi=hi,
         fused=fused,
         iteration=iteration,
+        tiled=tiled,
         path=path,
     )
 
@@ -307,10 +337,16 @@ def objective(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig)
     t_frames, p = ct.shape[1], ct.shape[2]
     if pb.iteration is not None:
         return push_extremes(iteration_forward(ct, pb.iteration), pb.wm)
-    y2 = synth_norm(ct, pb.csin, pb.y_const, pb.env, pb.ab, pb.abt)
-    if pb.fused is not None:
-        return push_extremes(analysis_detector(y2, pb.fused), pb.wm)
-    cs2 = band_analysis(y2, pb.csw, pb.cswt) + edge_corrections(
+    if pb.tiled is not None:
+        tc = pb.tiled
+        y2 = synth_norm_tiled(ct, tc.csinp, pb.y_const, pb.env, tc.w_sf, tc.w_sb)
+        cs2 = band_analysis_tiled(y2, tc.w_af, tc.w_ab)
+    else:
+        y2 = synth_norm(ct, pb.csin, pb.y_const, pb.env, pb.ab, pb.abt)
+        if pb.fused is not None:
+            return push_extremes(analysis_detector(y2, pb.fused), pb.wm)
+        cs2 = band_analysis(y2, pb.csw, pb.cswt)
+    cs2 = cs2 + edge_corrections(
         y2.reshape(y2.shape[0], -1), pb.csw_k, cfg.frame_length,
         cfg.hop_length, t_frames,
     )

@@ -47,6 +47,8 @@ SIGNATURES = {
     "aw_iteration_bwd": [_P] + [_I] * 5 + [_P],
     "aw_iteration_step": [_P] + [_I] * 5 + [_F] * 4 + [_P],
     "aw_step_epilogue": [_P] + [_I] * 4 + [_F] * 4 + [_P],
+    "aw_shift_mm": [_P] * 3 + [_I] * 5 + [_P],
+    "aw_synth_tiled_fwd": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 

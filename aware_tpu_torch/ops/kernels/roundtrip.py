@@ -74,19 +74,25 @@ def phase_fold_plain(dreim: torch.Tensor, csin: torch.Tensor) -> torch.Tensor:
     return dreim[..., :p] * cs[..., :p] + dreim[..., p:] * cs[..., p:]
 
 
+def peak_norm_vjp(g, y2, m1):
+    """The cotangent of u from that of y2 = u / peak_den(m1) (B, T-1, hop):
+    the equal-tie-split max subgradient of the peak-norm, its ties taken
+    over y2's own rows."""
+    cden = peak_den(m1)
+    q = (g * y2).sum(dim=(1, 2))[:, None, None]
+    a = y2.abs()
+    mask = (a == a.amax(dim=(1, 2), keepdim=True)).float()
+    ties = mask.sum(dim=(1, 2))[:, None, None]
+    return g / cden - (q * (1.0 + _EPS) / cden) * torch.sign(y2) * mask / ties
+
+
 def synth_norm_bwd_plain(g, y2, m1, csin, env, abt):
     """VJP of :func:`synth_norm_fwd_plain` w.r.t. coeffs, from the
     forward's y2 and m1: the equal-tie-split max subgradient of the
     peak-norm, then the transposed slab products."""
     _, lr, hop = g.shape
     t = lr + 1
-    cden = peak_den(m1)
-    q = (g * y2).sum(dim=(1, 2))[:, None, None]
-    a = y2.abs()
-    mask = (a == a.amax(dim=(1, 2), keepdim=True)).float()
-    ties = mask.sum(dim=(1, 2))[:, None, None]
-    g_u = g / cden - (q * (1.0 + _EPS) / cden) * torch.sign(y2) * mask / ties
-    gyd = _bf16(F.pad(g_u / env, (0, 0, PAD, R - PAD)))
+    gyd = _bf16(F.pad(peak_norm_vjp(g, y2, m1) / env, (0, 0, PAD, R - PAD)))
     abtf = abt.float()
     dreim = sum(gyd[:, k : k + t] @ abtf[k * hop : (k + 1) * hop] for k in range(R))
     return phase_fold_plain(dreim, csin)

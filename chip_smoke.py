@@ -22,9 +22,16 @@ with a non-zero exit on any error:
    then the VJP kernel on the kernel's own residuals) against the plain
    chain, and iteration_step by its loss, its internal gradient (as a
    chain, and against the VJP kernel on the step's own residuals) and its
-   NAdam / clamp / best epilogue given the same input.
+   NAdam / clamp / best epilogue given the same input.  Then the long
+   path's kernels on its operands (B = 8 clips of T = 3751 frames, 60 s):
+   shift_mm at each of its three uses and the tiled synthesis, on the
+   problem's coefficients and on a probe whose last frame is loud (the
+   rows past the crop set m1), to 1e-3 * max|plain|.
    Device times of kernel and plain version (CUDA-graph replays timed by
-   CUDA events), per-call times from Python, and the bound of each;
+   CUDA events), per-call times from Python, the bound of each, and where
+   one PyTorch call computes the same function (band_analysis and
+   shift_mm: a 4-tap bf16 conv1d, band_analysis's VJP its
+   conv_transpose1d) that call's device time;
 3. main path: load() -> embed_watermark_batch on 8 speech-like 10 s 16 kHz
    clips with random 20-bit messages (400 iterations) -> detect_watermark_
    batch, on the four solver paths: the default (the iteration_step kernel
@@ -45,7 +52,15 @@ with a non-zero exit on any error:
    SHORT_LOSS_TOL of the CPU plain solve's, and after 400 iterations no
    lane with a higher BER than the CPU plain solve's on the same lane;
 4. single clip: embed_watermark / detect_watermark of a 2 s clip given at
-   44.1 kHz (the resample path), on the default path.
+   44.1 kHz (the resample path), on the default path;
+5. long clips: load() -> embed_watermark_batch of 8 speech-like 60 s
+   clips (T = 3751 frames, over the whole-clip kernels' 1024: the tiled
+   path, whatever the card's flags) -> detect_watermark_batch: 0 % BER on
+   every lane, shift_mm launched 3 times and synth_tiled_fwd once per
+   iteration, every other kernel never; a torch.profiler breakdown of a
+   20-iteration solve; and a 10-iteration solve of 2 clips of T = 1025 and
+   of T = 1281 on the card against the same solve through the plain
+   versions on the CPU.
 
 The last lines are one JSON object with a record per kernel
 ({"kernels": [...]}), nvidia-smi's name/power line, and
@@ -66,6 +81,7 @@ import numpy as np
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 TOL = 1e-3                # round-trip kernels vs plain, relative to max|plain|
+LIB_TOL = 1e-2            # a bf16-output library call vs plain, relative to max|plain|
 F32, BF16 = 4, 2          # bytes
 BATCH = 8                 # clips of the main path
 REPS = 20                 # timed launches per kernel
@@ -230,6 +246,32 @@ def _det_counts(bsz, t, p, td):
     return flops, fwd_bytes, bwd_bytes, weights, residuals
 
 
+def _record(name, source, replaces, err, flops, nbytes, library_ms=None) -> dict:
+    """One kernel's record; bound = max(FLOP / peak, bytes / peak rate)."""
+    t_flop = flops / PEAK_BF16_FLOPS * 1e3
+    t_byte = nbytes / PEAK_BYTES * 1e3
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": 0, "max_abs_err": err, "ms": None, "plain_ms": None,
+        "bound_ms": max(t_flop, t_byte),
+        "bound_by": "operations" if t_flop >= t_byte else "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def _library_ms(torch, name, call, ref, quick):
+    """Device ms of one PyTorch call that computes a kernel's function,
+    its (B, E, rows) bf16 output first held to LIB_TOL * max|plain| against
+    the plain version's (B, rows, E); None with ``quick``."""
+    out = call().float().transpose(1, 2)
+    if out.shape != ref.shape:
+        raise RuntimeError(f"{name} library call: shape {tuple(out.shape)}")
+    err = float((out - ref).abs().max())
+    if err > LIB_TOL * float(ref.abs().max()):
+        raise RuntimeError(f"{name} library call: max error {err:.3e} over {LIB_TOL} * max|plain|")
+    return None if quick else time_ms(torch, call, REPS)[0]
+
+
 def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
     """Phase 2: each kernel against its plain version on the main path's
     operands; returns one record per kernel."""
@@ -373,6 +415,19 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
             it_fwd_flops + it_bwd_flops, it_step_bytes,
         ),
     }
+    # one PyTorch call that computes the analysis and its VJP: a 4-tap bf16
+    # conv1d over the hop-wide rows (2 rows of padding each side), and its
+    # conv_transpose1d, on bf16 channels-first copies of the inputs
+    import torch.nn.functional as F
+
+    y2_t = y2.to(torch.bfloat16).transpose(1, 2).contiguous()
+    csw_w = pb.csw.reshape(rt.R, hop, 2 * p).permute(2, 1, 0).contiguous()
+    g_t = g_cs.to(torch.bfloat16).transpose(1, 2).contiguous()
+    cswt_w = pb.cswt.reshape(2 * p, rt.R, hop).permute(0, 2, 1).contiguous()
+    library = {
+        "band_analysis_fwd": lambda: F.conv1d(y2_t, csw_w, padding=rt.PAD),
+        "band_analysis_bwd": lambda: F.conv_transpose1d(g_t, cswt_w, padding=rt.PAD),
+    }
     records = {}
     for name, (kern, plain, close, source, replaces, flops, nbytes) in cases.items():
         out_k = kern()
@@ -385,23 +440,12 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
                         out_p if isinstance(out_p, tuple) else (out_p,))
         else:
             err = close(name, out_k, out_p)
-        t_flop = flops / PEAK_BF16_FLOPS * 1e3
-        t_byte = nbytes / PEAK_BYTES * 1e3
-        rec = {
-            "name": name,
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": 0,
-            "max_abs_err": err,
-            "ms": None,
-            "plain_ms": None,
-            "bound_ms": max(t_flop, t_byte),
-            "bound_by": "operations" if t_flop >= t_byte else "bytes",
-            # no single PyTorch call computes a shifted-slab product with
-            # these prologues and epilogues, nor the detector's chain
-            "library_ms": None,
-        }
+        # no single PyTorch call computes the synthesis' shifted-slab product
+        # with its prologue and epilogue, nor the detector's chain
+        rec = _record(name, source, replaces, err, flops, nbytes)
+        if name in library:
+            ref = out_p[0] if isinstance(out_p, tuple) else out_p
+            rec["library_ms"] = _library_ms(torch, name, library[name], ref, quick)
         call = (None, None)
         if not quick:
             rec["ms"], call_k = time_ms(torch, kern, REPS)
@@ -410,9 +454,10 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
         records[name] = rec
         say(
             f"phase 2 kernel {name}: max_abs_err {err:.3e} device ms {rec['ms']} "
-            f"plain device ms {rec['plain_ms']} (per call from Python: kernel "
-            f"{call[0]} plain {call[1]}) bound_us {rec['bound_ms'] * 1e3:.2f} "
-            f"({rec['bound_by']}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)"
+            f"plain device ms {rec['plain_ms']} library device ms {rec['library_ms']} "
+            f"(per call from Python: kernel {call[0]} plain {call[1]}) bound_us "
+            f"{rec['bound_ms'] * 1e3:.2f} ({rec['bound_by']}; {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB)"
         )
     # the chain the solver runs: the forward kernel, then the VJP kernel on
     # the forward kernel's own residuals, against the plain chain
@@ -424,10 +469,109 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
     return records
 
 
-def solve_path(torch, kernels, label, emb, det, clips, bits, path_kernels, records) -> None:
-    """Phase 3 for one solver path: the 400-iteration batch embed and
-    detect, with every count set to 0 just before and read just after; the
-    path's kernels must each have launched once per iteration."""
+def check_tiled_kernels(torch, pb, rng, quick: bool) -> dict:
+    """Phase 2, the long path's kernels (rows 12-13) on its operands
+    (B = 8, T = 3751): shift_mm at each of its three uses, the tiled
+    synthesis on the problem's coefficients and on a probe (y_const 0, env
+    4, the last frame 50 times each bin's largest) whose rows past the crop
+    set m1; each to TOL * max|plain|.  Returns one record per kernel;
+    shift_mm's numbers are the mean over its three uses, one launch each."""
+    import torch.nn.functional as F
+
+    from aware_tpu_torch.ops.kernels import roundtrip as rt
+    from aware_tpu_torch.ops.kernels import roundtrip_tiled as rtt
+
+    bsz, t, p = pb.ct0.shape
+    lr, hop = pb.env.shape
+    dev = pb.ct0.device
+    tc = pb.tiled
+    ct = pb.ct0.contiguous()
+    src = "aware_tpu_torch/csrc/roundtrip_tiled.cu"
+    # the tail probe first: the last frame reaches rows lr-2 .. lr+1; rows
+    # below lr are divided by the envelope, the two past the crop are not
+    loud = ct.clone()
+    loud[:, -1:] = 50.0 * ct.amax(dim=1, keepdim=True)
+    probe = (loud, tc.csinp, torch.zeros_like(pb.y_const), torch.full_like(pb.env, 4.0),
+             tc.w_sf)
+    u_k, m1_k = rtt.synth_tiled_fwd(*probe)
+    err_tail = _close("synth_tiled_fwd tail probe", (u_k, m1_k), rtt.synth_tiled_fwd_plain(*probe))
+    inner = u_k.abs().amax(dim=(1, 2))
+    say(f"  synth_tiled_fwd tail probe: m1 {m1_k.tolist()} against max|u| {inner.tolist()}, "
+        f"max error {err_tail:.3e}")
+    if not torch.all(m1_k > inner):
+        raise RuntimeError("synth_tiled_fwd: the tail probe's m1 was not set past the crop")
+
+    synth = (ct, tc.csinp, pb.y_const, pb.env, tc.w_sf)
+    u, m1 = rtt.synth_tiled_fwd_plain(*synth)
+    y2 = u / rt.peak_den(m1)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)
+
+    uses = {  # the three uses: (x, w, n_out), x as the autograd ops pad it
+        "analysis forward (w_af)": (F.pad(y2, (0, 0, 2, 0)), tc.w_af, t),
+        "analysis VJP (w_ab)": (F.pad(rand(bsz, t, 2 * p), (0, 0, 3, 0)), tc.w_ab, lr + 3),
+        "synthesis VJP (w_sb)": (F.pad(rand(bsz, lr, hop), (0, 0, 2, 0)), tc.w_sb, t),
+    }
+    recs = []
+    for use, (x, w, n_out) in uses.items():
+        _, n, d = x.shape
+        e = w.shape[-1]
+        kern = lambda x=x, w=w, n_out=n_out: rtt.shift_mm(x, w, n_out)  # noqa: E731
+        plain = lambda x=x, w=w, n_out=n_out: rtt.shift_mm_plain(x, w, n_out)  # noqa: E731
+        out_p = plain()
+        err = _close(f"shift_mm {use}", (kern(),), (out_p,))
+        # the library's 4-tap conv1d, on a bf16 channels-first copy of x
+        # with the zero rows the kernel reads past N
+        x_t = F.pad(x, (0, 0, 0, n_out + rtt.HALO - n)).to(torch.bfloat16).transpose(1, 2)
+        x_t, w_t = x_t.contiguous(), w.permute(2, 1, 0).contiguous()
+        lib = _library_ms(torch, f"shift_mm {use}", lambda x_t=x_t, w_t=w_t: F.conv1d(x_t, w_t),
+                          out_p, quick)
+        flops = 2 * bsz * n_out * rtt.R * d * e
+        nbytes = bsz * n * d * F32 + rtt.R * d * e * BF16 + bsz * n_out * e * F32
+        rec = _record("shift_mm", src, "aware_tpu/ops/pallas/roundtrip_tiled.py:103", err,
+                      flops, nbytes, library_ms=lib)
+        if not quick:
+            rec["ms"] = time_ms(torch, kern, REPS)[0]
+            rec["plain_ms"] = time_ms(torch, plain, REPS)[0]
+        say(f"phase 2 kernel shift_mm, {use}: max_abs_err {err:.3e} device ms {rec['ms']} "
+            f"plain device ms {rec['plain_ms']} library device ms {lib} bound_us "
+            f"{rec['bound_ms'] * 1e3:.2f} ({rec['bound_by']}; {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB)")
+        recs.append(rec)
+    shift = dict(recs[0])
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        vals = [r[key] for r in recs]
+        shift[key] = None if None in vals else sum(vals) / len(vals)
+    shift["max_abs_err"] = max(r["max_abs_err"] for r in recs)
+
+    kern = lambda: rtt.synth_tiled_fwd(*synth)  # noqa: E731
+    plain = lambda: rtt.synth_tiled_fwd_plain(*synth)  # noqa: E731
+    err = max(_close("synth_tiled_fwd", kern(), plain()), err_tail)
+    rows = rtt.m1_rows(lr)
+    flops = 2 * bsz * rows * rtt.R * 2 * p * hop
+    # ct, csinp, y_const, env, w_sf in; u, m1 out
+    nbytes = (bsz * t * p * F32 + bsz * (t + rtt.HALO) * 2 * p * F32 + 2 * bsz * lr * hop * F32
+              + lr * hop * F32 + rtt.R * 2 * p * hop * BF16 + bsz * F32)
+    # no single PyTorch call builds the phase products, divides by the
+    # envelope and takes the per-clip max
+    synth_rec = _record("synth_tiled_fwd", src, "aware_tpu/ops/pallas/roundtrip_tiled.py:214",
+                        err, flops, nbytes)
+    if not quick:
+        synth_rec["ms"] = time_ms(torch, kern, REPS)[0]
+        synth_rec["plain_ms"] = time_ms(torch, plain, REPS)[0]
+    say(f"phase 2 kernel synth_tiled_fwd: max_abs_err {err:.3e} device ms {synth_rec['ms']} "
+        f"plain device ms {synth_rec['plain_ms']} bound_us {synth_rec['bound_ms'] * 1e3:.2f} "
+        f"({synth_rec['bound_by']}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return {"shift_mm": shift, "synth_tiled_fwd": synth_rec}
+
+
+def solve_path(torch, kernels, label, emb, det, clips, bits, per_iteration, records,
+               phase="3") -> None:
+    """One solver path: the batch embed and detect, with every count set to
+    0 just before and read just after; each of the path's kernels
+    (``per_iteration``: name -> launches per iteration) must have launched
+    that many times per iteration, every other kernel never."""
     from aware_tpu_torch import detect_watermark_batch, embed_watermark_batch
 
     cfg = emb.cfg
@@ -450,19 +594,20 @@ def solve_path(torch, kernels, label, emb, det, clips, bits, path_kernels, recor
     ref = clips[:, :n_out]
     snr = 10 * np.log10(np.mean(out**2, 1) / np.mean((out - ref) ** 2, 1))
     say(
-        f"phase 3 {label}: B={BATCH} x 10 s x {cfg.num_iterations} iterations: "
+        f"phase {phase} {label}: B={BATCH} x {clips.shape[1] / sr:g} s x "
+        f"{cfg.num_iterations} iterations: "
         f"embed {embed_s:.3f} s, {BATCH / embed_s:.3f} clips/s, "
         f"BER % per lane {ber.tolist()}, mean SNR {snr.mean():.2f} dB, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
     )
-    say(f"phase 3 {label} launches: {launches}")
+    say(f"phase {phase} {label} launches: {launches}")
     if ber.any():
         raise RuntimeError(f"{label}: a lane did not read back its message")
     for name, n in launches.items():
-        want = cfg.num_iterations if name in path_kernels else 0
+        want = cfg.num_iterations * per_iteration.get(name, 0)
         if n != want:
             raise RuntimeError(f"{label}: kernel {name} launched {n} times, not {want}")
-    for name in path_kernels:
+    for name in per_iteration:
         if records[name]["launches"] == 0:  # the first path that runs it
             records[name]["launches"] = launches[name]
 
@@ -535,9 +680,10 @@ def main() -> int:
     from aware_tpu_torch.ops.kernels import detector as td
     from aware_tpu_torch.ops.kernels import iteration as it
     from aware_tpu_torch.ops.kernels import roundtrip as rt
+    from aware_tpu_torch.ops.kernels import roundtrip_tiled as rtt
     from aware_tpu_torch.ops.kernels.build import build
 
-    kernels = rt.KERNELS + td.KERNELS + tad.KERNELS + it.KERNELS
+    kernels = rt.KERNELS + td.KERNELS + tad.KERNELS + it.KERNELS + rtt.KERNELS
     t_start = time.perf_counter()
     # ---- phase 0: the card
     smi = subprocess.run(
@@ -569,6 +715,19 @@ def main() -> int:
         raise RuntimeError(f"the default card took the {pb.path} path, not iteration_step")
     records = check_kernels(torch, pb, cfg.hop_length, rng, args.quick)
     del pb
+    # the long path's kernels on its operands: 8 clips of 60 s, from a
+    # generator of their own, so that the other phases' data do not depend
+    # on this phase
+    long_rng = np.random.default_rng([args.seed, 60])
+    long_clips = np.stack([speechlike(long_rng, 60.0, sr) for _ in range(BATCH)])
+    long_bits = long_rng.integers(0, 2, (BATCH, cfg.detection_net.output_length))
+    x_long = torch.as_tensor(long_clips, device=dev)
+    wm_long = torch.as_tensor(2.0 * long_bits - 1.0, device=dev)
+    pb = build_problem(det.net, x_long, wm_long, cfg)
+    if pb.path != "tiled" or pb.ct0.shape[1] != 3751:
+        raise RuntimeError(f"8 x 60 s took the {pb.path} path at T = {pb.ct0.shape[1]}")
+    records.update(check_tiled_kernels(torch, pb, long_rng, args.quick))
+    del pb
 
     if not args.quick:
         # ---- phase 3: the four solver paths
@@ -588,10 +747,8 @@ def main() -> int:
             e, d = (emb, det) if not overrides else load(device=dev, **overrides)
             paths.append((label, e, d, names))
         for label, e, d, names in paths:
-            solve_path(torch, kernels, label, e, d, clips, bits, names, records)
-        for name, rec in records.items():
-            if rec["launches"] < 1:
-                raise RuntimeError(f"kernel {name} was not launched on any path")
+            solve_path(torch, kernels, label, e, d, clips, bits, dict.fromkeys(names, 1),
+                       records)
         # the first two paths again, in turns (a later solve finds the
         # process warm): the default, the two-kernel path, then both reversed
         turns = []
@@ -657,6 +814,32 @@ def main() -> int:
             raise RuntimeError("single-clip round trip failed")
         if launches44["iteration_step"] != cfg.num_iterations:
             raise RuntimeError("the single-clip embed did not run the whole-step kernel")
+
+        # ---- phase 5: long clips, the tiled path
+        solve_path(torch, kernels, "long clips (tiled path)", emb, det, long_clips, long_bits,
+                   {"shift_mm": 3, "synth_tiled_fwd": 1}, records, phase="5")
+        prof_cfg = cfg.replace(num_iterations=20)
+        trace = f"{args.trace}/trace_long.json" if args.trace else None
+        say(f"phase 5 profile, long clips, B={BATCH} x 60 s x 20 iterations: " + profile_solve(
+            torch, lambda: embed_batch(det.net, x_long, wm_long, prof_cfg), trace))
+        short = cfg.replace(num_iterations=10)
+        for frames in (1025, 1281):
+            n = (frames - 1) * cfg.hop_length
+            pair = torch.as_tensor(np.stack([speechlike(long_rng, 0.0, sr, samples=n)
+                                             for _ in range(2)]))
+            wm2 = torch.as_tensor(2.0 * long_rng.integers(0, 2, (2, 20)) - 1.0,
+                                  dtype=torch.float32)
+            res_k = embed_batch(det.net, pair.to(dev), wm2.to(dev), short)
+            res_p = embed_batch(det_cpu.net, pair, wm2, short)
+            dloss = float((res_k.best_loss.cpu() - res_p.best_loss).abs().max())
+            say(f"phase 5 reference, T = {frames}: 10-iteration best_loss card vs CPU plain "
+                f"|diff| {dloss:.3e}")
+            if not dloss < 0.02:
+                raise RuntimeError(f"T = {frames}: the card's tiled solve departs from the plain solve")
+
+        for name, rec in records.items():
+            if rec["launches"] < 1:
+                raise RuntimeError(f"kernel {name} was not launched on any path")
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}), flush=True)

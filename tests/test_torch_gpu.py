@@ -25,6 +25,7 @@ from aware_tpu_torch.ops.kernels import analysis_detector as tad
 from aware_tpu_torch.ops.kernels import detector as td
 from aware_tpu_torch.ops.kernels import iteration as it
 from aware_tpu_torch.ops.kernels import roundtrip as rt
+from aware_tpu_torch.ops.kernels import roundtrip_tiled as rtt
 from aware_tpu_torch.ops.mel import mel_filter_bank
 
 HOP, B = 256, 3
@@ -263,3 +264,88 @@ def test_iteration_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         it.iteration_step(*state, ct - 1, ct + 1, wm[:, :20].contiguous(), s, s,
                           torch.full((1,), 1e-3, device=cuda), c, it.nadam_coefs())
+
+
+def _tiled_data(t, device, loud_tail=False):
+    """The long-clip kernels' operands; with ``loud_tail`` y_const 0, env
+    4 and the last frame x50, so that the rows past lr set m1 (the last
+    frame reaches rows lr-2 .. lr+1; the envelope divides those below lr)."""
+    rng = np.random.default_rng(300 + t)
+    p, lr, nfft = 256, t - 1, 4 * HOP
+
+    def f32(*shape, scale=1.0):
+        return torch.as_tensor((scale * rng.standard_normal(shape)).astype(np.float32),
+                               device=device)
+
+    cos, sin = f32(B, 225, t), f32(B, 225, t)
+    d = {"ct": f32(B, t, p, scale=0.1), "csinp": rtt.make_csinp(cos, sin, p),
+         "yconst": f32(B, lr, HOP, scale=0.01), "env": 1.0 + f32(lr, HOP).abs(),
+         "g_y2": f32(B, lr, HOP), "g_cs": f32(B, t, 2 * p)}
+    if loud_tail:
+        d["ct"][:, -1] *= 50.0
+        d["yconst"].zero_()
+        d["env"].fill_(4.0)
+    d.update(rtt.build_tiled_bases(rng.standard_normal((2 * p, nfft)).astype(np.float32) / 16,
+                                   rng.standard_normal((nfft, 2 * p)).astype(np.float32) / 16,
+                                   device))
+    return d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t, loud_tail", [(257, False), (300, True), (1281, False),
+                                          (3751, False)])
+def test_tiled_kernels_match_plain(cuda, t, loud_tail):
+    d = _tiled_data(t, cuda, loud_tail)
+    lr = t - 1
+    before = [k.launches for k in rtt.KERNELS]
+    args = (d["ct"], d["csinp"], d["yconst"], d["env"], d["w_sf"])
+    u, m1 = rtt.synth_tiled_fwd(*args)
+    up, m1p = rtt.synth_tiled_fwd_plain(*args)
+    torch.cuda.synchronize()
+    _close(u, up)
+    _close(m1, m1p)
+    if loud_tail:
+        assert torch.all(m1 > 1.1 * u.abs().amax(dim=(1, 2)))
+    pad = torch.nn.functional.pad
+    for x, w, n_out in ((pad(up, (0, 0, 2, 0)), d["w_af"], t),
+                        (pad(d["g_cs"], (0, 0, 3, 0)), d["w_ab"], lr + 3),
+                        (pad(d["g_y2"], (0, 0, 2, 0)), d["w_sb"], t)):
+        _close(rtt.shift_mm(x, w, n_out), rtt.shift_mm_plain(x, w, n_out))
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(rtt.KERNELS, before)] == [3, 1]
+
+
+@pytest.mark.gpu
+def test_tiled_autograd_functions_launch_the_kernels(cuda):
+    d = _tiled_data(1100, cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        before = [k.launches for k in rtt.KERNELS + rt.KERNELS]
+        ct = d["ct"].to(dev).clone().requires_grad_(True)
+        y2 = rtt.synth_norm_tiled(ct, *(d[k].to(dev) for k in
+                                        ("csinp", "yconst", "env", "w_sf", "w_sb")))
+        cs2 = rtt.band_analysis_tiled(y2, d["w_af"].to(dev), d["w_ab"].to(dev))
+        (cs2 * d["g_cs"].to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        grads.append(ct.grad.cpu())
+        launched = [k.launches - n for k, n in zip(rtt.KERNELS + rt.KERNELS, before)]
+        # on the card the forward and two VJP products and the synthesis,
+        # nothing of the whole-clip kernels; on the CPU nothing
+        assert launched == ([3, 1] if dev == cuda else [0, 0]) + [0] * 4
+    assert torch.isfinite(grads[0]).all()
+    _close(grads[0], grads[1])
+
+
+@pytest.mark.gpu
+def test_tiled_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    d = _tiled_data(300, cuda)
+    with pytest.raises(TypeError):  # the tiled path's phase is float32
+        rtt.synth_tiled_fwd(d["ct"], d["csinp"].to(torch.bfloat16), d["yconst"], d["env"],
+                            d["w_sf"])
+    with pytest.raises(ValueError):
+        rtt.synth_tiled_fwd(d["ct"], d["csinp"][:, :-1].contiguous(), d["yconst"], d["env"],
+                            d["w_sf"])
+    with pytest.raises(ValueError):
+        rtt.shift_mm(d["g_cs"][:, :, ::2], d["w_ab"], 300)
+    with pytest.raises(ValueError):
+        rtt.shift_mm(d["g_y2"], d["w_sb"].cpu(), 300)

@@ -222,8 +222,8 @@ def test_unported_paths_raise(overrides):
 
 def test_long_clips_name_the_tiled_kernels(net):
     long_clip = torch.zeros(1, 1030 * 256)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        solver.build_problem(net, long_clip, torch.ones(1, 20), AwareConfig())
+    pb = solver.build_problem(net, long_clip, torch.ones(1, 20), AwareConfig())
+    assert pb.ct0.shape[1] == 1031 and pb.path == "tiled" and pb.tiled is not None
 
 
 def test_card_file_is_read_by_path(tmp_path):

@@ -154,8 +154,10 @@ def test_build_problem_selects_the_path(net, cfg, frames, path):
 
 
 def test_clips_over_1024_frames_still_raise(net):
-    with pytest.raises(NotImplementedError, match="tiled"):
-        solver.build_problem(net, torch.zeros(1, 1030 * 256), torch.ones(1, 20), AwareConfig())
+    """Past 1024 frames the whole-step default takes the tiled path, not
+    iteration_step, as the JAX package's gate does."""
+    pb = solver.build_problem(net, torch.zeros(1, 1030 * 256), torch.ones(1, 20), AwareConfig())
+    assert pb.path == "tiled" and pb.iteration is None and pb.fused is None
 
 
 def test_load_defaults_to_the_whole_step_path():
