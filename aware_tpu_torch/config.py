@@ -36,6 +36,12 @@ class DetectorNetConfig:
         return (self.n_mels, *self.n_filters, 2 * self.output_length)
 
 
+# the matmul precisions the port has a path for: "highest" selects the
+# float32 slab round trip, "high" the kernels; "default" (single-pass bf16
+# everywhere, the JAX package's turbo card) is not ported
+MATMUL_PRECISIONS = ("high", "highest")
+
+
 @dataclasses.dataclass(frozen=True)
 class AwareConfig:
     """Framework configuration: the default card's values."""
@@ -61,8 +67,14 @@ class AwareConfig:
         default_factory=DetectorNetConfig
     )
     threshold: float = 0.0
-    # the solver paths of the JAX package this port mirrors, all through
-    # the kernels (embed/solver.py), with the JAX package's defaults: with
+    # the solver paths of the JAX package this port mirrors
+    # (embed/solver.py selects them as its gate does), with the JAX
+    # package's defaults except use_pallas_roundtrip, which is on here as
+    # it is on a TPU.  use_matmul_dft=False: the FFT round trip;
+    # use_pallas_ola: the frames round trip through the ola_normalize
+    # kernel; use_slab_dft=False: the frames round trip in plain float32;
+    # use_pallas_roundtrip=False or matmul_precision "highest": the slab
+    # round trip in plain float32.  Otherwise the kernels: with
     # use_pallas_iteration and use_pallas_detector, where the fused
     # detector's gate holds, the whole-iteration kernels (iteration_step
     # for push_extremes + NAdam without weight decay, else
@@ -70,6 +82,10 @@ class AwareConfig:
     # synth_norm -> the merged analysis_detector kernels; with
     # use_pallas_detector=False synth_norm -> band_analysis -> edge
     # corrections -> the detector in plain torch
+    matmul_precision: str = "high"
+    use_matmul_dft: bool = True
+    use_slab_dft: bool = True
+    use_pallas_ola: bool = False
     use_pallas_roundtrip: bool = True
     use_pallas_detector: bool = True
     use_pallas_iteration: bool = True
@@ -105,6 +121,7 @@ class AwareConfig:
             "pattern_mode", "watermark_length", "tolerance_db",
             "num_iterations", "loss", "threshold", "vad",
             "use_pallas_roundtrip", "use_pallas_detector", "use_pallas_iteration",
+            "use_matmul_dft", "use_slab_dft", "use_pallas_ola",
         }
         # read by the JAX package only; their default values change
         # nothing here
@@ -113,6 +130,8 @@ class AwareConfig:
         unread = []
         for key, value in card.items():
             if key in simple:
+                kwargs[key] = value
+            elif key == "matmul_precision" and value in MATMUL_PRECISIONS:
                 kwargs[key] = value
             elif key == "embedding_bands":
                 kwargs[key] = tuple(value)

@@ -1,14 +1,37 @@
 """The batched adversarial embed solver.
 
-The port of ``aware_tpu/embed/solver.py`` on its kernel paths
-(``use_pallas_roundtrip=True``: its ``build_problem`` slab-kernel geometry
-and path selection, ``embed_core``, ``embed_batch`` and ``_reconstruct``).
+The port of ``aware_tpu/embed/solver.py`` (``build_problem`` with its
+path selection, ``embed_core``, ``embed_batch`` and ``_reconstruct``).
 Each of ``num_iterations`` steps, for all B clips at once, in the padded
-time-major (B, T, P) coefficient layout, on one of five paths that
-``build_problem`` selects as the JAX package does
-(``aware_tpu/embed/solver.py:451-511``) and records in ``Problem.path``:
+time-major (B, T, P) coefficient layout, on one of the paths that
+``build_problem`` selects as the JAX package's gate does
+(``aware_tpu/embed/solver.py:318``, ``:352-357``, ``:383-397``,
+``:451-511``) and records in ``Problem.path``:
 
-    "iteration_step" (the default card: use_pallas_iteration, the fused
+    "fft" (use_matmul_dft=False): the band written into the magnitude ->
+        polar -> ISTFT -> peak-norm twice -> STFT -> |.| -> zero the
+        out-of-band bins -> the whole detector, plain float32 torch
+        (cuFFT on the card);
+    "ola" (use_pallas_ola): the frames round trip below with the
+        ola_normalize kernel (ops/kernels/ola_norm.py) in place of
+        OLA -> crop -> envelope -> double peak-norm;
+    "frames" (use_slab_dft=False): frames = out-of-band frames + [Re; Im]
+        in-band coefficients @ the windowed synthesis basis -> OLA ->
+        crop -> envelope -> peak-norm twice -> reflect-pad framing ->
+        @ the analysis basis -> safe_magnitude -> banded detector, plain
+        float32 torch;
+    "slab" (the slab decomposition without the kernels:
+        use_pallas_roundtrip=False, or matmul_precision "highest", as the
+        default card file pins): four shifted (T, 2nb) @ (2nb, hop)
+        products and row adds -> envelope -> + out-of-band waveform ->
+        the double peak-norm as one scale -> reflect-pad -> four shifted
+        (T, hop) @ (hop, 2nb) analysis products -> safe_magnitude ->
+        banded detector, plain float32 torch;
+
+and, where the slab decomposition and the kernels' geometry both hold
+(use_pallas_roundtrip, matmul_precision "high"), the kernel paths:
+
+    "iteration_step" (the default: use_pallas_iteration, the fused
         detector's gate, push_extremes + NAdam without weight decay):
         the whole step is the iteration_step kernel (ops/kernels/iteration.py):
         synthesis -> double peak-norm -> reflect-pad analysis -> the fused
@@ -29,18 +52,19 @@ time-major (B, T, P) coefficient layout, on one of five paths that
         then band_analysis (kernel) y2 -> zero-pad framing -> in-band Re/Im
         + edge_corrections (the reflect-pad rows the kernel leaves out) ->
         safe_magnitude -> banded detector (plain torch);
-    "tiled" (clips over 1024 frames, whatever the other flags say: the
-        JAX package's time-tiled kernels, ``aware_tpu/embed/solver.py:383-398``):
+    "tiled" (clips over 1024 frames, whatever the detector and iteration
+        flags say: the JAX package's time-tiled kernels):
         synth_tiled_fwd (kernel) coeffs with the float32 phase -> u and m1
         -> the peak-norm in torch, then band_analysis_tiled (the shift_mm
         kernel) y2 -> zero-pad framing -> in-band Re/Im, then the
         "band_analysis" path's tail; the VJPs are shift_mm twice more
         (ops/kernels/roundtrip_tiled.py).
 
-The generic step of the last four: push_extremes loss (per clip),
-backward through the same chain (the kernels' VJPs), NAdam step at the lr
-from before this step's scheduler tick, scheduler tick, clamp to the box,
-best snapshot.
+The generic step of all but "iteration_step": push_extremes loss (per
+clip), backward through the same chain (autograd, and the kernels' VJPs),
+NAdam step at the lr from before this step's scheduler tick, scheduler
+tick, clamp to the box, best snapshot.  The plain paths' products are
+float32 matmuls, as XLA's are in the JAX package (TF32 is off).
 
 Reference quirks kept: the best snapshot pairs iteration t's loss with the
 post-step, post-clamp coefficients; the box comes from the initial
@@ -53,12 +77,14 @@ zero bounds and zero gradients, so they stay 0.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from aware_tpu_torch.config import AwareConfig, in_band_bins
+from aware_tpu_torch.config import MATMUL_PRECISIONS, AwareConfig, in_band_bins
 from aware_tpu_torch.embed.losses import push_extremes
 from aware_tpu_torch.embed.optim import nadam, nadam_schedule
 from aware_tpu_torch.embed.schedulers import reduce_lr_on_plateau
@@ -81,7 +107,9 @@ from aware_tpu_torch.ops.kernels.iteration import (
     nadam_coefs,
     step_buffers,
 )
+from aware_tpu_torch.ops.kernels.ola_norm import ola_normalize
 from aware_tpu_torch.ops.kernels.roundtrip import (
+    PAD,
     R,
     band_analysis,
     edge_corrections,
@@ -105,6 +133,7 @@ from aware_tpu_torch.ops.stft import (
     rfft_basis,
     safe_magnitude,
     stft,
+    stft_frames,
 )
 from aware_tpu_torch.ops.windows import get_window
 
@@ -122,8 +151,8 @@ class EmbedResult(NamedTuple):
 def check_supported(cfg: AwareConfig) -> None:
     """Raise for a configuration that would need a path not ported."""
     unported = []
-    if not cfg.use_pallas_roundtrip:
-        unported.append("use_pallas_roundtrip=False (the XLA slab path)")
+    if cfg.matmul_precision not in MATMUL_PRECISIONS:
+        unported.append(f"matmul_precision {cfg.matmul_precision!r}")
     if cfg.optimizer_name != "nadam":
         unported.append(f"optimizer {cfg.optimizer_name!r}")
     if cfg.loss != "push_extremes":
@@ -155,27 +184,50 @@ class TiledConsts(NamedTuple):
     w_ab: torch.Tensor   # (4, 2P, hop) of its VJP
 
 
+class PlainConsts(NamedTuple):
+    """The float32 round trips' constants ("slab", "frames", "ola", "fft"),
+    over the nb in-band bins without padding."""
+
+    cos: torch.Tensor     # (B, T, nb) cos of the in-band phase; on "fft" (B, F, T), all bins
+    sin: torch.Tensor
+    window: torch.Tensor  # (n_fft,) float32
+    ab: torch.Tensor | None  # (2nb, n_fft) windowed synthesis basis, Re rows then Im
+    cs: torch.Tensor | None  # (n_fft, 2nb) analysis basis [C | S], windowed on "slab"
+    frames_const: torch.Tensor | None  # (B, T, n_fft) out-of-band windowed frames
+    #                                    ("frames", "ola")
+
+
 @dataclasses.dataclass
 class Problem:
-    """A batch's embed problem in the kernels' padded (B, T, P) layout."""
+    """A batch's embed problem in the padded (B, T, P) layout, with the
+    constants of its path and no others."""
 
     ct0: torch.Tensor       # (B, T, P) initial coefficients
     lower: torch.Tensor     # (B, T, P) box
     upper: torch.Tensor
     wm: torch.Tensor        # (B, n_bits) bipolar targets
-    csin: torch.Tensor | None  # (B, T, 2P) bf16 [cos | sin] of the in-band
-    #                            phase; None on the "tiled" path (tiled.csinp)
-    y_const: torch.Tensor   # (B, T-1, hop) envelope-divided out-of-band waveform
     env: torch.Tensor       # (T-1, hop) OLA envelope
-    ab: torch.Tensor        # (2P, n_fft) bf16 synthesis basis, window folded
-    abt: torch.Tensor
-    csw: torch.Tensor       # (n_fft, 2P) bf16 windowed analysis basis
-    cswt: torch.Tensor
-    csw_k: list             # R float32 (hop, 2P) slabs of csw
     mag: torch.Tensor       # (B, F, T) original magnitude
     phase: torch.Tensor     # (B, F, T)
     lo: int
     hi: int
+    # the solver path (module docstring): "fft", "ola", "frames", "slab",
+    # "iteration_step", "iteration_forward", "analysis_detector",
+    # "band_analysis" or "tiled"
+    path: str
+    y_const: torch.Tensor | None = None  # (B, T-1, hop) envelope-divided
+    #                                      out-of-band waveform (slab paths)
+    # the kernel paths' constants: bf16 [cos | sin] of the in-band phase
+    # (B, T, 2P) (None on "tiled", which has tiled.csinp), the bf16
+    # synthesis basis (2P, n_fft) with the window folded in, the bf16
+    # windowed analysis basis (n_fft, 2P), their transposes, and the R
+    # float32 (hop, 2P) slabs of the analysis basis (edge corrections)
+    csin: torch.Tensor | None = None
+    ab: torch.Tensor | None = None
+    abt: torch.Tensor | None = None
+    csw: torch.Tensor | None = None
+    cswt: torch.Tensor | None = None
+    csw_k: list | None = None
     # the merged analysis + detector kernels' constants where they run
     # this problem, else None
     fused: AnalysisDetConsts | None = None
@@ -183,9 +235,8 @@ class Problem:
     iteration: IterConsts | None = None
     # the long-clip kernels' constants on the "tiled" path, else None
     tiled: TiledConsts | None = None
-    # the solver path (module docstring): "iteration_step",
-    # "iteration_forward", "analysis_detector", "band_analysis" or "tiled"
-    path: str = "band_analysis"
+    # the float32 round trips' constants on "slab", "frames", "ola", "fft"
+    plain: PlainConsts | None = None
 
     @property
     def nb(self) -> int:
@@ -195,15 +246,26 @@ class Problem:
 def build_problem(
     net: DetectorNet, audios: torch.Tensor, watermarks: torch.Tensor, cfg: AwareConfig
 ) -> Problem:
-    """Preprocess B equal-length clips (B, L) and build the kernels'
-    constants (peak-norm -> STFT -> magnitude/phase -> bases), and select
-    the solver path.  Past ``MAX_FRAMES`` frames, the time-tiled kernels'
-    constants (``aware_tpu/embed/solver.py:434-443``) and nothing else.
-    Otherwise, with ``cfg.use_pallas_detector``, where the JAX package's
-    gate holds (``aware_tpu/embed/solver.py:451-457``), also the merged
-    analysis + detector kernels' constants from the keyed ``net``, and
-    with ``cfg.use_pallas_iteration`` the whole-iteration kernels'
-    (``aware_tpu/embed/solver.py:483-511``)."""
+    """Preprocess B equal-length clips (B, L) (peak-norm -> STFT ->
+    magnitude/phase -> box), select the solver path as the JAX package's
+    gate does, and build that path's constants alone:
+
+    * not ``use_matmul_dft``: "fft" (``aware_tpu/embed/solver.py:638-652``);
+    * else the out-of-band windowed frames; without the slab decomposition
+      (``use_pallas_ola`` or not ``use_slab_dft``, ``:352-357``) "ola" or
+      "frames" (``:591-616``);
+    * else the out-of-band waveform; without the kernels' geometry
+      (``use_pallas_roundtrip=False`` or ``matmul_precision == "highest"``,
+      ``:383-390``) "slab" (``:554-589``);
+    * else past ``MAX_FRAMES`` frames the time-tiled kernels' constants
+      (``:434-443``), and up to it the whole-clip kernels': with
+      ``cfg.use_pallas_detector``, where the JAX package's gate holds
+      (``:451-457``), also the merged analysis + detector kernels'
+      constants from the keyed ``net``, and with ``cfg.use_pallas_iteration``
+      the whole-iteration kernels' (``:483-511``).
+
+    ``check_supported`` holds the frame geometry every path here assumes
+    (n_fft == 4 hop, hop % 128 == 0)."""
     n_fft, hop = cfg.frame_length, cfg.hop_length
     dev = audios.device
     window = get_window(cfg.window, cfg.win_length)
@@ -219,10 +281,39 @@ def build_problem(
     lower = torch.clamp(coeffs0 - delta, min=0.0)
     upper = coeffs0 + delta
     cos_ph, sin_ph = torch.cos(phase), torch.sin(phase)
+    env = torch.as_tensor(
+        _ola_envelope(tuple(window.tolist()), n_fft, hop, t_frames),
+        dtype=torch.float32,
+        device=dev,
+    ).reshape(t_frames - 1, hop)
+    wvec = window.astype(np.float32)
+    window_t = torch.from_numpy(wvec).to(dev)
+    # band padded to a multiple of 128 columns: the kernels' layout, and
+    # the solver's carry on every path
+    p = -(-nb // 128) * 128
+
+    def to_carry(c: torch.Tensor) -> torch.Tensor:
+        out = c.new_zeros(c.shape[0], t_frames, p)
+        out[..., :nb] = c.transpose(1, 2)
+        return out
+
+    problem = functools.partial(
+        Problem,
+        ct0=to_carry(coeffs0),
+        lower=to_carry(lower),
+        upper=to_carry(upper),
+        wm=watermarks.to(dev, torch.float32),
+        env=env,
+        mag=mag,
+        phase=phase,
+        lo=lo,
+        hi=hi,
+    )
+    if not cfg.use_matmul_dft:
+        return problem(path="fft", plain=PlainConsts(cos_ph, sin_ph, window_t, None, None, None))
 
     a_np, b_np = irfft_basis(n_fft)
     c_np, s_np = rfft_basis(n_fft)
-    wvec = window.astype(np.float32)
     aw = torch.from_numpy(a_np * wvec[None, :]).to(dev)
     bw = torch.from_numpy(b_np * wvec[None, :]).to(dev)
     re_full, im_full = mag * cos_ph, mag * sin_ph
@@ -233,51 +324,62 @@ def build_problem(
         + im_full[:, :lo].transpose(1, 2) @ bw[:lo]
         + im_full[:, hi:].transpose(1, 2) @ bw[hi:]
     )
+    cos_in = cos_ph[:, lo:hi].transpose(1, 2).contiguous()  # (B, T, nb)
+    sin_in = sin_ph[:, lo:hi].transpose(1, 2).contiguous()
+    ab_in = torch.cat([aw[lo:hi], bw[lo:hi]], dim=0)  # (2nb, n_fft)
+    cs_np = np.concatenate([c_np[:, lo:hi], s_np[:, lo:hi]], axis=1)  # (n_fft, 2nb)
+
+    if cfg.use_pallas_ola or not cfg.use_slab_dft:
+        return problem(
+            path="ola" if cfg.use_pallas_ola else "frames",
+            plain=PlainConsts(cos_in, sin_in, window_t, ab_in,
+                              torch.from_numpy(cs_np).to(dev), frames_const),
+        )
+
     y_const = istft_synthesis(frames_const, n_fft, hop, window).reshape(
         -1, t_frames - 1, hop
-    )
-    env = torch.as_tensor(
-        _ola_envelope(tuple(window.tolist()), n_fft, hop, t_frames),
-        dtype=torch.float32,
-        device=dev,
-    ).reshape(t_frames - 1, hop)
+    ).contiguous()
+    if not cfg.use_pallas_roundtrip or cfg.matmul_precision == "highest":
+        # the kernels are single-pass bf16: "highest" keeps the float32 slabs
+        return problem(
+            path="slab",
+            y_const=y_const,
+            plain=PlainConsts(cos_in, sin_in, window_t, ab_in,
+                              torch.from_numpy(cs_np * wvec[:, None]).to(dev), None),
+        )
 
-    # band padded to a multiple of 128 columns; Re block at [0, P), Im
-    # block at [P, 2P) in both bases and in the analysis output
-    p = -(-nb // 128) * 128
+    # Re block at [0, P), Im block at [P, 2P) in both bases and in the
+    # analysis output
     ab_np = np.zeros((2 * p, n_fft), np.float32)
     ab_np[:nb] = (a_np * wvec[None, :])[lo:hi]
     ab_np[p : p + nb] = (b_np * wvec[None, :])[lo:hi]
     csw_np = np.zeros((n_fft, 2 * p), np.float32)
     csw_np[:, :nb] = c_np[:, lo:hi] * wvec[:, None]
     csw_np[:, p : p + nb] = s_np[:, lo:hi] * wvec[:, None]
+    csw_k = [torch.from_numpy(csw_np[k * hop : (k + 1) * hop].copy()).to(dev) for k in range(R)]
+    if t_frames > MAX_FRAMES:
+        return problem(
+            path="tiled",
+            y_const=y_const,
+            csw_k=csw_k,
+            tiled=TiledConsts(
+                csinp=make_csinp(cos_ph[:, lo:hi], sin_ph[:, lo:hi], p),
+                **build_tiled_bases(ab_np, csw_np, dev),
+            ),
+        )
 
     def bf16(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, torch.bfloat16)
 
-    def to_carry(c: torch.Tensor) -> torch.Tensor:
-        out = c.new_zeros(c.shape[0], t_frames, p)
-        out[..., :nb] = c.transpose(1, 2)
-        return out
-
-    y_const = y_const.contiguous()
     csw, cswt = bf16(csw_np), bf16(csw_np.T)
     ab, abt = bf16(ab_np), bf16(ab_np.T)
-    csin = fused = iteration = tiled = None
-    if t_frames > MAX_FRAMES:
-        path = "tiled"
-        tiled = TiledConsts(
-            csinp=make_csinp(cos_ph[:, lo:hi], sin_ph[:, lo:hi], p),
-            **build_tiled_bases(ab_np, csw_np, dev),
-        )
-    else:
-        csin = torch.zeros(mag.shape[0], t_frames, 2 * p, device=dev)
-        csin[..., :nb] = cos_ph[:, lo:hi].transpose(1, 2)
-        csin[..., p : p + nb] = sin_ph[:, lo:hi].transpose(1, 2)
-        csin = csin.to(torch.bfloat16)
+    csin = torch.zeros(mag.shape[0], t_frames, 2 * p, device=dev)
+    csin[..., :nb] = cos_in
+    csin[..., p : p + nb] = sin_in
+    csin = csin.to(torch.bfloat16)
+    fused = iteration = None
     if (
-        tiled is None
-        and cfg.use_pallas_detector
+        cfg.use_pallas_detector
         and p == P_BAND
         and t_frames >= MIN_FRAMES
         and fused_detector_supported(net_cfg, nb, t_frames, n_fft)
@@ -293,8 +395,7 @@ def build_problem(
             ),
         )
 
-    if tiled is None:
-        path = "band_analysis" if fused is None else "analysis_detector"
+    path = "band_analysis" if fused is None else "analysis_detector"
     if fused is not None and cfg.use_pallas_iteration:
         iteration = IterConsts(csin=csin, y_const=y_const, env=env, ab=ab, abt=abt,
                                csw=csw, cswt=cswt, det=fused.det)
@@ -305,36 +406,70 @@ def build_problem(
         )
         path = "iteration_step" if step_whole else "iteration_forward"
 
-    return Problem(
-        ct0=to_carry(coeffs0),
-        lower=to_carry(lower),
-        upper=to_carry(upper),
-        wm=watermarks.to(dev, torch.float32),
-        csin=csin,
+    return problem(
+        path=path,
         y_const=y_const,
-        env=env,
+        csin=csin,
         ab=ab,
         abt=abt,
         csw=csw,
         cswt=cswt,
-        csw_k=[
-            torch.from_numpy(csw_np[k * hop : (k + 1) * hop].copy()).to(dev)
-            for k in range(R)
-        ],
-        mag=mag,
-        phase=phase,
-        lo=lo,
-        hi=hi,
+        csw_k=csw_k,
         fused=fused,
         iteration=iteration,
-        tiled=tiled,
-        path=path,
     )
+
+
+def _plain_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig):
+    """The float32 round trip and detector of the "slab", "frames", "ola"
+    and "fft" paths: bits (B, n_bits) of the coefficients ct (B, T, P)."""
+    n_fft, hop = cfg.frame_length, cfg.hop_length
+    c = pb.plain
+    batch, t_frames = ct.shape[0], ct.shape[1]
+    coeffs = ct[..., : pb.nb]  # (B, T, nb)
+    if pb.path == "fft":
+        m = torch.cat([pb.mag[:, : pb.lo], coeffs.transpose(1, 2), pb.mag[:, pb.hi :]], dim=1)
+        z = torch.complex(m * c.cos, m * c.sin)
+        y = peak_normalize(istft(z, n_fft, hop, c.window, env=pb.env.reshape(-1)))
+        band = stft(peak_normalize(y), n_fft, hop, c.window)[:, pb.lo : pb.hi]
+        m2 = safe_magnitude(band.real, band.imag)
+        # the whole detector on the band-zeroed magnitude, as the JAX path
+        return net(F.pad(m2, (0, 0, pb.lo, m.shape[1] - pb.hi)))
+    reim = torch.cat([coeffs * c.cos, coeffs * c.sin], dim=-1)  # (B, T, 2nb)
+    if pb.path == "slab":
+        # OLA as R shifted row adds of hop-wide slabs; the out-of-band
+        # part enters after the envelope as a waveform
+        yd = sum(
+            F.pad(reim @ c.ab[:, k * hop : (k + 1) * hop], (0, 0, k, R - 1 - k))
+            for k in range(R)
+        )
+        u = yd[:, PAD : PAD + t_frames - 1] / pb.env + pb.y_const
+        # the double peak-norm as one scale: the second max is
+        # m1 / (m1 + e) exactly
+        m1 = u.abs().amax(dim=(1, 2), keepdim=True)
+        yf = (u / ((m1 + 1e-8) * (m1 / (m1 + 1e-8) + 1e-8))).reshape(batch, -1)
+        half = n_fft // 2
+        yp = torch.cat(
+            [yf[:, 1 : half + 1].flip(-1), yf, yf[:, -half - 1 : -1].flip(-1)], dim=-1
+        ).reshape(batch, t_frames + R - 1, hop)
+        cs2 = sum(yp[:, k : k + t_frames] @ c.cs[k * hop : (k + 1) * hop] for k in range(R))
+    else:
+        frames = c.frames_const + reim @ c.ab  # (B, T, n_fft)
+        if pb.path == "ola":
+            y2 = ola_normalize(frames, pb.env).reshape(batch, -1)
+        else:
+            y2 = peak_normalize(peak_normalize(
+                istft_synthesis(frames, n_fft, hop, None, env=pb.env.reshape(-1))))
+        cs2 = stft_frames(y2, n_fft, hop, c.window) @ c.cs
+    m2 = safe_magnitude(cs2[..., : pb.nb], cs2[..., pb.nb :])
+    return net.forward_banded(m2.transpose(1, 2), pb.lo, pb.hi)
 
 
 def objective(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig):
     """Per-clip loss (B,) of the coefficients ct (B, T, P)."""
     t_frames, p = ct.shape[1], ct.shape[2]
+    if pb.plain is not None:
+        return push_extremes(_plain_pred(ct, pb, net, cfg), pb.wm)
     if pb.iteration is not None:
         return push_extremes(iteration_forward(ct, pb.iteration), pb.wm)
     if pb.tiled is not None:

@@ -49,6 +49,8 @@ SIGNATURES = {
     "aw_step_epilogue": [_P] + [_I] * 4 + [_F] * 4 + [_P],
     "aw_shift_mm": [_P] * 3 + [_I] * 5 + [_P],
     "aw_synth_tiled_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "aw_ola_fwd": [_P] * 4 + [_I] * 3 + [_P],
+    "aw_ola_bwd": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 

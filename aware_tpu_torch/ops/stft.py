@@ -35,6 +35,10 @@ def istft_length(n_frames: int, hop_length: int) -> int:
 
 
 def _window(window, like: torch.Tensor) -> torch.Tensor:
+    """The window as a tensor beside ``like``: a host array is copied over,
+    a tensor already on the device is used as it is."""
+    if isinstance(window, torch.Tensor):
+        return window.to(like.dtype)
     return torch.as_tensor(np.asarray(window), dtype=like.dtype, device=like.device)
 
 
@@ -117,16 +121,20 @@ def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
 
 
 def istft_synthesis(
-    wframes: torch.Tensor, n_fft: int, hop_length: int, window
+    wframes: torch.Tensor, n_fft: int, hop_length: int, window, env=None
 ) -> torch.Tensor:
     """OLA + center-crop + envelope division of already-windowed frames
-    (..., T, n_fft) — the back half of :func:`istft`."""
+    (..., T, n_fft) — the back half of :func:`istft`.  ``env``, where
+    given, is the envelope as a ((T-1)*hop,) tensor on the frames' device
+    (the solver builds it once); else it is built from ``window``."""
     t = wframes.shape[-2]
     y = overlap_add(wframes, hop_length)
     pad = n_fft // 2
     y = y[..., pad : pad + istft_length(t, hop_length)]
-    env = _ola_envelope(tuple(np.asarray(window).tolist()), n_fft, hop_length, t)
-    return y / torch.as_tensor(env, dtype=y.dtype, device=y.device)
+    if env is None:
+        env = _ola_envelope(tuple(np.asarray(window).tolist()), n_fft, hop_length, t)
+        env = torch.as_tensor(env, dtype=y.dtype, device=y.device)
+    return y / env
 
 
 def istft(
@@ -135,13 +143,15 @@ def istft(
     hop_length: int = 256,
     window="hann",
     win_length: int | None = None,
+    env: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Centered inverse STFT of complex (..., F, T) -> (..., (T-1)*hop)."""
+    """Centered inverse STFT of complex (..., F, T) -> (..., (T-1)*hop).
+    ``window`` may be a tensor on the device where ``env`` is given (see
+    :func:`istft_synthesis`)."""
     if isinstance(window, str):
         window = get_window(window, win_length or n_fft)
-    window = np.asarray(window)
     frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)
-    return istft_synthesis(frames * _window(window, frames), n_fft, hop_length, window)
+    return istft_synthesis(frames * _window(window, frames), n_fft, hop_length, window, env)
 
 
 @functools.lru_cache(maxsize=8)

@@ -149,14 +149,21 @@ def load(
     where there is none.  A card or keyword that asks for a path this port
     does not have raises NotImplementedError.
 
-    The embed solver runs the JAX package's kernel paths (bf16 operands,
-    float32 accumulation, as the TPU kernels), selected as there: by
-    default the whole step is one ``iteration_step`` kernel chain per
-    iteration; with weight decay the ``iteration_forward`` kernels and
-    their VJP; ``use_pallas_iteration=False`` takes the round-trip
-    synthesis kernel and then the merged analysis + fused detector
-    kernels; ``use_pallas_detector=False`` the synthesis and analysis
-    kernels and the float32 plain-torch detector.  Detection is the
+    The embed solver takes the JAX package's paths, selected as there
+    (``embed/solver.py`` names them).  By default, the kernel paths (bf16
+    operands, float32 accumulation, as the TPU kernels): the whole step is
+    one ``iteration_step`` kernel chain per iteration; with weight decay
+    the ``iteration_forward`` kernels and their VJP;
+    ``use_pallas_iteration=False`` takes the round-trip synthesis kernel
+    and then the merged analysis + fused detector kernels;
+    ``use_pallas_detector=False`` the synthesis and analysis kernels and
+    the float32 plain-torch detector; clips over 1024 frames the
+    time-tiled kernels.  The float32 round trips: the JAX package's
+    default card file (``load("config")``, ``matmul_precision: highest``)
+    or ``use_pallas_roundtrip=False`` the "slab" path;
+    ``use_slab_dft=False`` the "frames" path; ``use_pallas_ola=True`` the
+    "ola" path (the frames round trip through the ``ola_normalize``
+    kernel); ``use_matmul_dft=False`` the "fft" path.  Detection is the
     float32 plain-torch detector, as in the JAX package, which has no
     detection kernel.
 

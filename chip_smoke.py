@@ -2,7 +2,7 @@
 """Chip check of aware_tpu_torch on one CUDA card (written for an H100).
 
     python3 chip_smoke.py            # all phases, the default card's 400 iterations
-    python3 chip_smoke.py --quick    # phases 0-2 only, one launch per kernel
+    python3 chip_smoke.py --quick    # phases 0-2 only, each kernel checked, none timed
 
 Phases, each printing one progress line (plus details) and failing the run
 with a non-zero exit on any error:
@@ -26,7 +26,12 @@ with a non-zero exit on any error:
    path's kernels on its operands (B = 8 clips of T = 3751 frames, 60 s):
    shift_mm at each of its three uses and the tiled synthesis, on the
    problem's coefficients and on a probe whose last frame is loud (the
-   rows past the crop set m1), to 1e-3 * max|plain|.
+   rows past the crop set m1), to 1e-3 * max|plain|.  Then ola_normalize,
+   forward and VJP, on the "ola" path's frames (B = 8, T = 626) and on
+   random frames at B = 3, T = 63 with a silent lane, to the JAX suite's
+   tolerances for it (forward atol/rtol 1e-6, VJP atol 1e-5, rtol 1e-4),
+   and a tie probe (two ties of opposite sign at the peak of y2: each must
+   take K / 2 of the peak-norm's gradient).
    Device times of kernel and plain version (CUDA-graph replays timed by
    CUDA events), per-call times from Python, the bound of each, and where
    one PyTorch call computes the same function (band_analysis and
@@ -55,12 +60,23 @@ with a non-zero exit on any error:
    44.1 kHz (the resample path), on the default path;
 5. long clips: load() -> embed_watermark_batch of 8 speech-like 60 s
    clips (T = 3751 frames, over the whole-clip kernels' 1024: the tiled
-   path, whatever the card's flags) -> detect_watermark_batch: 0 % BER on
+   path on the default card, whatever its detector and iteration flags)
+   -> detect_watermark_batch: 0 % BER on
    every lane, shift_mm launched 3 times and synth_tiled_fwd once per
    iteration, every other kernel never; a torch.profiler breakdown of a
    20-iteration solve; and a 10-iteration solve of 2 clips of T = 1025 and
    of T = 1281 on the card against the same solve through the plain
-   versions on the CPU.
+   versions on the CPU;
+6. the float32 round trips: load("config") (the JAX package's default
+   card file, matmul_precision: highest) -> embed_watermark_batch of the
+   phase 3 clips (8 x 10 s, 400 iterations) -> detect_watermark_batch on
+   the "slab" path (bare), "ola" (use_pallas_ola=True), "frames"
+   (use_slab_dft=False) and "fft" (use_matmul_dft=False): 0 % BER on
+   every lane, the ola_normalize kernels launched once per iteration each
+   on "ola", and no kernel at all on the other three; a 10-iteration solve
+   per path on the card against the CPU's; a torch.profiler breakdown of a
+   20-iteration solve on "ola"; and 2 clips of 1030 frames under the card
+   file, which keep the slab path (no tiled kernel) and read back at 0 %.
 
 The last lines are one JSON object with a record per kernel
 ({"kernels": [...]}), nvidia-smi's name/power line, and
@@ -133,9 +149,12 @@ def time_ms(torch, fn, reps: int) -> tuple[float, float]:
     return out[0], out[1]
 
 
-def profile_solve(torch, run, trace: str | None = None) -> str:
+def profile_solve(torch, run, trace: str | None = None, marker: str = "shift_gemm") -> str:
     """Device time by kind of kernel over one call of ``run``; with
-    ``trace``, the Chrome trace is written to that file."""
+    ``trace``, the Chrome trace is written to that file.  The solver
+    loop's window runs from the first launch of a kernel whose name holds
+    ``marker`` to the end of the last (set-up and reconstruction launch
+    none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -149,7 +168,7 @@ def profile_solve(torch, run, trace: str | None = None) -> str:
         prof.export_chrome_trace(trace)
     ours = ("shift_gemm", "peak_scale", "synth_bwd_scalars", "fold_phase", "in_norm_fwd",
             "mel_norm_fwd", "brh_fwd", "brh_bwd", "in_norm_bwd_stats", "mel_bwd_stats",
-            "reflect_fold", "fold_scalars", "nadam_fold", "best_loss_update")
+            "reflect_fold", "fold_scalars", "nadam_fold", "best_loss_update", "ola_")
     kinds = {"our kernels": 0.0, "cuBLAS GEMM": 0.0, "FFT": 0.0, "other": 0.0}
     top = []
     dtoh = 0
@@ -173,12 +192,10 @@ def profile_solve(torch, run, trace: str | None = None) -> str:
     busy = sum(kinds.values())
     if busy == 0:
         return f"wall {wall_ms:.1f} ms; device time not visible to torch.profiler"
-    # the solver loop's own window, from the start of the first of our GEMMs
-    # to the end of the last (set-up and reconstruction launch none), and
-    # the device's idle share inside it
+    # the solver loop's own window, and the device's idle share inside it
     spans = [(ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
              if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start]
-    gemms = [(a, b) for a, b, n in spans if "shift_gemm" in n]
+    gemms = [(a, b) for a, b, n in spans if marker in n]
     lo, hi = min(a for a, _ in gemms), max(b for _, b in gemms)
     in_loop = sum(min(b, hi) - max(a, lo) for a, b, _ in spans if b > lo and a < hi)
     top = sorted(top, reverse=True)[:6]
@@ -566,6 +583,123 @@ def check_tiled_kernels(torch, pb, rng, quick: bool) -> dict:
     return {"shift_mm": shift, "synth_tiled_fwd": synth_rec}
 
 
+OLA_FWD_TOL = (1e-6, 1e-6)   # ola_normalize forward: atol, rtol (tests/test_pallas.py:43)
+OLA_VJP_TOL = (1e-5, 1e-4)   # its VJP (tests/test_pallas.py:65-67)
+
+
+def _close_ola(name, out, ref, tol) -> float:
+    """ola_normalize: |out - plain| <= atol + rtol |plain| everywhere, the
+    JAX suite's test of this kernel; returns the largest error."""
+    atol, rtol = tol
+    if out.shape != ref.shape or not out.isfinite().all():
+        raise RuntimeError(f"{name}: bad output {tuple(out.shape)}")
+    err = (out - ref).abs()
+    if (err > atol + rtol * ref.abs()).any():
+        raise RuntimeError(f"{name}: max error {float(err.max()):.3e} over atol {atol} + "
+                           f"rtol {rtol} * |plain|")
+    return float(err.max())
+
+
+def check_ola_kernels(torch, pb, rng, quick: bool) -> dict:
+    """Phase 2, rows 14-15: ola_normalize forward and VJP against their
+    plain versions, to the JAX suite's tolerances for this kernel: on the
+    "ola" path's frames at its start (B = 8, T = 626) and on random frames
+    at B = 3, T = 63 (odd rows) with a silent lane; the VJP from the plain
+    forward's y2 and m1, and from the kernel's own.  Then the tie probe: y2
+    with the peak magnitude at two places of opposite sign, where each tie
+    must take K / 2 off g / c with its sign.  Returns one record each."""
+    from aware_tpu_torch.ops.kernels import ola_norm as on
+    from aware_tpu_torch.ops.stft import _ola_envelope
+    from aware_tpu_torch.ops.windows import get_window
+
+    bsz, t, _ = pb.ct0.shape
+    lr, hop = pb.env.shape
+    n_fft = on.R * hop
+    dev = pb.ct0.device
+    src = "aware_tpu_torch/csrc/ola_norm.cu"
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)
+
+    c = pb.plain
+    coeffs = pb.ct0[..., : pb.nb]
+    frames = (c.frames_const + torch.cat([coeffs * c.cos, coeffs * c.sin], -1) @ c.ab).contiguous()
+    small = rand(3, 63, n_fft)
+    small[1] = 0.0  # a silent lane
+    wkey = tuple(get_window("hann", n_fft).tolist())
+    env_small = torch.as_tensor(_ola_envelope(wkey, n_fft, hop, 63), dtype=torch.float32,
+                                device=dev).reshape(62, hop)
+    err_f = err_b = 0.0
+    for label, wf, env in (("B=8, T=626", frames, pb.env), ("B=3, T=63", small, env_small)):
+        y2p, m1p = on.ola_normalize_fwd_plain(wf, env)
+        y2, m1 = on.ola_normalize_fwd(wf, env)
+        err_f = max(err_f, _close_ola(f"ola_normalize_fwd {label} y2", y2, y2p, OLA_FWD_TOL),
+                    _close_ola(f"ola_normalize_fwd {label} m1", m1, m1p, OLA_FWD_TOL))
+        g = rand(*y2p.shape)
+        for res, (yy, mm) in (("plain", (y2p, m1p)), ("own", (y2, m1))):
+            err_b = max(err_b, _close_ola(
+                f"ola_normalize_bwd {label} from the {res} residuals",
+                on.ola_normalize_bwd(g, yy, env, mm),
+                on.ola_normalize_bwd_plain(g, yy, env, mm), OLA_VJP_TOL))
+        if label.startswith("B=3") and not (float(m1[1]) == 0.0 and not y2[1].any()):
+            raise RuntimeError("ola_normalize_fwd: the silent lane is not silent")
+    # the tie probe: lane 0's y2 with +2 and -2 above every other |y2|
+    y2p, m1p = on.ola_normalize_fwd_plain(frames, pb.env)
+    g = rand(bsz, lr, hop)
+    ties = y2p.clone()
+    spots = ((3, 5, 2.0), (lr - 2, 100, -2.0))  # (row, column, value)
+    for j, col, v in spots:
+        ties[0, j, col] = v
+    dwf = on.ola_normalize_bwd(g, ties, pb.env, m1p)
+    err_b = max(err_b, _close_ola("ola_normalize_bwd tie probe", dwf,
+                                  on.ola_normalize_bwd_plain(g, ties, pb.env, m1p),
+                                  OLA_VJP_TOL))
+    m = float(m1p[0])
+    cc = (m + 1e-8) * (m / (m + 1e-8) + 1e-8)
+    q = float((g[0].double() * ties[0].double()).sum())
+    k_coef = (m / (m + 1e-8) + 1e-8) * q * (1e-8 + cc) / (cc * cc)
+    shares = []
+    for j, col, v in spots:
+        k = 0 if j + on.PAD < t else on.R - 1  # a slice of dwf that holds row j
+        g_env = float(dwf[0, j + on.PAD - k, k * hop + col]) * float(pb.env[j, col])
+        g_c = float(g[0, j, col]) / cc
+        shares.append(g_c - g_env)
+        if abs(shares[-1] - np.sign(v) * k_coef / 2) > 1e-3 * (abs(k_coef / 2) + abs(g_c)):
+            raise RuntimeError(f"ola_normalize_bwd tie probe: the tie at row {j} took "
+                               f"{shares[-1]:.6e}, not {np.sign(v) * k_coef / 2:.6e} = K / 2")
+    say(f"  ola_normalize tie probe: the two ties took {shares[0]:.6e} and {shares[1]:.6e} "
+        f"of K = {k_coef:.6e}; silent lane m1 0, y2 0, VJP finite")
+
+    g = rand(bsz, lr, hop)
+    y2p, m1p = on.ola_normalize_fwd_plain(frames, pb.env)
+    f32_rows = bsz * lr * hop * F32
+    cases = {  # name: (kernel, plain, replaces, bytes in + out, largest error)
+        "ola_normalize_fwd": (
+            lambda: on.ola_normalize_fwd(frames, pb.env),
+            lambda: on.ola_normalize_fwd_plain(frames, pb.env),
+            "aware_tpu/ops/pallas/ola_norm.py:135",
+            bsz * t * n_fft * F32 + lr * hop * F32 + f32_rows + bsz * F32, err_f),
+        "ola_normalize_bwd": (
+            lambda: on.ola_normalize_bwd(g, y2p, pb.env, m1p),
+            lambda: on.ola_normalize_bwd_plain(g, y2p, pb.env, m1p),
+            "aware_tpu/ops/pallas/ola_norm.py:167",
+            2 * f32_rows + lr * hop * F32 + bsz * F32 + bsz * t * n_fft * F32, err_b),
+    }
+    records = {}
+    for name, (kern, plain, replaces, nbytes, err) in cases.items():
+        # a few operations per element: bytes bound both; no single
+        # PyTorch call computes either (F.fold does the overlap-add alone)
+        rec = _record(name, src, replaces, err, 0, nbytes)
+        if not quick:
+            rec["ms"] = time_ms(torch, kern, REPS)[0]
+            rec["plain_ms"] = time_ms(torch, plain, REPS)[0]
+        records[name] = rec
+        say(f"phase 2 kernel {name}: max_abs_err {err:.3e} device ms {rec['ms']} plain device "
+            f"ms {rec['plain_ms']} bound_us {rec['bound_ms'] * 1e3:.2f} ({rec['bound_by']}; "
+            f"{nbytes / 1e6:.2f} MB)")
+    return records
+
+
 def solve_path(torch, kernels, label, emb, det, clips, bits, per_iteration, records,
                phase="3") -> None:
     """One solver path: the batch embed and detect, with every count set to
@@ -674,16 +808,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
-    from aware_tpu_torch import detect_watermark, embed_watermark, embed_watermark_batch, load
+    from aware_tpu_torch import (
+        detect_watermark,
+        detect_watermark_batch,
+        embed_watermark,
+        embed_watermark_batch,
+        load,
+    )
     from aware_tpu_torch.embed.solver import build_problem, embed_batch, solve
     from aware_tpu_torch.ops.kernels import analysis_detector as tad
     from aware_tpu_torch.ops.kernels import detector as td
     from aware_tpu_torch.ops.kernels import iteration as it
+    from aware_tpu_torch.ops.kernels import ola_norm as on
     from aware_tpu_torch.ops.kernels import roundtrip as rt
     from aware_tpu_torch.ops.kernels import roundtrip_tiled as rtt
     from aware_tpu_torch.ops.kernels.build import build
 
-    kernels = rt.KERNELS + td.KERNELS + tad.KERNELS + it.KERNELS + rtt.KERNELS
+    kernels = rt.KERNELS + td.KERNELS + tad.KERNELS + it.KERNELS + rtt.KERNELS + on.KERNELS
     t_start = time.perf_counter()
     # ---- phase 0: the card
     smi = subprocess.run(
@@ -727,6 +868,15 @@ def main() -> int:
     if pb.path != "tiled" or pb.ct0.shape[1] != 3751:
         raise RuntimeError(f"8 x 60 s took the {pb.path} path at T = {pb.ct0.shape[1]}")
     records.update(check_tiled_kernels(torch, pb, long_rng, args.quick))
+    del pb
+    # rows 14-15 on the "ola" path's operands (the 10 s clips), with random
+    # data from a generator of their own
+    emb_ola, det_ola = load("config", device=dev, use_pallas_ola=True)
+    pb = build_problem(det_ola.net, x, wm, emb_ola.cfg)
+    if pb.path != "ola":
+        raise RuntimeError(f"use_pallas_ola took the {pb.path} path, not ola")
+    records.update(check_ola_kernels(torch, pb, np.random.default_rng([args.seed, 14]),
+                                     args.quick))
     del pb
 
     if not args.quick:
@@ -836,6 +986,63 @@ def main() -> int:
                 f"|diff| {dloss:.3e}")
             if not dloss < 0.02:
                 raise RuntimeError(f"T = {frames}: the card's tiled solve departs from the plain solve")
+
+        # ---- phase 6: the float32 round trips, from the default card file
+        xla = []
+        for label, overrides, path, names in (
+            ('"slab" path (load("config"))', {}, "slab", ()),
+            ('"ola" path (use_pallas_ola=True)', {"use_pallas_ola": True}, "ola",
+             ("ola_normalize_fwd", "ola_normalize_bwd")),
+            ('"frames" path (use_slab_dft=False)', {"use_slab_dft": False}, "frames", ()),
+            ('"fft" path (use_matmul_dft=False)', {"use_matmul_dft": False}, "fft", ()),
+        ):
+            e, d = (emb_ola, det_ola) if path == "ola" else load("config", device=dev, **overrides)
+            got = build_problem(d.net, x, wm, e.cfg).path
+            if got != path:
+                raise RuntimeError(f"{label} took the {got} path")
+            xla.append((label, e, d))
+            solve_path(torch, kernels, label, e, d, clips, bits, dict.fromkeys(names, 1),
+                       records, phase="6")
+        pair = torch.as_tensor(clips[:2, : 2 * sr])
+        wm_pair = torch.as_tensor(2.0 * bits[:2] - 1.0, dtype=torch.float32)
+        for label, e, d in xla:
+            short = e.cfg.replace(num_iterations=10)
+            res_k = embed_batch(d.net, pair.to(dev), wm_pair.to(dev), short)
+            res_p = embed_batch(det_cpu.net, pair, wm_pair, short)
+            dloss = float((res_k.best_loss.cpu() - res_p.best_loss).abs().max())
+            say(f"phase 6 reference, {label}: 10-iteration best_loss card vs CPU plain "
+                f"|diff| {dloss:.3e}")
+            if not dloss < 0.02:
+                raise RuntimeError(f"{label}: the card's solve departs from the plain solve")
+        _, e, d = xla[1]
+        prof_cfg = e.cfg.replace(num_iterations=20)
+        trace = f"{args.trace}/trace_ola.json" if args.trace else None
+        say(f"phase 6 profile, \"ola\" path, B={BATCH} x 20 iterations: " + profile_solve(
+            torch, lambda: embed_batch(d.net, x, wm, prof_cfg), trace, marker="ola_"))
+        # a clip over 1024 frames under the card file keeps the slab path
+        _, e, d = xla[0]
+        r1030 = np.random.default_rng([args.seed, 1030])
+        pair = np.stack([speechlike(r1030, 0.0, sr, samples=1029 * cfg.hop_length)
+                         for _ in range(2)])
+        bits2 = r1030.integers(0, 2, (2, cfg.detection_net.output_length))
+        got = build_problem(d.net, torch.as_tensor(pair, device=dev),
+                            torch.as_tensor(2.0 * bits2 - 1.0, device=dev), e.cfg)
+        if got.path != "slab" or got.ct0.shape[1] != 1030:
+            raise RuntimeError(f"1030 frames under the card file: {got.path}, T = {got.ct0.shape[1]}")
+        del got
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = embed_watermark_batch(pair, sr, bits2, e)
+        torch.cuda.synchronize()
+        embed_s = time.perf_counter() - t0
+        ber = np.mean(detect_watermark_batch(out, sr, d) != bits2, axis=1) * 100.0
+        launched = {k.__name__: k.launches for k in kernels if k.launches}
+        say(f"phase 6 1030 frames under the card file (slab): B=2 x {cfg.num_iterations} "
+            f"iterations, embed {embed_s:.3f} s, BER % per lane {ber.tolist()}, kernels "
+            f"launched {launched}")
+        if launched or ber.any() or not np.isfinite(out).all():
+            raise RuntimeError("1030 frames under the card file: a kernel ran or a lane failed")
 
         for name, rec in records.items():
             if rec["launches"] < 1:

@@ -11,22 +11,28 @@ another order on the card); the detector kernels on pred and every
 residual, their VJPs from the plain residuals, and the forward-then-VJP
 chain from the kernel's own residuals, to the bounds of
 aware_tpu_torch/ops/kernels/agreement.py (which says why they are what
-they are); the whole-iteration kernels by agreement.check_iteration.
+they are); the whole-iteration kernels by agreement.check_iteration;
+ola_normalize to the JAX suite's tolerances for it (forward atol/rtol
+1e-6, VJP atol 1e-5 rtol 1e-4), with a silent lane and a tie probe.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from aware_tpu_torch.config import DetectorNetConfig, in_band_bins
-from aware_tpu_torch.models.detector import load_key_params, params_from_jax
+from aware_tpu_torch.config import AwareConfig, DetectorNetConfig, in_band_bins
+from aware_tpu_torch.embed import solver
+from aware_tpu_torch.models.detector import DetectorNet, load_key_params, params_from_jax
 from aware_tpu_torch.ops.kernels import agreement as ag
 from aware_tpu_torch.ops.kernels import analysis_detector as tad
 from aware_tpu_torch.ops.kernels import detector as td
 from aware_tpu_torch.ops.kernels import iteration as it
+from aware_tpu_torch.ops.kernels import ola_norm as on
 from aware_tpu_torch.ops.kernels import roundtrip as rt
 from aware_tpu_torch.ops.kernels import roundtrip_tiled as rtt
 from aware_tpu_torch.ops.mel import mel_filter_bank
+from aware_tpu_torch.ops.stft import _ola_envelope
+from aware_tpu_torch.ops.windows import get_window
 
 HOP, B = 256, 3
 
@@ -349,3 +355,88 @@ def test_tiled_wrappers_reject_what_the_kernels_do_not_take(cuda):
         rtt.shift_mm(d["g_cs"][:, :, ::2], d["w_ab"], 300)
     with pytest.raises(ValueError):
         rtt.shift_mm(d["g_y2"], d["w_sb"].cpu(), 300)
+
+
+def _ola_data(t, device, batch=B):
+    rng = np.random.default_rng(t)
+    wkey = tuple(get_window("hann", 4 * HOP).tolist())
+    env = _ola_envelope(wkey, 4 * HOP, HOP, t).reshape(t - 1, HOP).astype(np.float32)
+    return (torch.as_tensor(rng.standard_normal((batch, t, 4 * HOP)).astype(np.float32),
+                            device=device),
+            torch.as_tensor(env, device=device),
+            torch.as_tensor(rng.standard_normal((batch, t - 1, HOP)).astype(np.float32),
+                            device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 63, 626])
+def test_ola_kernels_match_plain(cuda, t):
+    """The JAX suite's tolerances for this kernel (tests/test_pallas.py):
+    forward atol/rtol 1e-6, VJP atol 1e-5 rtol 1e-4; with a silent lane,
+    and a tie of opposite signs at the peak of another."""
+    wf, env, g = _ola_data(t, cuda)
+    wf[1] = 0.0  # a silent lane
+    y2p, m1p = on.ola_normalize_fwd_plain(wf, env)
+    before = [k.launches for k in on.KERNELS]
+    y2, m1 = on.ola_normalize_fwd(wf, env)
+    torch.testing.assert_close(y2, y2p, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(m1, m1p, atol=1e-6, rtol=1e-6)
+    assert float(m1[1]) == 0.0
+    ties = y2p.clone()
+    ties[2, 0, 5], ties[2, -1, 7] = 2.0, -2.0  # two ties above every other |y2|
+    for y in (y2p, ties):
+        dwf = on.ola_normalize_bwd(g, y, env, m1p)
+        assert torch.isfinite(dwf).all()
+        torch.testing.assert_close(dwf, on.ola_normalize_bwd_plain(g, y, env, m1p),
+                                   atol=1e-5, rtol=1e-4)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(on.KERNELS, before)] == [1, 2]
+
+
+@pytest.mark.gpu
+def test_ola_path_launches_the_kernels_and_the_plain_paths_none(cuda):
+    """One objective and gradient on each float32 path of the solver: only
+    "ola" launches a kernel, once per direction; the card agrees with the
+    CPU."""
+    kernels = rt.KERNELS + td.KERNELS + tad.KERNELS + it.KERNELS + rtt.KERNELS + on.KERNELS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = DetectorNet(params_from_jax(load_key_params()), DetectorNetConfig())
+    rng = np.random.default_rng(0)
+    clips = torch.as_tensor(rng.standard_normal((2, 62 * HOP)).astype(np.float32))
+    wm = torch.as_tensor(2.0 * rng.integers(0, 2, (2, 20)) - 1.0, dtype=torch.float32)
+    for flags, path in (({"use_pallas_ola": True}, "ola"), ({"use_slab_dft": False}, "frames"),
+                        ({"matmul_precision": "highest"}, "slab"),
+                        ({"use_matmul_dft": False}, "fft")):
+        cfg = AwareConfig(**flags)
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            pb = solver.build_problem(net.to(dev), clips.to(dev), wm.to(dev), cfg)
+            assert pb.path == path
+            before = [k.launches for k in kernels]
+            ct = pb.ct0.clone().requires_grad_(True)
+            loss = solver.objective(ct, pb, net, cfg)
+            (grad,) = torch.autograd.grad(loss.sum(), ct)
+            torch.cuda.synchronize()
+            launched = {k.__name__: k.launches - n for k, n in zip(kernels, before)}
+            want = {"ola_normalize_fwd": 1, "ola_normalize_bwd": 1} if (
+                path == "ola" and dev == cuda) else {}
+            assert {k: n for k, n in launched.items() if n} == want
+            out.append((loss.detach().cpu(), grad.cpu()))
+        (lk, gk), (lp, gp) = out
+        torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+        assert float((gk - gp).norm()) <= 1e-2 * float(gp.norm())
+
+
+@pytest.mark.gpu
+def test_ola_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    wf, env, g = _ola_data(63, cuda)
+    with pytest.raises(TypeError):
+        on.ola_normalize_fwd(wf.double(), env)
+    with pytest.raises(ValueError):
+        on.ola_normalize_fwd(wf[:, :, :512].contiguous(), env)
+    with pytest.raises(ValueError):
+        on.ola_normalize_fwd(wf, env[:-1].contiguous())
+    y2, m1 = on.ola_normalize_fwd(wf, env)
+    with pytest.raises(ValueError):
+        on.ola_normalize_bwd(g, y2, env, m1.cpu())

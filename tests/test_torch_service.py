@@ -97,7 +97,8 @@ def test_config_defaults_equal_the_jax_package():
     for field in ("frame_length", "hop_length", "window", "win_length", "pattern_mode",
                   "watermark_length", "embedding_bands", "tolerance_db", "num_iterations",
                   "optimizer_name", "opt_params", "scheduler_name", "sched_params", "loss",
-                  "vad", "threshold", "use_pallas_detector", "use_pallas_iteration"):
+                  "vad", "threshold", "use_pallas_detector", "use_pallas_iteration",
+                  "matmul_precision", "use_matmul_dft", "use_slab_dft", "use_pallas_ola"):
         assert getattr(ours, field) == getattr(ref, field), field
     # the port's solver path: the JAX package's kernel path (which the JAX
     # package's own default takes on a TPU), with the whole-iteration
@@ -120,7 +121,10 @@ def test_config_from_dict_reads_the_jax_key_names():
     })
     assert cfg.tolerance_db == 3.0 and cfg.embedding_bands == (600, 3000)
     assert cfg.sched_params == {"patience": 5}
+    # "highest" (the default card file's) selects the float32 slab path;
+    # "default" (the turbo card's single-pass bf16) has no path in the port
+    assert AwareConfig.from_dict({"matmul_precision": "highest"}).matmul_precision == "highest"
     with pytest.raises(NotImplementedError, match="matmul_precision"):
-        AwareConfig.from_dict({"matmul_precision": "highest"})
+        AwareConfig.from_dict({"matmul_precision": "default"})
     with pytest.raises(NotImplementedError, match="activation"):
         AwareConfig.from_dict({"detection_net_cfg": {"activation": "gelu"}})

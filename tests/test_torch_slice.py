@@ -211,7 +211,7 @@ def test_service_rejects_bad_input(handles, speechlike):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"scheduler_name": "cosine_annealing"}, {"use_pallas_roundtrip": False},
+    {"scheduler_name": "cosine_annealing"}, {"matmul_precision": "default"},
     {"optimizer_name": "adam"}, {"loss": "hinge"}, {"vad": "webrtc_gmm"},
     {"frame_length": 2048, "win_length": 2048},
 ])

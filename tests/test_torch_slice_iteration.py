@@ -170,11 +170,13 @@ def test_load_defaults_to_the_whole_step_path():
 def test_bare_card_names_resolve_against_the_jax_cards():
     with pytest.raises(NotImplementedError, match="eot_stretch_rates"):
         aware_tpu_torch.load("robust", device="cpu")
-    with pytest.raises(NotImplementedError, match="matmul_precision") as by_name:
-        aware_tpu_torch.load("config", device="cpu")
-    with pytest.raises(NotImplementedError) as by_path:
-        aware_tpu_torch.load(ROOT / "aware_tpu" / "cards" / "config.yaml", device="cpu")
-    assert str(by_name.value) == str(by_path.value)
+    # the default card file pins matmul_precision: highest, which selects
+    # the float32 slab path, as in the JAX package
+    by_name, _ = aware_tpu_torch.load("config", device="cpu")
+    by_path, _ = aware_tpu_torch.load(ROOT / "aware_tpu" / "cards" / "config.yaml", device="cpu")
+    assert by_name.cfg == by_path.cfg and by_name.cfg.matmul_precision == "highest"
+    clip = torch.zeros(1, 62 * 256)
+    assert solver.build_problem(by_name.net, clip, torch.ones(1, 20), by_name.cfg).path == "slab"
     with pytest.raises(FileNotFoundError):
         aware_tpu_torch.load("no_such_card", device="cpu")
 
