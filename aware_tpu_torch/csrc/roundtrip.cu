@@ -5,7 +5,7 @@
 //   aw_synth_norm_fwd    <- synth_norm forward     (_synth_impl,  _synth_kernel)
 //   aw_synth_norm_bwd    <- synth_norm VJP         (_synth_bwd,   _synth_bwd_kernel)
 //   aw_band_analysis_fwd <- band_analysis forward  (_analysis_impl, _analysis_kernel)
-//   aw_band_analysis_bwd <- band_analysis VJP      (_analysis_bwd, _analysis_bwd_kernel)
+//   aw_band_analysis_bwd_wmma <- band_analysis VJP (_analysis_bwd, _analysis_bwd_kernel)
 //
 // What they compute, per clip b of a batch (T frames, P padded band bins,
 // hop samples per row, R = n_fft / hop = 4 slabs, pad = R / 2 = 2 rows):
@@ -34,8 +34,14 @@
 // through shared memory.  The A operand is built while it is staged (the
 // coeffs * csin product, the peak-norm subgradient, the shifted zero-padded
 // rows), so no intermediate of the Pallas kernels' scratch (reim, yd, gyd,
-// yp, gyp) goes through device memory.  wgmma, TMA and a pipelined ring of
-// tiles are later work.
+// yp, gyp) goes through device memory.
+//
+// The VJP's entry of the port, aw_band_analysis_bwd, moved to
+// slab_gemm_sm90.cu: TMA into a ring of stages and wgmma, the design of
+// slab_gemm_sm90.cuh.  aw_band_analysis_bwd_wmma is its first WMMA version,
+// kept so that chip_smoke.py can time the two in turns; no wrapper reaches
+// it.  The other three stay on the WMMA template; wgmma, TMA and a
+// pipelined ring are later work for them.
 //
 // Every kernel runs on the caller's stream and allocates nothing; each C
 // entry returns cudaGetLastError() so that a refused launch is reported.
@@ -121,8 +127,8 @@ int aw_band_analysis_fwd(const float* y2, const __nv_bfloat16* csw, float* cs2, 
 }
 
 // g (B, T, 2P) f32, cswt (2P, 4 hop) bf16 -> gy2 (B, T-1, hop) f32.
-int aw_band_analysis_bwd(const float* g, const __nv_bfloat16* cswt, float* gy2, int batch,
-                         int t, int p2, int hop, void* stream) {
+int aw_band_analysis_bwd_wmma(const float* g, const __nv_bfloat16* cswt, float* gy2,
+                              int batch, int t, int p2, int hop, void* stream) {
   const int lr = t - 1;
   Geometry geo{lr, 0, t, p2, hop, kR, -1, kPad, cswt, (long long)kR * hop, (long long)hop};
   launch_shift_gemm<LoadA, StoreEpi, false>(LoadA{g, p2, t}, StoreEpi{gy2, lr, hop}, geo,

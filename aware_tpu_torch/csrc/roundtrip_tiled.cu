@@ -3,8 +3,13 @@
 // They replace the two Pallas TPU kernels of aware_tpu/ops/pallas/roundtrip_tiled.py,
 // the JAX package's round trip for clips over 1024 frames:
 //
-//   aw_shift_mm        <- shift_mm                  (_shift_mm_core, _shift_mm_kernel)
+//   aw_shift_mm_wmma   <- shift_mm                  (_shift_mm_core, _shift_mm_kernel)
 //   aw_synth_tiled_fwd <- synth_norm_tiled forward  (_synth_core,    _synth_tiled_kernel)
+//
+// shift_mm's entry of the port, aw_shift_mm, moved to slab_gemm_sm90.cu
+// (TMA, a ring of stages, wgmma).  aw_shift_mm_wmma is its first WMMA
+// version, kept so that chip_smoke.py can time the two in turns; no
+// wrapper reaches it.
 //
 // What they compute, per clip b of a batch (R = 4 slabs):
 //
@@ -31,9 +36,11 @@
 // P = 256, hop = 256) each launch is 2 * 8 * 3751 * 4 * 256 * 512 = 31.5
 // GFLOP; shift_mm moves about 93 MB (about 340 operations per byte, just
 // over the H100's bf16 ridge of 295: operations bound it), the synthesis
-// about 158 MB (about 200 per byte: bytes bound it).  The simple right
-// version: 64 x 64 WMMA tiles, unpipelined staging; the synthesis builds
-// its bf16 operand from ct and csinp while it stages it.
+// about 158 MB (about 200 per byte: bytes bound it).  Both here are the
+// simple right version: 64 x 64 WMMA tiles, unpipelined staging; the
+// synthesis builds its bf16 operand from ct and csinp while it stages it.
+// wgmma and TMA came to shift_mm first (slab_gemm_sm90.cuh); the synthesis
+// is later work.
 //
 // Each kernel runs on the caller's stream and allocates nothing; each C
 // entry returns cudaGetLastError() so that a refused launch is reported.
@@ -70,8 +77,8 @@ struct TiledSynthEpi {
 extern "C" {
 
 // x (B, N, D) f32, w (4, D, E) bf16 -> out (B, n_out, E) f32.
-int aw_shift_mm(const float* x, const __nv_bfloat16* w, float* out, int batch, int n, int d,
-                int e, int n_out, void* stream) {
+int aw_shift_mm_wmma(const float* x, const __nv_bfloat16* w, float* out, int batch, int n,
+                     int d, int e, int n_out, void* stream) {
   Geometry g{n_out, 0, n, d, e, kR, +1, 0, w, (long long)e, (long long)d * e};
   launch_shift_gemm<LoadA, StoreEpi, false>(LoadA{x, d, n}, StoreEpi{out, n_out, e}, g, batch,
                                             nullptr, (cudaStream_t)stream);

@@ -14,7 +14,9 @@
 // 64 x 64 output tiles, 4 warps of WMMA bf16 16x16x16 products, 32-deep
 // operand tiles staged through shared memory.  Requires n % 64 == 0 and
 // kd % 32 == 0; rows are masked.  The simple right version: wgmma, TMA and a
-// pipelined ring of tiles are later work.
+// pipelined ring of tiles are in slab_gemm_sm90.cuh, for the two products
+// that only load their operands (shift_mm and the band_analysis VJP); the
+// rest is later work.
 
 #pragma once
 

@@ -31,13 +31,15 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argument types of each C entry (csrc/*.cu); every entry returns its
-# cudaGetLastError()
+# argument types of each C entry (csrc/*.cu); every kernel entry returns
+# its cudaGetLastError()
 SIGNATURES = {
     "aw_synth_norm_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "aw_synth_norm_bwd": [_P] * 9 + [_I] * 4 + [_P],
     "aw_band_analysis_fwd": [_P] * 3 + [_I] * 4 + [_P],
-    "aw_band_analysis_bwd": [_P] * 3 + [_I] * 4 + [_P],
+    # the two sm90 slab-GEMM entries take the planned tile (bm, bn) last
+    "aw_band_analysis_bwd": [_P] * 3 + [_I] * 6 + [_P],
+    "aw_band_analysis_bwd_wmma": [_P] * 3 + [_I] * 4 + [_P],
     "aw_detector_fwd": [_P] * 29 + [_I] * 3 + [_P],
     "aw_detector_bwd": [_P] * 30 + [_I] * 3 + [_P],
     "aw_reflect_analysis_fwd": [_P] * 3 + [_I] * 4 + [_P],
@@ -47,7 +49,9 @@ SIGNATURES = {
     "aw_iteration_bwd": [_P] + [_I] * 5 + [_P],
     "aw_iteration_step": [_P] + [_I] * 5 + [_F] * 4 + [_P],
     "aw_step_epilogue": [_P] + [_I] * 4 + [_F] * 4 + [_P],
-    "aw_shift_mm": [_P] * 3 + [_I] * 5 + [_P],
+    "aw_shift_mm": [_P] * 3 + [_I] * 7 + [_P],
+    "aw_shift_mm_wmma": [_P] * 3 + [_I] * 5 + [_P],
+    "aw_slab_gemm_config": [_I] * 2 + [_P] * 3,
     "aw_synth_tiled_fwd": [_P] * 7 + [_I] * 5 + [_P],
     "aw_ola_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "aw_ola_bwd": [_P] * 8 + [_I] * 3 + [_P],
@@ -59,7 +63,8 @@ class Build:
     lib: ctypes.CDLL
     path: pathlib.Path
     seconds: float  # nvcc wall time, compile and link; 0.0 when already built
-    log: str        # nvcc's output, with -Xptxas -v's register/smem lines
+    log: str        # nvcc's output, with -Xptxas -v's register/smem lines (kept
+                    # beside the library, so a load of a built library reads it too)
 
 
 def _nvcc() -> str:
@@ -78,6 +83,7 @@ def build() -> Build:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     so = BUILD_DIR / f"libaware_kernels_{digest.hexdigest()[:16]}.so"
+    log_file = so.with_suffix(".log")
     seconds, log = 0.0, ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -102,11 +108,14 @@ def build() -> Build:
             log += link.stdout + link.stderr
             if link.returncode != 0:
                 raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+            log_file.write_text(log)
             os.replace(tmp, so)
         finally:
             for leftover in (*objs, tmp):
                 leftover.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
+    elif log_file.exists():
+        log = log_file.read_text()
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -2,7 +2,9 @@
 
 The port of ``aware_tpu/ops/pallas/roundtrip.py``.  Each of the four TPU
 kernels (synth_norm forward and VJP, band_analysis forward and VJP) is a
-CUDA entry of ``csrc/roundtrip.cu`` with:
+CUDA entry of ``csrc/roundtrip.cu``, the band_analysis VJP of
+``csrc/slab_gemm_sm90.cu`` (TMA and wgmma, with ``shift_mm``; its tile is
+planned here, ``plan_slab_gemm``), each with:
 
 * a wrapper (``synth_norm_fwd``, ``synth_norm_bwd``, ``band_analysis_fwd``,
   ``band_analysis_bwd``) that checks its operands, allocates outputs and
@@ -24,6 +26,9 @@ dimension B is the clip.  Shapes (T frames, P padded band bins, hop):
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -143,6 +148,64 @@ def _check_geometry(p: int, hop: int, n_fft: int) -> None:
         )
 
 
+# The sm90 slab GEMM (csrc/slab_gemm_sm90.cuh) of shift_mm and the
+# band_analysis VJP: A comes in depth chunks of SLAB_DEPTH f32 columns,
+# the weights in boxes of 64 bf16 columns, and each call takes one of
+# SLAB_TILES (BM output rows x BN columns per block).
+SLAB_DEPTH = 32
+SLAB_TILES = ((128, 128), (64, 128), (64, 64))
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabPlan:
+    bm: int
+    bn: int
+    grid: tuple[int, int, int]  # the launch's (column tiles, row tiles, clips)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def plan_slab_gemm(batch: int, n_out: int, e: int, sms: int = H100_SMS) -> SlabPlan:
+    """The tile of one slab-GEMM launch: the largest of SLAB_TILES whose
+    grid has a block for every SM, else the one with the most blocks."""
+    plans = [SlabPlan(bm, bn, (e // bn, -(-n_out // bm), batch))
+             for bm, bn in SLAB_TILES if e % bn == 0]
+    if not plans:
+        raise ValueError(f"the slab GEMM needs E % 64 == 0 (got {e})")
+    return next((pl for pl in plans if pl.blocks >= sms), max(plans, key=lambda pl: pl.blocks))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_slab_gemm(a: torch.Tensor, w: torch.Tensor, e: int, n_out: int) -> None:
+    """What the slab GEMM's tensor maps and tiles cannot take: raise.
+    ``a`` (B, N, D) f32 and ``w`` the bf16 weights, both contiguous, for
+    an output (B, n_out, e)."""
+    _, n, d = a.shape
+    if d % SLAB_DEPTH or e % 64:
+        raise ValueError(f"the slab GEMM needs D % {SLAB_DEPTH} == 0 and E % 64 == 0 "
+                         f"(got D={d}, E={e})")
+    # TMA reads from 16-byte aligned addresses with 16-byte aligned strides
+    # (D % 32 makes A's; E % 64 the weights')
+    for name, x in (("A", a), ("the weights", w)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"the slab GEMM needs {name} 16-byte aligned "
+                             f"(at {x.data_ptr():#x})")
+    if n < 1 or n_out < 1:
+        raise ValueError(f"the slab GEMM needs rows (got N={n}, n_out={n_out})")
+
+
+def slab_plan_for(a: torch.Tensor, n_out: int, e: int) -> SlabPlan:
+    """The planned tile of a launch on ``a``'s card."""
+    return plan_slab_gemm(a.shape[0], n_out, e, _sms(a.device.index or 0))
+
+
 def _run(entry: str, device: torch.device, *args) -> None:
     """Launch a C entry on ``device``'s current stream; raise on its error."""
     from aware_tpu_torch.ops.kernels.build import build
@@ -221,8 +284,8 @@ def band_analysis_fwd(y2, csw):
 
 
 def band_analysis_bwd(g, cswt):
-    """VJP of the analysis w.r.t. y2.  Replaces ``_analysis_bwd_kernel``
-    (aware_tpu/ops/pallas/roundtrip.py:281)."""
+    """VJP of the analysis w.r.t. y2, on the sm90 slab GEMM.  Replaces
+    ``_analysis_bwd_kernel`` (aware_tpu/ops/pallas/roundtrip.py:281)."""
     if g.device.type == "cpu":
         return band_analysis_bwd_plain(g, cswt)
     b, t, p2 = g.shape
@@ -231,8 +294,10 @@ def band_analysis_bwd(g, cswt):
     _check_geometry(p2 // 2, hop, cswt.shape[-1])
     _check("g", g, (b, t, p2), torch.float32, dev)
     _check("cswt", cswt, (p2, R * hop), _BF16, dev)
+    check_slab_gemm(g, cswt, hop, t - 1)
+    plan = slab_plan_for(g, t - 1, hop)
     gy2 = torch.empty(b, t - 1, hop, device=dev)
-    _run("aw_band_analysis_bwd", dev, g, cswt, gy2, b, t, p2, hop)
+    _run("aw_band_analysis_bwd", dev, g, cswt, gy2, b, t, p2, hop, plan.bm, plan.bn)
     band_analysis_bwd.launches += 1
     return gy2
 

@@ -1,8 +1,9 @@
 """The long-clip round trip's kernels: shift_mm and the synth_norm_tiled forward.
 
 The port of ``aware_tpu/ops/pallas/roundtrip_tiled.py``, the JAX package's
-round trip for clips over 1024 frames.  Both TPU kernels are CUDA entries
-of ``csrc/roundtrip_tiled.cu``, natively batched over the clip:
+round trip for clips over 1024 frames.  Both TPU kernels are CUDA entries,
+natively batched over the clip: ``shift_mm`` of ``csrc/slab_gemm_sm90.cu``
+(TMA and wgmma), the synthesis of ``csrc/roundtrip_tiled.cu``:
 
 * ``shift_mm`` (``_shift_mm_kernel``): out[b, t] = sum_{o<4} bf16(x[b, t+o]) @ w[o]
   for t < n_out, x (B, N, D) f32 with rows at or past N read as zero,
@@ -52,9 +53,11 @@ from aware_tpu_torch.ops.kernels.roundtrip import (
     _check,
     _check_geometry,
     _run,
+    check_slab_gemm,
     peak_den,
     peak_norm_vjp,
     phase_fold_plain,
+    slab_plan_for,
 )
 
 _BF16 = torch.bfloat16
@@ -130,19 +133,19 @@ def synth_tiled_fwd_plain(ct, csinp, y_const, env, w_sf):
 # ---------------------------------------------------------------- wrappers ---
 
 def shift_mm(x, w, n_out):
-    """The shifted-slab product.  Replaces ``_shift_mm_kernel``
-    (aware_tpu/ops/pallas/roundtrip_tiled.py:103)."""
+    """The shifted-slab product, on the sm90 slab GEMM.  Replaces
+    ``_shift_mm_kernel`` (aware_tpu/ops/pallas/roundtrip_tiled.py:103)."""
     if x.device.type == "cpu":
         return shift_mm_plain(x, w, n_out)
     b, n, d = x.shape
     e = w.shape[-1]
     dev = x.device
-    if d % 32 or e % 64:
-        raise ValueError(f"CUDA shift_mm needs D % 32 == 0 and E % 64 == 0 (got {d}, {e})")
     _check("x", x, (b, n, d), torch.float32, dev)
     _check("w", w, (R, d, e), _BF16, dev)
+    check_slab_gemm(x, w, e, n_out)
+    plan = slab_plan_for(x, n_out, e)
     out = torch.empty(b, n_out, e, device=dev)
-    _run("aw_shift_mm", dev, x, w, out, b, n, d, e, n_out)
+    _run("aw_shift_mm", dev, x, w, out, b, n, d, e, n_out, plan.bm, plan.bn)
     shift_mm.launches += 1
     return out
 

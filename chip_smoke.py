@@ -10,7 +10,12 @@ with a non-zero exit on any error:
 0. the card: nvidia-smi's name and power limit, torch and CUDA versions;
 1. build: nvcc of aware_tpu_torch/csrc into aware_tpu_torch/_build (one
    nvcc per source, started together, then one link), with its seconds and
-   the ptxas register / shared-memory lines;
+   the ptxas register / shared-memory / spill lines; for the sm90 slab GEMM
+   (shift_mm and the band_analysis VJP) the tile, grid, threads, ring
+   stages and dynamic shared memory of each launch the main paths make,
+   each tile's registers at entry, which must be what its setmaxnreg
+   split assumes, and the HGMMA and UTMALDG instructions in its SASS
+   (cuobjdump), none of either failing the run;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    main path's operands (B = 8 clips of T = 626 frames, P = 256, hop = 256):
    the round-trip kernels to 1e-3 * max|plain| (float32 sums in another
@@ -36,7 +41,12 @@ with a non-zero exit on any error:
    CUDA events), per-call times from Python, the bound of each, and where
    one PyTorch call computes the same function (band_analysis and
    shift_mm: a 4-tap bf16 conv1d, band_analysis's VJP its
-   conv_transpose1d) that call's device time;
+   conv_transpose1d) that call's device time.  The two sm90 slab-GEMM
+   kernels (shift_mm at each use, the band_analysis VJP) must give the
+   same bits on two launches, and are timed in turns beside their first
+   WMMA versions (aw_*_wmma, held to TOL too, reached by no path), their
+   plain versions and the library call (new, WMMA, plain, library, then
+   the reverse);
 3. main path: load() -> embed_watermark_batch on 8 speech-like 10 s 16 kHz
    clips with random 20-bit messages (400 iterations) -> detect_watermark_
    batch, on the four solver paths: the default (the iteration_step kernel
@@ -64,7 +74,8 @@ with a non-zero exit on any error:
    -> detect_watermark_batch: 0 % BER on
    every lane, shift_mm launched 3 times and synth_tiled_fwd once per
    iteration, every other kernel never; a torch.profiler breakdown of a
-   20-iteration solve; and a 10-iteration solve of 2 clips of T = 1025 and
+   20-iteration solve (its loop window from the first to the last launch
+   of either kernel); and a 10-iteration solve of 2 clips of T = 1025 and
    of T = 1281 on the card against the same solve through the plain
    versions on the CPU;
 6. the float32 round trips: load("config") (the JAX package's default
@@ -88,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -149,12 +161,17 @@ def time_ms(torch, fn, reps: int) -> tuple[float, float]:
     return out[0], out[1]
 
 
-def profile_solve(torch, run, trace: str | None = None, marker: str = "shift_gemm") -> str:
+# the GEMM kernels of the kernel paths: the WMMA template's and the sm90
+# slab GEMM's (shift_mm, the band_analysis VJP)
+GEMM_KERNELS = ("shift_gemm", "slab_gemm_sm90")
+
+
+def profile_solve(torch, run, trace: str | None = None, markers=GEMM_KERNELS) -> str:
     """Device time by kind of kernel over one call of ``run``; with
     ``trace``, the Chrome trace is written to that file.  The solver
     loop's window runs from the first launch of a kernel whose name holds
-    ``marker`` to the end of the last (set-up and reconstruction launch
-    none)."""
+    one of ``markers`` to the end of the last (set-up and reconstruction
+    launch none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,7 +183,7 @@ def profile_solve(torch, run, trace: str | None = None, marker: str = "shift_gem
         wall_ms = (time.perf_counter() - t0) * 1e3
     if trace:
         prof.export_chrome_trace(trace)
-    ours = ("shift_gemm", "peak_scale", "synth_bwd_scalars", "fold_phase", "in_norm_fwd",
+    ours = (*GEMM_KERNELS, "peak_scale", "synth_bwd_scalars", "fold_phase", "in_norm_fwd",
             "mel_norm_fwd", "brh_fwd", "brh_bwd", "in_norm_bwd_stats", "mel_bwd_stats",
             "reflect_fold", "fold_scalars", "nadam_fold", "best_loss_update", "ola_")
     kinds = {"our kernels": 0.0, "cuBLAS GEMM": 0.0, "FFT": 0.0, "other": 0.0}
@@ -195,7 +212,7 @@ def profile_solve(torch, run, trace: str | None = None, marker: str = "shift_gem
     # the solver loop's own window, and the device's idle share inside it
     spans = [(ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
              if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start]
-    gemms = [(a, b) for a, b, n in spans if marker in n]
+    gemms = [(a, b) for a, b, n in spans if any(m in n for m in markers)]
     lo, hi = min(a for a, _ in gemms), max(b for _, b in gemms)
     in_loop = sum(min(b, hi) - max(a, lo) for a, b, _ in spans if b > lo and a < hi)
     top = sorted(top, reverse=True)[:6]
@@ -289,6 +306,131 @@ def _library_ms(torch, name, call, ref, quick):
     return None if quick else time_ms(torch, call, REPS)[0]
 
 
+def slab_report(torch, b) -> None:
+    """Phase 1, the sm90 slab GEMM: the tile, grid, threads, ring stages
+    and dynamic shared memory of each launch the main paths make (shift_mm
+    at the long path's three uses, B = 8 x 3751 frames; the band_analysis
+    VJP at B = 8 x 626); each tile's registers at entry, which must be the
+    count its setmaxnreg split assumes (with fewer, its consumers would
+    wait forever); and the HGMMA and UTMALDG instructions in the SASS of
+    its kernels, none of either failing the run.  Without cuobjdump, the
+    wgmma and TMA instructions of its source are counted instead."""
+    import ctypes
+    import os
+    import pathlib
+    import shutil
+
+    from aware_tpu_torch.ops.kernels import roundtrip as rt
+
+    def config(bm, bn):
+        threads, stages, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        smem = b.lib.aw_slab_gemm_config(bm, bn, ctypes.byref(threads), ctypes.byref(stages),
+                                         ctypes.byref(regs))
+        return smem, threads.value, stages.value, regs.value
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for call, n_out, e in (("shift_mm, analysis forward (w_af)", 3751, 512),
+                           ("shift_mm, analysis VJP (w_ab)", 3753, 256),
+                           ("shift_mm, synthesis VJP (w_sb)", 3751, 512),
+                           ("band_analysis VJP", 625, 256)):
+        plan = rt.plan_slab_gemm(BATCH, n_out, e, sms)
+        smem, threads, stages, _ = config(plan.bm, plan.bn)
+        say(f"  slab GEMM {call}: n_out {n_out}, E {e}: tile {plan.bm} x {plan.bn}, grid "
+            f"{plan.grid} = {plan.blocks} blocks on {sms} SMs, {threads} threads, "
+            f"{stages} stages, {smem} B dynamic shared memory")
+    used, tile = {}, None
+    for line in b.log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"slab_gemm_sm90ILi(\d+)ELi(\d+)E", line)
+            tile = (64 * int(m.group(1)), int(m.group(2))) if m else None
+        elif tile and "Used" in line:
+            used[tile] = int(re.search(r"Used (\d+) registers", line).group(1))
+    for bm, bn in rt.SLAB_TILES:
+        want = config(bm, bn)[3]
+        say(f"  slab GEMM {bm} x {bn} tiles: {used.get((bm, bn))} registers at entry, "
+            f"{want} assumed by its setmaxnreg split")
+        if used.get((bm, bn)) != want:
+            raise RuntimeError(f"slab GEMM {bm} x {bn}: {used.get((bm, bn))} registers at "
+                               f"entry, not the {want} its setmaxnreg split assumes")
+    ops = ("HGMMA", "UTMALDG")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        src = (pathlib.Path(rt.__file__).resolve().parents[2] / "csrc"
+               / "slab_gemm_sm90.cuh").read_text()
+        say("  no cuobjdump: in csrc/slab_gemm_sm90.cuh, wgmma.mma_async "
+            f"{src.count('wgmma.mma_async')}x, cp.async.bulk.tensor "
+            f"{src.count('cp.async.bulk.tensor')}x")
+        return
+    sass = subprocess.run([tool, "-sass", str(b.path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "slab_gemm_sm90" in fn:
+                counts[fn] = dict.fromkeys(ops, 0)
+        elif fn in counts:
+            for op in ops:
+                counts[fn][op] += op in line
+    if not counts:
+        raise RuntimeError("no slab_gemm_sm90 kernel in the library's SASS")
+    for fn, c in counts.items():
+        nwg, bn = map(int, re.search(r"slab_gemm_sm90ILi(\d+)ELi(\d+)E", fn).groups())
+        tile = f"<{nwg}, {bn}> ({64 * nwg} x {bn} tiles)"
+        say(f"  SASS of slab_gemm_sm90{tile}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+        if not all(c.values()):
+            raise RuntimeError(f"slab_gemm_sm90 {tile}: no {[op for op in ops if not c[op]]}")
+
+
+def in_turns(torch, fns: dict) -> dict:
+    """Device ms of each call of ``fns`` (name -> call), timed in turns:
+    in order, then in reverse; name -> its two readings."""
+    names = list(fns)
+    out = {n: [] for n in names}
+    for n in names + names[::-1]:
+        out[n].append(time_ms(torch, fns[n], REPS)[0])
+    return out
+
+
+SUM_TOL = 3.0  # the slab GEMM's rms error against float64, over the plain version's
+
+
+def slab_turns(torch, name, new, wmma, plain, library, ref, exact, quick) -> dict:
+    """An sm90 slab-GEMM kernel beside its first WMMA version: the same
+    bits on two launches of the new kernel, the WMMA version and the
+    library call held to TOL and LIB_TOL of the plain version ``ref``;
+    each against the float64 product ``exact()`` of the same bf16
+    operands, the new kernel's rms error within SUM_TOL times the plain
+    version's (its two-level sums; summed inside the tensor cores over
+    the whole depth, as the WMMA kernels do, it is some 20 times the
+    plain version's); then (not ``quick``) the four timed in turns.
+    Returns the record's ms, wmma_ms, plain_ms and library_ms, each the
+    mean of two readings."""
+    a, b = new(), new()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise RuntimeError(f"{name}: two launches gave different bits")
+    old = wmma()
+    _close(f"{name} (WMMA version)", (old,), (ref,))
+    ex = exact()
+    rms = {k: float((v.double() - ex).pow(2).mean().sqrt() / ex.abs().max())
+           for k, v in (("new", a), ("WMMA", old), ("plain", ref))}
+    say(f"  {name} against a float64 product, rms error / max|float64|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rms.items()))
+    if rms["new"] > SUM_TOL * rms["plain"]:
+        raise RuntimeError(f"{name}: rms error {rms['new']:.3e} over {SUM_TOL} x the plain "
+                           f"version's {rms['plain']:.3e}")
+    _library_ms(torch, name, library, ref, quick=True)
+    if quick:
+        return {"ms": None, "wmma_ms": None, "plain_ms": None, "library_ms": None}
+    turns = in_turns(torch, {"ms": new, "wmma_ms": wmma, "plain_ms": plain,
+                             "library_ms": library})
+    say(f"  {name} in turns (new, WMMA, plain, library, then reversed), device ms: "
+        + "; ".join(f"{k} {v[0]:.5f} {v[1]:.5f}" for k, v in turns.items())
+        + "; the same bits on two launches")
+    return {k: sum(v) / len(v) for k, v in turns.items()}
+
+
 def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
     """Phase 2: each kernel against its plain version on the main path's
     operands; returns one record per kernel."""
@@ -358,6 +500,7 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
                      + y2_bytes + 4 * basis + 2 * det_weights)
     it_src = "aware_tpu_torch/csrc/iteration.cu"
     rt_src = "aware_tpu_torch/csrc/roundtrip.cu"
+    slab_src = "aware_tpu_torch/csrc/slab_gemm_sm90.cu"
     det_src = "aware_tpu_torch/csrc/detector.cu"
     ad_src = "aware_tpu_torch/csrc/analysis_detector.cu"  # then detector.cu's chain
     cases = {  # name: (kernel, plain, compare, source, replaces, FLOP, bytes in + out)
@@ -386,7 +529,7 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
         "band_analysis_bwd": (
             lambda: rt.band_analysis_bwd(g_cs, pb.cswt),
             lambda: rt.band_analysis_bwd_plain(g_cs, pb.cswt),
-            _close, rt_src, "aware_tpu/ops/pallas/roundtrip.py:281",
+            _close, slab_src, "aware_tpu/ops/pallas/roundtrip.py:281",
             2 * bsz * lr * hop * (rt.R * 2 * p), cs_bytes + basis + y2_bytes,
         ),
         "detector_fused_fwd": (
@@ -445,6 +588,19 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
         "band_analysis_fwd": lambda: F.conv1d(y2_t, csw_w, padding=rt.PAD),
         "band_analysis_bwd": lambda: F.conv_transpose1d(g_t, cswt_w, padding=rt.PAD),
     }
+    # the VJP's first WMMA version, which no path reaches, for the turns
+    gy2_wmma = torch.empty(bsz, lr, hop, device=dev)
+
+    def vjp_wmma():
+        rt._run("aw_band_analysis_bwd_wmma", dev, g_cs, pb.cswt, gy2_wmma, bsz, t, 2 * p, hop)
+        return gy2_wmma
+
+    def vjp_exact():
+        gd, cd = g_cs.to(torch.bfloat16).double(), pb.cswt.double()
+        return sum(F.pad(gd @ cd[:, k * hop : (k + 1) * hop], (0, 0, k, rt.R - 1 - k))
+                   for k in range(rt.R))[:, rt.PAD : rt.PAD + lr]
+
+    wmma = {"band_analysis_bwd": (vjp_wmma, vjp_exact)}
     records = {}
     for name, (kern, plain, close, source, replaces, flops, nbytes) in cases.items():
         out_k = kern()
@@ -460,17 +616,22 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
         # no single PyTorch call computes the synthesis' shifted-slab product
         # with its prologue and epilogue, nor the detector's chain
         rec = _record(name, source, replaces, err, flops, nbytes)
-        if name in library:
+        call = (None, None)
+        if name in wmma:
+            old, exact = wmma[name]
+            rec.update(slab_turns(torch, name, kern, old, plain, library[name], out_p, exact,
+                                  quick))
+        elif name in library:
             ref = out_p[0] if isinstance(out_p, tuple) else out_p
             rec["library_ms"] = _library_ms(torch, name, library[name], ref, quick)
-        call = (None, None)
-        if not quick:
+        if not quick and name not in wmma:
             rec["ms"], call_k = time_ms(torch, kern, REPS)
             rec["plain_ms"], call_p = time_ms(torch, plain, REPS)
             call = (call_k, call_p)
         records[name] = rec
+        wmma_ms = f" WMMA version device ms {rec['wmma_ms']}" if name in wmma else ""
         say(
-            f"phase 2 kernel {name}: max_abs_err {err:.3e} device ms {rec['ms']} "
+            f"phase 2 kernel {name}: max_abs_err {err:.3e} device ms {rec['ms']}{wmma_ms} "
             f"plain device ms {rec['plain_ms']} library device ms {rec['library_ms']} "
             f"(per call from Python: kernel {call[0]} plain {call[1]}) bound_us "
             f"{rec['bound_ms'] * 1e3:.2f} ({rec['bound_by']}; {flops / 1e9:.3f} GFLOP, "
@@ -492,7 +653,8 @@ def check_tiled_kernels(torch, pb, rng, quick: bool) -> dict:
     synthesis on the problem's coefficients and on a probe (y_const 0, env
     4, the last frame 50 times each bin's largest) whose rows past the crop
     set m1; each to TOL * max|plain|.  Returns one record per kernel;
-    shift_mm's numbers are the mean over its three uses, one launch each."""
+    shift_mm's numbers are the mean over its three uses (each printed),
+    timed in turns beside its WMMA version (slab_turns)."""
     import torch.nn.functional as F
 
     from aware_tpu_torch.ops.kernels import roundtrip as rt
@@ -503,7 +665,7 @@ def check_tiled_kernels(torch, pb, rng, quick: bool) -> dict:
     dev = pb.ct0.device
     tc = pb.tiled
     ct = pb.ct0.contiguous()
-    src = "aware_tpu_torch/csrc/roundtrip_tiled.cu"
+    src = "aware_tpu_torch/csrc/slab_gemm_sm90.cu"
     # the tail probe first: the last frame reaches rows lr-2 .. lr+1; rows
     # below lr are divided by the envelope, the two past the crop are not
     loud = ct.clone()
@@ -536,28 +698,38 @@ def check_tiled_kernels(torch, pb, rng, quick: bool) -> dict:
         e = w.shape[-1]
         kern = lambda x=x, w=w, n_out=n_out: rtt.shift_mm(x, w, n_out)  # noqa: E731
         plain = lambda x=x, w=w, n_out=n_out: rtt.shift_mm_plain(x, w, n_out)  # noqa: E731
+        out_wmma = torch.empty(bsz, n_out, e, device=dev)
+
+        def wmma(x=x, w=w, n=n, d=d, e=e, n_out=n_out, out=out_wmma):
+            rt._run("aw_shift_mm_wmma", dev, x, w, out, bsz, n, d, e, n_out)
+            return out
+
         out_p = plain()
         err = _close(f"shift_mm {use}", (kern(),), (out_p,))
         # the library's 4-tap conv1d, on a bf16 channels-first copy of x
         # with the zero rows the kernel reads past N
         x_t = F.pad(x, (0, 0, 0, n_out + rtt.HALO - n)).to(torch.bfloat16).transpose(1, 2)
         x_t, w_t = x_t.contiguous(), w.permute(2, 1, 0).contiguous()
-        lib = _library_ms(torch, f"shift_mm {use}", lambda x_t=x_t, w_t=w_t: F.conv1d(x_t, w_t),
-                          out_p, quick)
         flops = 2 * bsz * n_out * rtt.R * d * e
         nbytes = bsz * n * d * F32 + rtt.R * d * e * BF16 + bsz * n_out * e * F32
         rec = _record("shift_mm", src, "aware_tpu/ops/pallas/roundtrip_tiled.py:103", err,
-                      flops, nbytes, library_ms=lib)
-        if not quick:
-            rec["ms"] = time_ms(torch, kern, REPS)[0]
-            rec["plain_ms"] = time_ms(torch, plain, REPS)[0]
+                      flops, nbytes)
+        def exact(x=x, w=w, n=n, n_out=n_out):
+            xd = F.pad(x, (0, 0, 0, max(0, n_out + rtt.HALO - n))).to(torch.bfloat16).double()
+            return sum(xd[:, o : o + n_out] @ w[o].double() for o in range(rtt.R))
+
+        rec.update(slab_turns(torch, f"shift_mm {use}", kern, wmma, plain,
+                              lambda x_t=x_t, w_t=w_t: F.conv1d(x_t, w_t), out_p, exact,
+                              quick))
+        plan = rt.slab_plan_for(x, n_out, e)
         say(f"phase 2 kernel shift_mm, {use}: max_abs_err {err:.3e} device ms {rec['ms']} "
-            f"plain device ms {rec['plain_ms']} library device ms {lib} bound_us "
-            f"{rec['bound_ms'] * 1e3:.2f} ({rec['bound_by']}; {flops / 1e9:.3f} GFLOP, "
-            f"{nbytes / 1e6:.2f} MB)")
+            f"WMMA version device ms {rec['wmma_ms']} plain device ms {rec['plain_ms']} "
+            f"library device ms {rec['library_ms']} bound_us {rec['bound_ms'] * 1e3:.2f} "
+            f"({rec['bound_by']}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); tile "
+            f"{plan.bm} x {plan.bn}, grid {plan.grid}")
         recs.append(rec)
     shift = dict(recs[0])
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+    for key in ("ms", "wmma_ms", "plain_ms", "library_ms", "bound_ms"):
         vals = [r[key] for r in recs]
         shift[key] = None if None in vals else sum(vals) / len(vals)
     shift["max_abs_err"] = max(r["max_abs_err"] for r in recs)
@@ -572,7 +744,8 @@ def check_tiled_kernels(torch, pb, rng, quick: bool) -> dict:
               + lr * hop * F32 + rtt.R * 2 * p * hop * BF16 + bsz * F32)
     # no single PyTorch call builds the phase products, divides by the
     # envelope and takes the per-clip max
-    synth_rec = _record("synth_tiled_fwd", src, "aware_tpu/ops/pallas/roundtrip_tiled.py:214",
+    synth_rec = _record("synth_tiled_fwd", "aware_tpu_torch/csrc/roundtrip_tiled.cu",
+                        "aware_tpu/ops/pallas/roundtrip_tiled.py:214",
                         err, flops, nbytes)
     if not quick:
         synth_rec["ms"] = time_ms(torch, kern, REPS)[0]
@@ -838,8 +1011,9 @@ def main() -> int:
     b = build()
     say(f"phase 1 build: {b.seconds:.2f} s nvcc -> {b.path.name}")
     for line in b.log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
+        if any(k in line for k in ("registers", "Compiling entry", "spill", "(C75")):
             say("  " + line.strip())
+    slab_report(torch, b)
 
     # ---- phase 2: kernels vs plain on the main path's shapes
     dev = torch.device("cuda")
@@ -1018,7 +1192,7 @@ def main() -> int:
         prof_cfg = e.cfg.replace(num_iterations=20)
         trace = f"{args.trace}/trace_ola.json" if args.trace else None
         say(f"phase 6 profile, \"ola\" path, B={BATCH} x 20 iterations: " + profile_solve(
-            torch, lambda: embed_batch(d.net, x, wm, prof_cfg), trace, marker="ola_"))
+            torch, lambda: embed_batch(d.net, x, wm, prof_cfg), trace, markers=("ola_",)))
         # a clip over 1024 frames under the card file keeps the slab path
         _, e, d = xla[0]
         r1030 = np.random.default_rng([args.seed, 1030])

@@ -13,7 +13,10 @@ chain from the kernel's own residuals, to the bounds of
 aware_tpu_torch/ops/kernels/agreement.py (which says why they are what
 they are); the whole-iteration kernels by agreement.check_iteration;
 ola_normalize to the JAX suite's tolerances for it (forward atol/rtol
-1e-6, VJP atol 1e-5 rtol 1e-4), with a silent lane and a tie probe.
+1e-6, VJP atol 1e-5 rtol 1e-4), with a silent lane and a tie probe; the
+sm90 slab GEMM (shift_mm at its three uses, the band_analysis VJP) on
+each tile it can take, to 1e-3 * max|plain|, bit for bit over two
+launches, and its wrapper checks.
 """
 
 import numpy as np
@@ -355,6 +358,83 @@ def test_tiled_wrappers_reject_what_the_kernels_do_not_take(cuda):
         rtt.shift_mm(d["g_cs"][:, :, ::2], d["w_ab"], 300)
     with pytest.raises(ValueError):
         rtt.shift_mm(d["g_y2"], d["w_sb"].cpu(), 300)
+
+
+def _slab_uses(d, t):
+    """shift_mm's three uses on the long path, its operands padded as the
+    autograd ops pad them: (x, w, n_out)."""
+    pad = torch.nn.functional.pad
+    return ((pad(d["g_y2"], (0, 0, 2, 0)), d["w_af"], t),
+            (pad(d["g_cs"], (0, 0, 3, 0)), d["w_ab"], t + 2),
+            (pad(d["g_y2"], (0, 0, 2, 0)), d["w_sb"], t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [257, 1281, 3751])
+def test_slab_gemm_shift_mm_matches_plain_on_every_tile(cuda, t):
+    """The sm90 slab GEMM at shift_mm's three uses: through the wrapper
+    (its planned tile, one launch each) and on each tile it can take."""
+    d = _tiled_data(t, cuda)
+    before = rtt.shift_mm.launches
+    for x, w, n_out in _slab_uses(d, t):
+        ref = rtt.shift_mm_plain(x, w, n_out)
+        _close(rtt.shift_mm(x, w, n_out), ref)
+        b, n, dd = x.shape
+        e = w.shape[-1]
+        for bm, bn in rt.SLAB_TILES:
+            out = torch.full((b, n_out, e), float("nan"), device=cuda)
+            rt._run("aw_shift_mm", cuda, x, w, out, b, n, dd, e, n_out, bm, bn)
+            _close(out, ref)
+    torch.cuda.synchronize()
+    assert rtt.shift_mm.launches - before == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 97, 626])
+def test_slab_gemm_band_analysis_vjp_matches_plain_on_every_tile(cuda, t):
+    d = _data(t, cuda)
+    ref = rt.band_analysis_bwd_plain(d["g_cs"], d["cswt"])
+    before = rt.band_analysis_bwd.launches
+    _close(rt.band_analysis_bwd(d["g_cs"], d["cswt"]), ref)
+    for bm, bn in rt.SLAB_TILES:
+        out = torch.full((B, t - 1, HOP), float("nan"), device=cuda)
+        rt._run("aw_band_analysis_bwd", cuda, d["g_cs"], d["cswt"], out, B, t, 512, HOP, bm, bn)
+        _close(out, ref)
+    torch.cuda.synchronize()
+    assert rt.band_analysis_bwd.launches - before == 1
+
+
+@pytest.mark.gpu
+def test_slab_gemm_kernels_repeat_bit_for_bit(cuda):
+    d = _tiled_data(1281, cuda)
+    for x, w, n_out in _slab_uses(d, 1281):
+        assert torch.equal(rtt.shift_mm(x, w, n_out), rtt.shift_mm(x, w, n_out))
+    d = _data(626, cuda)
+    assert torch.equal(rt.band_analysis_bwd(d["g_cs"], d["cswt"]),
+                       rt.band_analysis_bwd(d["g_cs"], d["cswt"]))
+
+
+@pytest.mark.gpu
+def test_slab_gemm_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    d = _tiled_data(300, cuda)
+    x = d["g_y2"]
+    before = (rtt.shift_mm.launches, rt.band_analysis_bwd.launches)
+    moved = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)  # 4 bytes off 16
+    moved.copy_(x)
+    with pytest.raises(ValueError):  # TMA's 16-byte address alignment
+        rtt.shift_mm(moved, d["w_af"], 300)
+    with pytest.raises(ValueError):  # D % 32
+        rtt.shift_mm(x[..., :240].contiguous(), d["w_af"][:, :240].contiguous(), 300)
+    with pytest.raises(ValueError):  # E % 64
+        rtt.shift_mm(x, d["w_af"][..., :480].contiguous(), 300)
+    with pytest.raises(ValueError):  # no output row
+        rtt.shift_mm(x, d["w_af"], 0)
+    g = _data(97, cuda)["g_cs"]
+    g_moved = torch.empty(g.numel() + 1, device=cuda)[1:].view(g.shape)
+    g_moved.copy_(g)
+    with pytest.raises(ValueError):
+        rt.band_analysis_bwd(g_moved, _data(97, cuda)["cswt"])
+    assert (rtt.shift_mm.launches, rt.band_analysis_bwd.launches) == before
 
 
 def _ola_data(t, device, batch=B):
