@@ -121,10 +121,12 @@ struct BiasEpi {  // h = acc + bias
 
 // Instance norm over the m rows of h (B, m, C), one block per (32
 // channels, clip): mu, r = rsqrt(var + eps), the bf16 residual yhat, and,
-// where pool4 is given, the time mean of leaky(yhat) (the BRH pool).
+// where pool4 is given, the time mean of leaky(yhat) (the BRH pool); where
+// xa is given, the next layer's bf16 A operand leaky(yhat) (B, m, C), the
+// value NormLeakyA builds from the same h, mu and r (the sm90 chain's).
 __global__ void __launch_bounds__(kNormCh * kNormLanes)
 in_norm_fwd(const float* h, int m, int c_n, float* mu_out, float* r_out,
-            __nv_bfloat16* y, float* pool4) {
+            __nv_bfloat16* y, float* pool4, __nv_bfloat16* xa) {
   __shared__ float sh[kNormCh * kNormLanes];
   const int b = blockIdx.y;
   const int c = blockIdx.x * kNormCh + threadIdx.x % kNormCh;
@@ -145,6 +147,7 @@ in_norm_fwd(const float* h, int m, int c_n, float* mu_out, float* r_out,
     const long long e = base + (long long)i * c_n;
     const float v = (h[e] - mu) * r;
     y[e] = __float2bfloat16(v);
+    if (xa != nullptr) xa[e] = __float2bfloat16(leaky(v));
     acc += leaky(v);
   }
   if (pool4 != nullptr) {
@@ -254,10 +257,13 @@ __global__ void brh_bwd(const float* g, const float* wm, float* loss, const floa
 // Instance-norm backward statistics over the m rows, one block per (32
 // channels, clip): m1 = mean_t du, m2 = mean_t (du yhat) with du = dx
 // leaky'(yhat).  dx[b, i, c] sits at dx + b * dx_clip + i * dx_row + c
-// (dx_row = 0 broadcasts one row).
+// (dx_row = 0 broadcasts one row).  Where dh is given, a second sweep
+// writes the VJP GEMM's bf16 A operand dh = r (du - m1 - yhat m2) (B, m, C),
+// the value NormBwdA builds (the sm90 chain's).
 __global__ void __launch_bounds__(kNormCh * kNormLanes)
 in_norm_bwd_stats(const float* dx, long long dx_clip, long long dx_row,
-                  const __nv_bfloat16* y, int m, int c_n, float* m1, float* m2) {
+                  const __nv_bfloat16* y, int m, int c_n, float* m1, float* m2,
+                  const float* r, __nv_bfloat16* dh) {
   __shared__ float sh[kNormCh * kNormLanes];
   const int b = blockIdx.y;
   const int c = blockIdx.x * kNormCh + threadIdx.x % kNormCh;
@@ -274,6 +280,15 @@ in_norm_bwd_stats(const float* dx, long long dx_clip, long long dx_row,
   if (lane == 0) {
     m1[b * c_n + c] = a1;
     m2[b * c_n + c] = a2;
+  }
+  if (dh != nullptr) {
+    const float rk = r[b * c_n + c];
+    for (int i = lane; i < m; i += kNormLanes) {
+      const long long e = ((long long)b * m + i) * c_n + c;
+      const float yh = __bfloat162float(y[e]);
+      const float du = dx[b * dx_clip + i * dx_row + c] * (yh >= 0.f ? 1.f : 0.2f);
+      dh[e] = __float2bfloat16(rk * (du - a1 - yh * a2));
+    }
   }
 }
 
@@ -434,7 +449,7 @@ void detector_fwd_chain(const float* cs, const DetFwdConsts& c, const DetRes& r,
       launch_shift_gemm(NormLeakyA{hs[(i + 1) % 2], w.mu, rins[i - 1], t2, kCh[i]}, epi, geo,
                         batch, nullptr, st);
     in_norm_fwd<<<norm_grid(kCh[i + 1], batch), kNormCh * kNormLanes, 0, st>>>(
-        hs[i % 2], t2, kCh[i + 1], w.mu, rins[i], ys[i], i == 3 ? w.pool4 : nullptr);
+        hs[i % 2], t2, kCh[i + 1], w.mu, rins[i], ys[i], i == 3 ? w.pool4 : nullptr, nullptr);
   }
   brh_fwd<<<batch, kMel, 0, st>>>(w.pool4, c.eo, r.pred);
 }
@@ -457,7 +472,7 @@ void detector_bwd_chain(const float* g, const float* wm, float* loss, const DetR
   for (int i = 3; i >= 0; --i) {
     const int c_out = kCh[i + 1], c_in = kCh[i];
     in_norm_bwd_stats<<<norm_grid(c_out, batch), kNormCh * kNormLanes, 0, st>>>(
-        dx, dx_clip, dx_row, ys[i], t2, c_out, w.m1, w.m2);
+        dx, dx_clip, dx_row, ys[i], t2, c_out, w.m1, w.m2, nullptr, nullptr);
     float* out = dxs[i % 2];
     launch_shift_gemm(NormBwdA{dx, dx_clip, dx_row, ys[i], rins[i], w.m1, w.m2, t2, c_out},
                       StoreEpi{out, t2, c_in}, plain_geometry(t2, c_out, c_in, ws[i]),

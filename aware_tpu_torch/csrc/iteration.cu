@@ -6,7 +6,9 @@
 //                        _iter_fwd_kernel :72)
 //   aw_iteration_bwd  <- iteration_forward VJP (_iter_bwd_impl :285,
 //                        _iter_bwd_kernel :193)
-//   aw_iteration_step <- iteration_step (pallas_call :513, _step_kernel :341)
+//   aw_iteration_step <- iteration_step (pallas_call :513, _step_kernel :341):
+//                        in iteration_sm90.cu, on TMA + wgmma; its first
+//                        chain stays here as aw_iteration_step_wmma
 //
 // What they compute, per clip b (T frames, P = 256 padded band bins, hop
 // samples per row, lr = T - 1 rows, R = 4 slabs):
@@ -47,15 +49,16 @@
 //        and then reduces q = sum gy2 y2, max |y2| and its ties (two
 //        launches in the two-kernel chain); the synthesis-VJP GEMM; the
 //        phase fold;
-//   step (29 launches + 1 memset): fwd, bwd with the loss in brh_bwd, and
-//        the NAdam epilogue in place of the phase fold, then best_loss.
+//   step (29 launches + 1 memset, aw_iteration_step_wmma): fwd, bwd with
+//        the loss in brh_bwd, and the NAdam epilogue in place of the phase
+//        fold, then best_loss.
 //
 // Bounds at the main path's shapes (B = 8, T = 626): each direction is the
 // synthesis GEMM (5.3 GFLOP) plus the analysis and detector GEMMs (14.4
 // GFLOP), about 19.7 GFLOP, 0.020 ms at the bf16 peak; the step is both,
 // 39.5 GFLOP, 0.040 ms.  The device code is shared with the two-kernel
-// chain (roundtrip.cuh, analysis_detector.cuh, detector.cuh); its times are
-// in PERF.md.
+// chain (roundtrip.cuh, analysis_detector.cuh, detector.cuh, iteration.cuh);
+// its times are in PERF.md.
 //
 // Each entry takes a host array of the device pointers in a fixed order
 // (the Python wrappers in ops/kernels/iteration.py build it) and its
@@ -63,99 +66,9 @@
 // anything, and returns cudaGetLastError() so that a refused launch is
 // reported.
 
-#include "analysis_detector.cuh"
-#include "detector.cuh"
+#include "iteration.cuh"
 
 namespace {
-
-// A cursor over the host array of device pointers an entry takes.
-struct Ptrs {
-  void* const* p;
-  int n;
-  int i;
-  template <class T>
-  T* next() {
-    return i < n ? (T*)p[i++] : (++i, nullptr);
-  }
-  bool done() const { return i == n; }
-};
-
-using bf16 = __nv_bfloat16;
-
-// The round trip's constants (per clip where batched): csin (B, T, 2P)
-// bf16, y_const (B, T-1, hop), env (T-1, hop) f32, ab (2P, 4 hop), abt
-// (4 hop, 2P), csw (4 hop, 2P), cswt (2P, 4 hop) bf16.
-struct RoundConsts {
-  const bf16* csin;
-  const float* y_const;
-  const float* env;
-  const bf16* ab;
-  const bf16* abt;
-  const bf16* csw;
-  const bf16* cswt;
-};
-
-// Scratch of both directions, reused across them: big (B, T, 2P) holds
-// cs2, then dcs, then dreim; mel32 (B, T, 128); ha, hb (B, T2, 1024) the
-// conv pre-activations, then the conv cotangents; mu, m2 (B, 1024); small
-// (B, 128) the BRH pool, then its cotangent; clip2 (B, 2); gy2 (B, T-1,
-// hop); gpad (B, 4, hop); scal (B, 4).  All f32.
-struct IterScratch {
-  float *big, *mel32, *ha, *hb, *mu, *m2, *small, *clip2, *gy2, *gpad, *scal;
-};
-
-DetFwdConsts take_det_fwd(Ptrs& a) {
-  DetFwdConsts c;
-  c.melb = a.next<const bf16>();
-  c.w0t = a.next<const bf16>();
-  c.w1t = a.next<const bf16>();
-  c.w2t = a.next<const bf16>();
-  c.w3t = a.next<const bf16>();
-  c.biases = a.next<const float>();
-  c.eo = a.next<const float>();
-  return c;
-}
-
-DetBwdConsts take_det_bwd(Ptrs& a) {
-  DetBwdConsts c;
-  c.w0 = a.next<const bf16>();
-  c.w1 = a.next<const bf16>();
-  c.w2 = a.next<const bf16>();
-  c.w3 = a.next<const bf16>();
-  c.eot = a.next<const float>();
-  c.melbt = a.next<const bf16>();
-  return c;
-}
-
-// The detector's 16 residuals, in DetResiduals' order.
-DetRes take_res(Ptrs& a) {
-  DetRes r;
-  r.pred = a.next<float>();
-  r.nph = a.next<bf16>();
-  r.mel = a.next<bf16>();
-  r.y0 = a.next<bf16>();
-  r.y1 = a.next<bf16>();
-  r.y2 = a.next<bf16>();
-  r.y3 = a.next<bf16>();
-  r.mu1 = a.next<float>();
-  r.r1 = a.next<float>();
-  r.rin0 = a.next<float>();
-  r.rin1 = a.next<float>();
-  r.rin2 = a.next<float>();
-  r.rin3 = a.next<float>();
-  r.gmu = a.next<float>();
-  r.gr = a.next<float>();
-  r.s = a.next<float>();
-  return r;
-}
-
-IterScratch take_scratch(Ptrs& a) {
-  IterScratch w;
-  float** f[] = {&w.big, &w.mel32, &w.ha, &w.hb, &w.mu, &w.m2,
-                 &w.small, &w.clip2, &w.gy2, &w.gpad, &w.scal};
-  for (float** q : f) *q = a.next<float>();
-  return w;
-}
 
 // Per clip (one block each): fold the four pad rows' bf16 cotangents into
 // the six boundary rows of gy2, then the peak-norm VJP's scalars from gy2
@@ -171,50 +84,6 @@ fold_scalars(const float* gpad, float* gy2, const float* u, const float* m1, flo
   reflect_fold_clip(gpad + (long long)b * 2 * kPad * hop, gb, lr, hop);
   __syncthreads();
   synth_bwd_scalars_clip(gb, u + b * len, m1[b], true, scal + 4 * b, (int)len, sh);
-}
-
-// torch.optim.NAdam's constants as float32: 1 - b1, b2, 1 - b2 (each
-// rounded from its double value, as torch and the plain version see them)
-// and eps.
-struct NadamCoefs {
-  float c_m, b2, c_v, eps;
-};
-
-// The step's epilogue, element i of (B, T, P): g = the phase fold of dreim;
-// m += (1 - b1)(g - m); v = b2 v + (1 - b2) g^2; denom = sqrt(v / d2) + eps;
-// ct -= s1[b] g / denom; ct -= s2[b] m / denom; ct = clamp(ct, lower,
-// upper); best = ct where loss[b] < best_loss[b].  Each operation rounded
-// as torch's elementwise ops round it (no fused multiply-adds).
-__global__ void nadam_fold(const float* dreim, const bf16* csin, float* ct, float* m, float* v,
-                           float* best, const float* lower, const float* upper,
-                           const float* s1, const float* s2, const float* d2,
-                           const float* loss, const float* best_loss, NadamCoefs k,
-                           long long per_clip, int p, int batch) {
-  const long long total = per_clip * batch;
-  const float d2v = d2[0];
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int b = (int)(i / per_clip);
-    const float g = phase_fold(dreim, csin, i, p);
-    const float mo = m[i];
-    const float mn = __fadd_rn(mo, __fmul_rn(k.c_m, __fsub_rn(g, mo)));
-    const float vn = __fadd_rn(__fmul_rn(k.b2, v[i]), __fmul_rn(k.c_v, __fmul_rn(g, g)));
-    const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, d2v)), k.eps);
-    float pn = __fsub_rn(ct[i], __fdiv_rn(__fmul_rn(s1[b], g), den));
-    pn = __fsub_rn(pn, __fdiv_rn(__fmul_rn(s2[b], mn), den));
-    pn = fminf(fmaxf(pn, lower[i]), upper[i]);
-    m[i] = mn;
-    v[i] = vn;
-    ct[i] = pn;
-    if (loss[b] < best_loss[b]) best[i] = pn;
-  }
-}
-
-// After every element of every clip has read best_loss: best_loss = loss
-// where loss < best_loss.
-__global__ void best_loss_update(const float* loss, float* best_loss, int batch) {
-  for (int b = threadIdx.x; b < batch; b += blockDim.x)
-    if (loss[b] < best_loss[b]) best_loss[b] = loss[b];
 }
 
 // ct (B, T, P) -> pred and the residuals (r), u (B, T-1, hop) and m1 (B,).
@@ -249,18 +118,6 @@ void iteration_bwd_chain(const float* g, const float* wm, float* loss, const Det
   launch_shift_gemm<SynthBwdA, StoreEpi, false>(SynthBwdA{w.gy2, u, c.env, w.scal, lr, hop, true},
                                                 StoreEpi{w.big, t, 2 * p}, geo, batch, nullptr,
                                                 st);
-}
-
-void launch_step_epilogue(const float* dreim, const bf16* csin, float* ct, float* m, float* v,
-                          float* best, float* best_loss, const float* lower,
-                          const float* upper, const float* loss, const float* s1,
-                          const float* s2, const float* d2, NadamCoefs k, int batch, int t,
-                          int p, cudaStream_t st) {
-  const long long per_clip = (long long)t * p;
-  nadam_fold<<<elementwise_blocks(per_clip * batch), 256, 0, st>>>(
-      dreim, csin, ct, m, v, best, lower, upper, s1, s2, d2, loss, best_loss, k, per_clip, p,
-      batch);
-  best_loss_update<<<1, 32, 0, st>>>(loss, best_loss, batch);
 }
 
 }  // namespace
@@ -317,48 +174,21 @@ int aw_iteration_bwd(void* const* ptrs, int n, int batch, int t, int p, int hop,
   return (int)cudaGetLastError();
 }
 
-// ptrs (61): ct, m, v, best (B, T, P) and best_loss (B,) f32, updated in
-// place; lower, upper (B, T, P), wm (B, 128) (the bipolar message in the
-// first 20 lanes, 0 after), s1, s2 (B,), d2 (1,) f32 -> loss (B,) f32 (the
-// pre-step ct's); csin, y_const, env, ab, abt, csw, cswt (RoundConsts);
-// the detector's 7 forward and 6 backward constants; the 16 residuals, u
-// and m1 as scratch; then the 11 scratch buffers.  c_m, b2, c_v, eps:
-// NadamCoefs.
-int aw_iteration_step(void* const* ptrs, int n, int batch, int t, int p, int hop, float c_m,
-                      float b2, float c_v, float eps, void* stream) {
+// ptrs (61, StepArgs): the step's state, inputs, constants, residuals and
+// scratch.  c_m, b2, c_v, eps: NadamCoefs.  The first WMMA chain of the
+// step, which aw_iteration_step (iteration_sm90.cu) replaced; no wrapper
+// reaches it: chip_smoke.py times the two in turns.
+int aw_iteration_step_wmma(void* const* ptrs, int n, int batch, int t, int p, int hop,
+                           float c_m, float b2, float c_v, float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Ptrs a{ptrs, n, 0};
-  float* ct = a.next<float>();
-  float* m = a.next<float>();
-  float* v = a.next<float>();
-  float* best = a.next<float>();
-  float* best_loss = a.next<float>();
-  const float* lower = a.next<const float>();
-  const float* upper = a.next<const float>();
-  const float* wm = a.next<const float>();
-  const float* s1 = a.next<const float>();
-  const float* s2 = a.next<const float>();
-  const float* d2 = a.next<const float>();
-  float* loss = a.next<float>();
-  RoundConsts c;
-  c.csin = a.next<const bf16>();
-  c.y_const = a.next<const float>();
-  c.env = a.next<const float>();
-  c.ab = a.next<const bf16>();
-  c.abt = a.next<const bf16>();
-  c.csw = a.next<const bf16>();
-  c.cswt = a.next<const bf16>();
-  const DetFwdConsts dfc = take_det_fwd(a);
-  const DetBwdConsts dbc = take_det_bwd(a);
-  const DetRes r = take_res(a);
-  float* u = a.next<float>();
-  float* m1 = a.next<float>();
-  const IterScratch w = take_scratch(a);
+  const StepArgs s = take_step(a);
   if (!a.done()) return (int)cudaErrorInvalidValue;
-  iteration_fwd_chain(ct, c, dfc, r, u, m1, w, batch, t, p, hop, st);
-  iteration_bwd_chain(nullptr, wm, loss, r, u, m1, c, dbc, w, batch, t, p, hop, st);
-  launch_step_epilogue(w.big, c.csin, ct, m, v, best, best_loss, lower, upper, loss, s1, s2,
-                       d2, NadamCoefs{c_m, b2, c_v, eps}, batch, t, p, st);
+  iteration_fwd_chain(s.ct, s.c, s.dfc, s.r, s.u, s.m1, s.w, batch, t, p, hop, st);
+  iteration_bwd_chain(nullptr, s.wm, s.loss, s.r, s.u, s.m1, s.c, s.dbc, s.w, batch, t, p, hop,
+                      st);
+  launch_step_epilogue(s.w.big, s.c.csin, s.ct, s.m, s.v, s.best, s.best_loss, s.lower, s.upper,
+                       s.loss, s.s1, s.s2, s.d2, NadamCoefs{c_m, b2, c_v, eps}, batch, t, p, st);
   return (int)cudaGetLastError();
 }
 

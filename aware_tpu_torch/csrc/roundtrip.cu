@@ -4,7 +4,7 @@
 //
 //   aw_synth_norm_fwd    <- synth_norm forward     (_synth_impl,  _synth_kernel)
 //   aw_synth_norm_bwd    <- synth_norm VJP         (_synth_bwd,   _synth_bwd_kernel)
-//   aw_band_analysis_fwd <- band_analysis forward  (_analysis_impl, _analysis_kernel)
+//   aw_band_analysis_fwd_wmma <- band_analysis forward (_analysis_impl, _analysis_kernel)
 //   aw_band_analysis_bwd_wmma <- band_analysis VJP (_analysis_bwd, _analysis_bwd_kernel)
 //
 // What they compute, per clip b of a batch (T frames, P padded band bins,
@@ -36,12 +36,13 @@
 // rows), so no intermediate of the Pallas kernels' scratch (reim, yd, gyd,
 // yp, gyp) goes through device memory.
 //
-// The VJP's entry of the port, aw_band_analysis_bwd, moved to
-// slab_gemm_sm90.cu: TMA into a ring of stages and wgmma, the design of
-// slab_gemm_sm90.cuh.  aw_band_analysis_bwd_wmma is its first WMMA version,
-// kept so that chip_smoke.py can time the two in turns; no wrapper reaches
-// it.  The other three stay on the WMMA template; wgmma, TMA and a
-// pipelined ring are later work for them.
+// The analysis's entries of the port, aw_band_analysis_fwd and
+// aw_band_analysis_bwd, moved to slab_gemm_sm90.cu: TMA into a ring of
+// stages and wgmma, the design of slab_gemm_sm90.cuh.
+// aw_band_analysis_fwd_wmma and aw_band_analysis_bwd_wmma are their first
+// WMMA versions, kept so that chip_smoke.py can time the two in turns; no
+// wrapper reaches them.  The synthesis pair stays on the WMMA template;
+// wgmma, TMA and a pipelined ring are later work for it.
 //
 // Every kernel runs on the caller's stream and allocates nothing; each C
 // entry returns cudaGetLastError() so that a refused launch is reported.
@@ -117,8 +118,8 @@ int aw_synth_norm_bwd(const float* g, const float* y2, const float* m1,
 }
 
 // y2 (B, T-1, hop) f32, csw (4 hop, 2P) bf16 -> cs2 (B, T, 2P) f32.
-int aw_band_analysis_fwd(const float* y2, const __nv_bfloat16* csw, float* cs2, int batch,
-                         int t, int p2, int hop, void* stream) {
+int aw_band_analysis_fwd_wmma(const float* y2, const __nv_bfloat16* csw, float* cs2,
+                              int batch, int t, int p2, int hop, void* stream) {
   const int lr = t - 1;
   Geometry geo{t, 0, lr, hop, p2, kR, +1, kPad, csw, (long long)p2, (long long)hop * p2};
   launch_shift_gemm<LoadA, StoreEpi, false>(LoadA{y2, hop, lr}, StoreEpi{cs2, t, p2}, geo,

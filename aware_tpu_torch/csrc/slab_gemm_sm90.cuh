@@ -1,27 +1,35 @@
-// The shifted-slab GEMM of the long-clip and first-slice round trips,
-// redesigned for Hopper (sm_90a): TMA into a ring of shared-memory stages,
-// a producer warpgroup, and wgmma products in one or two consumer
-// warpgroups.
+// The shifted-slab GEMM of the round trips, redesigned for Hopper
+// (sm_90a): TMA into a ring of shared-memory stages, a producer
+// warpgroup, and wgmma products in one or two consumer warpgroups.
 //
 //   out[b, i, :] = sum_{k<4} bf16(A[b, i + dir * (k - pad), :]) @ W_k   for i < n_out,
 //
 // per clip b, with A (B, N, D) f32, rows outside [0, N) of that clip read as
 // zero, W_k the (D, E) bf16 slab whose origin in the weight matrix is
-// (k * k_row, k * k_col), f32 accumulation and a plain f32 store.  It
-// replaces two Pallas TPU kernels, each one entry of slab_gemm_sm90.cu:
+// (k * k_row, k * k_col), f32 accumulation and an epilogue functor that
+// stores each pair of sums (a plain f32 store, StoreF32, or one of the
+// whole-step chain's, iteration_sm90.cu).  It replaces three Pallas TPU
+// kernels, each one entry of slab_gemm_sm90.cu:
 //
 //   aw_shift_mm          <- aware_tpu/ops/pallas/roundtrip_tiled.py shift_mm
 //                           (_shift_mm_kernel): dir +1, pad 0, W (4, D, E);
+//   aw_band_analysis_fwd <- aware_tpu/ops/pallas/roundtrip.py band_analysis
+//                           (_analysis_impl, _analysis_kernel): dir +1, pad 2,
+//                           W_k = csw[k hop:(k+1) hop, :] of csw (4 hop, 2P);
 //   aw_band_analysis_bwd <- aware_tpu/ops/pallas/roundtrip.py band_analysis VJP
 //                           (_analysis_bwd, _analysis_bwd_kernel): dir -1, pad 2,
-//                           W_k = cswt[:, k hop:(k+1) hop] of cswt (2P, 4 hop).
+//                           W_k = cswt[:, k hop:(k+1) hop] of cswt (2P, 4 hop);
+//
+// and runs the four round-trip products of aw_iteration_step (the
+// synthesis, the reflect analysis, its VJP and the synthesis VJP).
 //
 // What bounds each use on an H100 (989 TFLOP/s bf16, 3.35 TB/s):
 //   shift_mm at the long path's three uses (B = 8, n_out 3751-3753, D x E
 //   256 x 512 or 512 x 256): 31.5 GFLOP against 93.2 MB (x read, w, out
 //   written once), 31.8 us of operations against 27.8 us of bytes;
-//   the band_analysis VJP at B = 8, T = 626 (D 512, E 256): 5.24 GFLOP
-//   against 16.4 MB, 5.3 us of operations against 4.9 us of bytes.
+//   the band_analysis forward and VJP at B = 8, T = 626 (D x E 256 x 512
+//   or 512 x 256): 5.24 GFLOP against 16.4 MB each, 5.3 us of operations
+//   against 4.9 us of bytes; the step's four products the same.
 // Operations bound both, narrowly, so the design is about feeding the
 // tensor cores:
 //   * TMA, not threads, stages both operands, into a ring of stages with
@@ -39,7 +47,7 @@
 //     [t0 + min shift, t0 + BM + 3 + min shift) of 32 f32 columns are loaded
 //     once, and slab k reads it at its own row offset, a quarter of the A
 //     traffic of one load per slab.
-//   * A stays f32 in memory, as both callers produce it.  Each consumer
+//   * A stays f32 in memory, as every caller produces it.  Each consumer
 //     thread reads its wgmma A fragment from the swizzled f32 window, rounds
 //     it with cvt.rn.bf16x2 (round to nearest even, as .to(torch.bfloat16)),
 //     and feeds wgmma from registers with B from shared memory; a register
@@ -71,10 +79,7 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -82,7 +87,6 @@ namespace sm90 {
 
 constexpr int kSlabs = 4;
 constexpr int kBK = 32;     // depth chunk: f32 columns of one A box (128 bytes)
-constexpr int kBoxN = 64;   // bf16 weight columns of one B box (128 bytes)
 constexpr int kBoxB = kBK * 128;  // bytes of one B box: 32 rows of 128 bytes
 
 template <int NWG, int BN>
@@ -102,95 +106,13 @@ struct Tile {
   // the consumer warpgroups, then one producer warpgroup whose first
   // thread issues every copy
   static constexpr int THREADS = 128 * NWG + 128;
-  // registers a thread: the launch gives each 65536 / (THREADS *
-  // MIN_BLOCKS), rounded down to 8 (168 or 128: ptxas gives a kernel that
-  // uses setmaxnreg its launch bound's count, as chip_smoke.py phase 1
+  // registers a thread (entry_regs: 168 or 128, as chip_smoke.py phase 1
   // shows; with fewer, the consumers' increase would wait forever); the
   // producer hands all but 40 of its own to the consumers, which hold two
   // sets of accumulators and a chunk's fragments
-  static constexpr int PRODUCER_REGS = 40;
-  static constexpr int CONSUMER_REGS =
-      (65536 / (THREADS * MIN_BLOCKS) / 8 * 8 * THREADS - 128 * PRODUCER_REGS) /
-      (128 * NWG) / 8 * 8;
+  static constexpr int CONSUMER_REGS = consumer_regs(THREADS, MIN_BLOCKS, 128 * NWG);
   static constexpr uint32_t TX = A_TX + B_BYTES;       // bytes TMA delivers per stage
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Spin until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators
-// across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Descriptor of one slab's B operand for one 16-deep step: 128-byte
-// swizzle, N-major (N contiguous): the 64-column boxes lie 4096 bytes apart
-// (leading byte offset), the 8-row groups of depth 1024 bytes apart
-// (stride byte offset), both in 16-byte units.
-__device__ __forceinline__ uint64_t desc_b(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(kBoxB >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
 
 // wgmma m64nNk16, A from registers (the m16n8k16 fragment of each warp's 16
 // rows), B from shared memory transposed (N-major): d = A B, or with
@@ -239,15 +161,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float2 v) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// The output rows' geometry of one launch; the epilogue functor stores.
 struct Params {
-  float* out;   // (B, n_out, e) f32
-  int n_out;
-  int e;
+  int n_out;    // output rows per clip
+  int e;        // output columns
   int depth;    // D
   int k_row;    // origin of slab k in W: (k * k_row, k * k_col)
   int k_col;
   int dir;      // source row = row + dir * (k - pad)
   int pad;
+};
+
+// Epilogues: called for output row `row` < n_out of clip b at columns col
+// and col + 1 with their f32 sums.  kMax epilogues return a non-negative
+// value whose per-clip maximum the kernel folds into their max_bits (float
+// bits, atomicMax: the same bits in any order).
+struct StoreF32 {  // out (B, n_out, e) f32
+  static constexpr bool kMax = false;
+  float* out;
+  int n_out;
+  int e;
+  __device__ float operator()(int b, int row, int col, float v0, float v1) const {
+    *reinterpret_cast<float2*>(out + ((long long)b * n_out + row) * e + col) =
+        make_float2(v0, v1);
+    return 0.f;
+  }
 };
 
 // The rows of A that slab k reads lie off_k rows into the window that
@@ -259,10 +197,10 @@ __device__ __forceinline__ int slab_offset(int dir, int k) {
   return dir > 0 ? k : kSlabs - 1 - k;
 }
 
-template <int NWG, int BN>
+template <int NWG, int BN, class Epi>
 __global__ void __launch_bounds__(Tile<NWG, BN>::THREADS, Tile<NWG, BN>::MIN_BLOCKS)
 slab_gemm_sm90(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
-               Params p) {
+               Params p, Epi epi) {
   using T = Tile<NWG, BN>;
   constexpr int S = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -290,7 +228,7 @@ slab_gemm_sm90(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
 
   if (warp >= 4 * NWG) {
     // ---- producer: one thread keeps the ring of stages full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(T::PRODUCER_REGS));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (warp == 4 * NWG && lane == 0) {
       const int row0 = t0 + first_row(p.dir, p.pad);
       for (int c = 0; c < chunks; ++c) {
@@ -353,7 +291,8 @@ slab_gemm_sm90(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
       for (int k = 0; k < kSlabs; ++k)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          wgmma_rs(part, f[k][h], desc_b(wst + k * T::NB * kBoxB + h * 16 * 128), k + h > 0);
+          wgmma_rs(part, f[k][h], desc_b(wst + k * T::NB * kBoxB + h * 16 * 128, kBoxB),
+                   k + h > 0);
     };
     // chunk c: wait for its stage, build its fragments, issue its products,
     // wait for them, release the stage and add the chunk's sums
@@ -373,41 +312,23 @@ slab_gemm_sm90(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
     }
 
     // ---- epilogue: rows row and row + 8 of the tile, two columns per 8
-    float* out = p.out + (long long)b * p.n_out * p.e;
     const int r0 = t0 + row, r1 = r0 + 8;
+    float mx = 0.f;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * q;
-      if (r0 < p.n_out)
-        *reinterpret_cast<float2*>(out + (long long)r0 * p.e + col) =
-            make_float2(acc[4 * j], acc[4 * j + 1]);
-      if (r1 < p.n_out)
-        *reinterpret_cast<float2*>(out + (long long)r1 * p.e + col) =
-            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      if (r0 < p.n_out) mx = fmaxf(mx, epi(b, r0, col, acc[4 * j], acc[4 * j + 1]));
+      if (r1 < p.n_out) mx = fmaxf(mx, epi(b, r1, col, acc[4 * j + 2], acc[4 * j + 3]));
+    }
+    if constexpr (Epi::kMax) {
+      for (int o = 16; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      // non-negative floats order as their bit patterns
+      if (lane == 0) atomicMax(epi.max_bits + b, __float_as_uint(mx));
     }
   }
 }
 
 // ------------------------------------------------------------------ host ---
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-  }();
-  return fn;
-}
 
 // The operands of one launch.
 struct Problem {
@@ -420,8 +341,8 @@ struct Problem {
   Params p;
 };
 
-template <int NWG, int BN>
-int launch(const Problem& pr, cudaStream_t stream) {
+template <int NWG, int BN, class Epi>
+int launch(const Problem& pr, const Epi& epi, cudaStream_t stream) {
   using T = Tile<NWG, BN>;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
@@ -434,32 +355,35 @@ int launch(const Problem& pr, cudaStream_t stream) {
           a_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
-  const cuuint64_t w_dim[2] = {(cuuint64_t)pr.w_cols, (cuuint64_t)pr.w_rows};
-  const cuuint64_t w_stride[1] = {(cuuint64_t)pr.w_cols * 2};
-  const cuuint32_t w_box[2] = {kBoxN, kBK};
-  if (enc(&tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(pr.w), w_dim,
-          w_stride, w_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (!encode_2d(&tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, pr.w, pr.w_cols, pr.w_rows, kBoxN,
+                 kBK))
     return (int)cudaErrorInvalidValue;
   static bool sized = false;  // once per instantiation, before any graph capture
   if (!sized) {
-    cudaError_t err = cudaFuncSetAttribute(slab_gemm_sm90<NWG, BN>,
+    cudaError_t err = cudaFuncSetAttribute(slab_gemm_sm90<NWG, BN, Epi>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (err != cudaSuccess) return (int)err;
     sized = true;
   }
   dim3 grid(pr.p.e / BN, (pr.p.n_out + T::BM - 1) / T::BM, pr.batch);
-  slab_gemm_sm90<NWG, BN><<<grid, T::THREADS, T::SMEM, stream>>>(tm_a, tm_w, pr.p);
+  slab_gemm_sm90<NWG, BN, Epi><<<grid, T::THREADS, T::SMEM, stream>>>(tm_a, tm_w, pr.p, epi);
   return (int)cudaGetLastError();
 }
 
 // The tile the wrapper planned: BM x BN of 128 x 128, 64 x 128 or 64 x 64.
-inline int launch_slab_gemm(const Problem& pr, int bm, int bn, cudaStream_t stream) {
+template <class Epi>
+int launch_slab_gemm(const Problem& pr, const Epi& epi, int bm, int bn, cudaStream_t stream) {
   if (pr.p.depth % kBK != 0 || pr.p.e % bn != 0) return (int)cudaErrorInvalidValue;
-  if (bm == 128 && bn == 128) return launch<2, 128>(pr, stream);
-  if (bm == 64 && bn == 128) return launch<1, 128>(pr, stream);
-  if (bm == 64 && bn == 64) return launch<1, 64>(pr, stream);
+  if (bm == 128 && bn == 128) return launch<2, 128>(pr, epi, stream);
+  if (bm == 64 && bn == 128) return launch<1, 128>(pr, epi, stream);
+  if (bm == 64 && bn == 64) return launch<1, 64>(pr, epi, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// A plain f32 store of the rows into out (B, n_out, e).
+inline int launch_slab_gemm(const Problem& pr, float* out, int bm, int bn,
+                            cudaStream_t stream) {
+  return launch_slab_gemm(pr, StoreF32{out, pr.p.n_out, pr.p.e}, bm, bn, stream);
 }
 
 // (dynamic shared memory bytes, threads, stages, registers a thread at
@@ -470,7 +394,7 @@ inline int tile_config(int bm, int bn, int* threads, int* stages, int* regs) {
     using T = Tile<NWG, BN>;                                                        \
     *threads = T::THREADS;                                                          \
     *stages = T::STAGES;                                                            \
-    *regs = 65536 / (T::THREADS * T::MIN_BLOCKS) / 8 * 8;                           \
+    *regs = entry_regs(T::THREADS, T::MIN_BLOCKS);                                  \
     return T::SMEM;                                                                 \
   }
   AW_TILE(2, 128)

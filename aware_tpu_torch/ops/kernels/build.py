@@ -36,8 +36,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "aw_synth_norm_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "aw_synth_norm_bwd": [_P] * 9 + [_I] * 4 + [_P],
-    "aw_band_analysis_fwd": [_P] * 3 + [_I] * 4 + [_P],
-    # the two sm90 slab-GEMM entries take the planned tile (bm, bn) last
+    # the sm90 slab and dense GEMM entries take the planned tile (bm, bn) last
+    "aw_band_analysis_fwd": [_P] * 3 + [_I] * 6 + [_P],
+    "aw_band_analysis_fwd_wmma": [_P] * 3 + [_I] * 4 + [_P],
     "aw_band_analysis_bwd": [_P] * 3 + [_I] * 6 + [_P],
     "aw_band_analysis_bwd_wmma": [_P] * 3 + [_I] * 4 + [_P],
     "aw_detector_fwd": [_P] * 29 + [_I] * 3 + [_P],
@@ -47,11 +48,16 @@ SIGNATURES = {
     # a host array of device pointers and its length, then the sizes
     "aw_iteration_fwd": [_P] + [_I] * 5 + [_P],
     "aw_iteration_bwd": [_P] + [_I] * 5 + [_P],
-    "aw_iteration_step": [_P] + [_I] * 5 + [_F] * 4 + [_P],
+    # the step also takes a host array of the planned tiles and its length
+    "aw_iteration_step": [_P, _I, _P, _I] + [_I] * 4 + [_F] * 4 + [_P],
+    "aw_iteration_step_wmma": [_P] + [_I] * 5 + [_F] * 4 + [_P],
     "aw_step_epilogue": [_P] + [_I] * 4 + [_F] * 4 + [_P],
     "aw_shift_mm": [_P] * 3 + [_I] * 7 + [_P],
     "aw_shift_mm_wmma": [_P] * 3 + [_I] * 5 + [_P],
     "aw_slab_gemm_config": [_I] * 2 + [_P] * 3,
+    "aw_slab_gemm": [_P] * 3 + [_I] * 13 + [_P],
+    "aw_dense_gemm": [_P] * 3 + [_I] * 5 + [_P],
+    "aw_dense_gemm_config": [_I] * 2 + [_P] * 3,
     "aw_synth_tiled_fwd": [_P] * 7 + [_I] * 5 + [_P],
     "aw_ola_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "aw_ola_bwd": [_P] * 8 + [_I] * 3 + [_P],

@@ -23,7 +23,10 @@ stream (their launches are listed there):
   pallas_call :285): g (B, 128) -> dct (B, T, P) f32 (15 launches);
 * ``iteration_step`` replaces ``_step_kernel`` (:341, pallas_call :513):
   ct, m, v, best (B, T, P) and best_loss (B,) updated in place, loss (B,)
-  out (29 launches).
+  out; the TMA + wgmma chain of ``csrc/iteration_sm90.cu`` (40 launches),
+  its 14 GEMMs' tiles planned here (``step_tiles``).  Its first WMMA
+  chain stays in the library as ``aw_iteration_step_wmma``, which no path
+  reaches (``chip_smoke.py`` times the two in turns).
 
 Each wrapper checks its operands, counts its own launches in
 ``launches``, and on CUDA tensors launches its kernel or raises; on CPU
@@ -43,6 +46,7 @@ buffers allocated once per solve (``step_buffers``).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -69,8 +73,13 @@ from aware_tpu_torch.ops.kernels.roundtrip import (
     _check,
     _check_geometry,
     _run,
+    _sms,
+    check_dense_gemm,
+    check_slab_gemm,
     peak_den,
     phase_fold_plain,
+    plan_dense_gemm,
+    plan_slab_gemm,
     synth_norm_bwd_plain,
     synth_u_plain,
 )
@@ -141,13 +150,23 @@ class Scratch(NamedTuple):
     scal: torch.Tensor   # (B, 4)
 
 
+class StepOps(NamedTuple):
+    """The sm90 step's own buffers (csrc/iteration_sm90.cu ``StepOps``)."""
+
+    a16: torch.Tensor   # (B, max(T2 1024, T P)) bf16: the detector GEMMs' A operands
+    rows: torch.Tensor  # (B, T+3, hop) f32: the reflect-padded y2, then gcrop
+    part: torch.Tensor  # (B, 4096) f32: the chunked reductions' partial sums
+
+
 class StepBuffers(NamedTuple):
     """What ``iteration_step`` writes besides the state: the forward's
-    residuals, the scratch and the loss; allocated once per solve."""
+    residuals, the scratch, the loss and its own operands; allocated once
+    per solve."""
 
     res: IterResiduals
     scratch: Scratch
     loss: torch.Tensor  # (B,) f32, the last step's loss
+    ops: StepOps
 
 
 def _scratch_shapes(b: int, t: int, p2: int, hop: int) -> tuple:
@@ -169,11 +188,64 @@ def _residuals(b: int, t: int, p2: int, hop: int, dev) -> IterResiduals:
     return IterResiduals(det, torch.empty(b, t - 1, hop, device=dev), torch.empty(b, device=dev))
 
 
+PART_LD = 4096  # floats of one clip's partial sums (csrc/iteration_sm90.cu kPartLd)
+FOLD_CHUNK = 4096  # samples of one block of the fold and scalar stages (kFoldChunk)
+
+
+def _ops_shapes(b: int, t: int, p2: int, hop: int) -> tuple:
+    return ((b, max((t // 2) * CH[2], t * (p2 // 2))), (b, t + 2 * PAD - 1, hop), (b, PART_LD))
+
+
 def step_buffers(b: int, t: int, p2: int, hop: int, device) -> StepBuffers:
     """The buffers of ``iteration_step`` for B clips of T frames (CUDA;
     the plain version needs none)."""
+    a16, rows, part = _ops_shapes(b, t, p2, hop)
+    ops = StepOps(torch.empty(a16, dtype=_BF16, device=device),
+                  torch.empty(rows, dtype=_F32, device=device),
+                  torch.empty(part, dtype=_F32, device=device))
     return StepBuffers(_residuals(b, t, p2, hop, device), _scratch(b, t, p2, hop, device),
-                       torch.empty(b, device=device))
+                       torch.empty(b, device=device), ops)
+
+
+class StepGemm(NamedTuple):
+    """One of the step's 14 GEMMs, in launch order: a slab GEMM over B
+    clips (``rows`` output rows per clip, depth ``k`` per slab) or a dense
+    one (``rows`` = the B clips' rows stacked, depth ``k``); ``n`` output
+    columns."""
+
+    name: str
+    kind: str  # "slab" or "dense"
+    rows: int
+    k: int
+    n: int
+
+
+def step_gemms(b: int, t: int, p: int, hop: int) -> list:
+    """The step's GEMMs in the order of csrc/iteration_sm90.cu's ``Gemm``."""
+    lr, t2, p2 = t - 1, t // 2, 2 * p
+    conv = [StepGemm(f"conv {i}", "dense", b * t2, CH[i], CH[i + 1]) for i in range(4)]
+    conv_vjp = [StepGemm(f"conv {i} VJP", "dense", b * t2, CH[i + 1], CH[i])
+                for i in range(3, -1, -1)]
+    return [StepGemm("synthesis", "slab", lr, p2, hop),
+            StepGemm("reflect analysis", "slab", t, hop, p2),
+            StepGemm("mel", "dense", b * t, p, CH[0]),
+            *conv, *conv_vjp,
+            StepGemm("mel VJP", "dense", b * t, CH[0], p),
+            StepGemm("reflect analysis VJP", "slab", lr + 2 * PAD, p2, hop),
+            StepGemm("synthesis VJP", "slab", t, hop, p2)]
+
+
+def plan_step(b: int, t: int, p: int, hop: int, sms: int) -> list:
+    """The planned tile of each of the step's GEMMs (``step_gemms``)."""
+    return [plan_slab_gemm(b, g.rows, g.n, sms) if g.kind == "slab"
+            else plan_dense_gemm(g.rows, g.n, sms) for g in step_gemms(b, t, p, hop)]
+
+
+@functools.lru_cache(maxsize=64)
+def step_tiles(b: int, t: int, p: int, hop: int, sms: int):
+    """``plan_step`` as the host array of (bm, bn) pairs the C entry takes."""
+    pairs = [x for pl in plan_step(b, t, p, hop, sms) for x in (pl.bm, pl.bn)]
+    return (ctypes.c_int * len(pairs))(*pairs)
 
 
 # ---------------------------------------------------------- plain versions ---
@@ -330,6 +402,38 @@ def _check_state(names, tensors, shape, dev) -> None:
         _check(name, x, shape, _F32, dev)
 
 
+def _check_step_ops(bufs: StepBuffers, c: IterConsts, b: int, t: int, p: int, hop: int,
+                    dev) -> None:
+    """The sm90 step's own buffers, and what its GEMMs' tensor maps need."""
+    for name, x, shape, dtype in zip(StepOps._fields, bufs.ops, _ops_shapes(b, t, 2 * p, hop),
+                                     (_BF16, _F32, _F32)):
+        _check(name, x, shape, dtype, dev)
+    if (t - 1) * hop > FOLD_CHUNK * (PART_LD // 3):
+        raise ValueError(f"the whole-step kernel's partial sums need (T-1) hop <= "
+                         f"{FOLD_CHUNK * (PART_LD // 3)} (got T={t}, hop={hop})")
+    big, rows = bufs.scratch.big, bufs.ops.rows
+    a_of = {"synthesis": (big, c.ab), "reflect analysis": (rows, c.csw),
+            "reflect analysis VJP": (big, c.cswt), "synthesis VJP": (rows, c.abt)}
+    dense_w = [c.det.melb, c.det.w0t, c.det.w1t, c.det.w2t, c.det.w3t,
+               c.det.w3, c.det.w2, c.det.w1, c.det.w0, c.det.melbt]
+    for g in step_gemms(b, t, p, hop):
+        if g.kind == "slab":
+            a, w = a_of[g.name]
+            check_slab_gemm(a.view(b, -1, g.k), w, g.n, g.rows)
+        else:
+            check_dense_gemm(bufs.ops.a16, dense_w.pop(0), g.rows, g.k, g.n)
+
+
+def _step_tensors(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c: IterConsts,
+                  bufs: StepBuffers) -> list:
+    """The step's pointer table (csrc/iteration.cuh ``StepArgs``), as both
+    step entries take it."""
+    return [ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, bufs.loss,
+            c.csin, c.y_const, c.env, c.ab, c.abt, c.csw, c.cswt,
+            *(getattr(c.det, n) for n in _DET_FWD), *(getattr(c.det, n) for n in _DET_BWD),
+            *bufs.res.det, bufs.res.u, bufs.res.m1, *bufs.scratch]
+
+
 def iteration_step(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c: IterConsts,
                    k: NadamCoefs, bufs: StepBuffers | None = None) -> torch.Tensor:
     """One whole solver step for B clips: forward, the push_extremes loss
@@ -356,13 +460,27 @@ def iteration_step(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c: I
     _check_residuals(bufs.res, b, t, 2 * p, hop, dev)
     _check_scratch(bufs.scratch, b, t, 2 * p, hop, dev)
     _check("loss", bufs.loss, (b,), _F32, dev)
+    _check_step_ops(bufs, c, b, t, p, hop, dev)
+    tiles = step_tiles(b, t, p, hop, _sms(dev.index or 0))
     _run_table("aw_iteration_step", dev,
-               [ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, bufs.loss,
-                c.csin, c.y_const, c.env, c.ab, c.abt, c.csw, c.cswt,
-                *(getattr(c.det, n) for n in _DET_FWD), *(getattr(c.det, n) for n in _DET_BWD),
-                *bufs.res.det, bufs.res.u, bufs.res.m1, *bufs.scratch],
-               b, t, p, hop, *k)
+               [*_step_tensors(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c, bufs),
+                *bufs.ops],
+               tiles, len(tiles), b, t, p, hop, *k)
     iteration_step.launches += 1
+    return bufs.loss
+
+
+def _iteration_step_wmma(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2,
+                         c: IterConsts, k: NadamCoefs, bufs: StepBuffers) -> torch.Tensor:
+    """The step's first chain, ``aw_iteration_step_wmma`` (the WMMA
+    template), on the CUDA tensors ``iteration_step`` takes (the constants
+    checked): no path reaches it; the chip check times it beside the sm90
+    chain.  Not counted in ``iteration_step.launches``."""
+    b, t, p = ct.shape
+    _check_iter(c, b, t, p, ct.device)
+    _run_table("aw_iteration_step_wmma", ct.device,
+               _step_tensors(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c, bufs),
+               b, t, p, c.env.shape[-1], *k)
     return bufs.loss
 
 

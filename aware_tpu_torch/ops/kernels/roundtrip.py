@@ -2,9 +2,10 @@
 
 The port of ``aware_tpu/ops/pallas/roundtrip.py``.  Each of the four TPU
 kernels (synth_norm forward and VJP, band_analysis forward and VJP) is a
-CUDA entry of ``csrc/roundtrip.cu``, the band_analysis VJP of
+CUDA entry of ``csrc/roundtrip.cu``, the band_analysis pair of
 ``csrc/slab_gemm_sm90.cu`` (TMA and wgmma, with ``shift_mm``; its tile is
-planned here, ``plan_slab_gemm``), each with:
+planned here, ``plan_slab_gemm``, as is the tile of the whole step's dense
+GEMMs, ``plan_dense_gemm``), each with:
 
 * a wrapper (``synth_norm_fwd``, ``synth_norm_bwd``, ``band_analysis_fwd``,
   ``band_analysis_bwd``) that checks its operands, allocates outputs and
@@ -206,6 +207,41 @@ def slab_plan_for(a: torch.Tensor, n_out: int, e: int) -> SlabPlan:
     return plan_slab_gemm(a.shape[0], n_out, e, _sms(a.device.index or 0))
 
 
+# The sm90 dense GEMM (csrc/dense_gemm_sm90.cuh) of the whole step's
+# detector products: A (M, K) bf16 in depth chunks of DENSE_DEPTH columns,
+# B (K, N) bf16 in boxes of 64 columns, one of SLAB_TILES per call.
+DENSE_DEPTH = 64
+
+
+def plan_dense_gemm(m: int, n: int, sms: int = H100_SMS) -> SlabPlan:
+    """The tile of one dense-GEMM launch over M rows and N columns, by
+    plan_slab_gemm's rule: the largest tile whose grid has a block for
+    every SM, else the one with the most blocks.  The grid is (column
+    tiles, row tiles, 1): the clips' rows are stacked."""
+    plans = [SlabPlan(bm, bn, (n // bn, -(-m // bm), 1)) for bm, bn in SLAB_TILES if n % bn == 0]
+    if not plans:
+        raise ValueError(f"the dense GEMM needs N % 64 == 0 (got {n})")
+    return next((pl for pl in plans if pl.blocks >= sms), max(plans, key=lambda pl: pl.blocks))
+
+
+def check_dense_gemm(a: torch.Tensor, b: torch.Tensor, m: int, k: int, n: int) -> None:
+    """What the dense GEMM's tensor maps and tiles cannot take: raise.
+    ``a`` holds the (m, k) bf16 A operand at its start, ``b`` is the (k, n)
+    bf16 weight; both contiguous."""
+    if k % DENSE_DEPTH or n % 64:
+        raise ValueError(f"the dense GEMM needs K % {DENSE_DEPTH} == 0 and N % 64 == 0 "
+                         f"(got K={k}, N={n})")
+    if m < 1 or a.numel() < m * k or tuple(b.shape) != (k, n):
+        raise ValueError(f"the dense GEMM needs an (M, K) A with M >= 1 and a (K, N) B "
+                         f"(got M={m}, K={k}, N={n}, A of {a.numel()}, B {tuple(b.shape)})")
+    for name, x in (("A", a), ("B", b)):
+        if x.dtype != _BF16:
+            raise TypeError(f"the dense GEMM needs {name} in bf16 (got {x.dtype})")
+        if x.data_ptr() % 16:
+            raise ValueError(f"the dense GEMM needs {name} 16-byte aligned "
+                             f"(at {x.data_ptr():#x})")
+
+
 def _run(entry: str, device: torch.device, *args) -> None:
     """Launch a C entry on ``device``'s current stream; raise on its error."""
     from aware_tpu_torch.ops.kernels.build import build
@@ -267,8 +303,8 @@ def synth_norm_bwd(g, y2, m1, csin, env, abt):
 
 
 def band_analysis_fwd(y2, csw):
-    """Zero-pad framing + analysis DFT: cs2.  Replaces ``_analysis_kernel``
-    (aware_tpu/ops/pallas/roundtrip.py:254)."""
+    """Zero-pad framing + analysis DFT: cs2, on the sm90 slab GEMM.
+    Replaces ``_analysis_kernel`` (aware_tpu/ops/pallas/roundtrip.py:254)."""
     if y2.device.type == "cpu":
         return band_analysis_fwd_plain(y2, csw)
     b, lr, hop = y2.shape
@@ -277,8 +313,10 @@ def band_analysis_fwd(y2, csw):
     _check_geometry(p2 // 2, hop, csw.shape[0])
     _check("y2", y2, (b, lr, hop), torch.float32, dev)
     _check("csw", csw, (R * hop, p2), _BF16, dev)
+    check_slab_gemm(y2, csw, p2, lr + 1)
+    plan = slab_plan_for(y2, lr + 1, p2)
     cs2 = torch.empty(b, lr + 1, p2, device=dev)
-    _run("aw_band_analysis_fwd", dev, y2, csw, cs2, b, lr + 1, p2, hop)
+    _run("aw_band_analysis_fwd", dev, y2, csw, cs2, b, lr + 1, p2, hop, plan.bm, plan.bn)
     band_analysis_fwd.launches += 1
     return cs2
 

@@ -10,12 +10,13 @@ with a non-zero exit on any error:
 0. the card: nvidia-smi's name and power limit, torch and CUDA versions;
 1. build: nvcc of aware_tpu_torch/csrc into aware_tpu_torch/_build (one
    nvcc per source, started together, then one link), with its seconds and
-   the ptxas register / shared-memory / spill lines; for the sm90 slab GEMM
-   (shift_mm and the band_analysis VJP) the tile, grid, threads, ring
-   stages and dynamic shared memory of each launch the main paths make,
-   each tile's registers at entry, which must be what its setmaxnreg
-   split assumes, and the HGMMA and UTMALDG instructions in its SASS
-   (cuobjdump), none of either failing the run;
+   the ptxas register / shared-memory / spill lines; for the sm90 GEMMs
+   (the slab GEMM of shift_mm, the band_analysis pair and the step's
+   round trip; the dense GEMM of the step's detector products) the tile,
+   grid, threads, ring stages and dynamic shared memory of each launch the
+   main paths make, each instance's registers at entry, which must be what
+   its setmaxnreg split assumes, and the HGMMA and UTMALDG instructions in
+   its SASS (cuobjdump), none of either failing the run;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    main path's operands (B = 8 clips of T = 626 frames, P = 256, hop = 256):
    the round-trip kernels to 1e-3 * max|plain| (float32 sums in another
@@ -41,12 +42,17 @@ with a non-zero exit on any error:
    CUDA events), per-call times from Python, the bound of each, and where
    one PyTorch call computes the same function (band_analysis and
    shift_mm: a 4-tap bf16 conv1d, band_analysis's VJP its
-   conv_transpose1d) that call's device time.  The two sm90 slab-GEMM
-   kernels (shift_mm at each use, the band_analysis VJP) must give the
-   same bits on two launches, and are timed in turns beside their first
-   WMMA versions (aw_*_wmma, held to TOL too, reached by no path), their
-   plain versions and the library call (new, WMMA, plain, library, then
-   the reverse);
+   conv_transpose1d) that call's device time.  The three sm90 slab-GEMM
+   kernels (shift_mm at each use, the band_analysis forward and VJP) must
+   give the same bits on two launches, and are timed in turns beside
+   their first WMMA versions (aw_*_wmma, held to TOL too, reached by no
+   path), their plain versions and the library call (new, WMMA, plain,
+   library, then the reverse).  iteration_step (the sm90 chain) must give
+   the same bits on two launches from one state, each of its 14 GEMMs
+   alone the same bits twice and an rms error against float64 within
+   SUM_TOL of the plain product's; each launch of it and of its first WMMA
+   chain (aw_iteration_step_wmma) is timed beside its bound, and the two
+   chains and the plain version in turns;
 3. main path: load() -> embed_watermark_batch on 8 speech-like 10 s 16 kHz
    clips with random 20-bit messages (400 iterations) -> detect_watermark_
    batch, on the four solver paths: the default (the iteration_step kernel
@@ -162,8 +168,8 @@ def time_ms(torch, fn, reps: int) -> tuple[float, float]:
 
 
 # the GEMM kernels of the kernel paths: the WMMA template's and the sm90
-# slab GEMM's (shift_mm, the band_analysis VJP)
-GEMM_KERNELS = ("shift_gemm", "slab_gemm_sm90")
+# slab and dense GEMMs' (shift_mm, the band_analysis pair, the whole step)
+GEMM_KERNELS = ("shift_gemm", "slab_gemm_sm90", "dense_gemm_sm90")
 
 
 def profile_solve(torch, run, trace: str | None = None, markers=GEMM_KERNELS) -> str:
@@ -185,7 +191,9 @@ def profile_solve(torch, run, trace: str | None = None, markers=GEMM_KERNELS) ->
         prof.export_chrome_trace(trace)
     ours = (*GEMM_KERNELS, "peak_scale", "synth_bwd_scalars", "fold_phase", "in_norm_fwd",
             "mel_norm_fwd", "brh_fwd", "brh_bwd", "in_norm_bwd_stats", "mel_bwd_stats",
-            "reflect_fold", "fold_scalars", "nadam_fold", "best_loss_update", "ola_")
+            "reflect_fold", "fold_scalars", "nadam_fold", "best_loss_update", "ola_",
+            "reim_pass", "reflect_pad", "mag_pass", "mel_norm", "mel_bwd", "fold_partial",
+            "ties_partial", "gcrop_pass")
     kinds = {"our kernels": 0.0, "cuBLAS GEMM": 0.0, "FFT": 0.0, "other": 0.0}
     top = []
     dtoh = 0
@@ -306,80 +314,103 @@ def _library_ms(torch, name, call, ref, quick):
     return None if quick else time_ms(torch, call, REPS)[0]
 
 
-def slab_report(torch, b) -> None:
-    """Phase 1, the sm90 slab GEMM: the tile, grid, threads, ring stages
-    and dynamic shared memory of each launch the main paths make (shift_mm
-    at the long path's three uses, B = 8 x 3751 frames; the band_analysis
-    VJP at B = 8 x 626); each tile's registers at entry, which must be the
-    count its setmaxnreg split assumes (with fewer, its consumers would
-    wait forever); and the HGMMA and UTMALDG instructions in the SASS of
-    its kernels, none of either failing the run.  Without cuobjdump, the
-    wgmma and TMA instructions of its source are counted instead."""
+SM90_EPILOGUES = ("StoreF32", "SlabSynthEpi", "SlabReflectBwdEpi", "DenseStore", "DenseBias",
+                  "DensePhase")
+
+
+def sm90_instance(name: str):
+    """(family, BM, BN, epilogue) of an sm90 GEMM kernel's mangled name, or None."""
+    m = re.search(r"(slab|dense)_gemm_sm90ILi(\d+)ELi(\d+)E", name)
+    if not m:
+        return None
+    epi = next((e for e in SM90_EPILOGUES if e in name), "?")
+    return m.group(1), 64 * int(m.group(2)), int(m.group(3)), epi
+
+
+def sm90_report(torch, b) -> None:
+    """Phase 1, the sm90 GEMMs (slab: shift_mm, band_analysis and the step's
+    round trip; dense: the step's detector products): the tile, grid,
+    threads, ring stages and dynamic shared memory of each launch the main
+    paths make (shift_mm at the long path's three uses, B = 8 x 3751
+    frames; the band_analysis pair and the step's 14 GEMMs at B = 8 x 626);
+    each instance's registers at entry, which must be the count its
+    setmaxnreg split assumes (with fewer, its consumers would wait
+    forever); and the HGMMA and UTMALDG instructions in the SASS of each
+    instance, none of either failing the run.  Without cuobjdump, the
+    wgmma and TMA instructions of the sources are counted instead."""
     import ctypes
     import os
     import pathlib
     import shutil
 
+    from aware_tpu_torch.ops.kernels import iteration as it
     from aware_tpu_torch.ops.kernels import roundtrip as rt
 
-    def config(bm, bn):
+    def config(family, bm, bn):
         threads, stages, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        smem = b.lib.aw_slab_gemm_config(bm, bn, ctypes.byref(threads), ctypes.byref(stages),
-                                         ctypes.byref(regs))
+        fn = b.lib.aw_slab_gemm_config if family == "slab" else b.lib.aw_dense_gemm_config
+        smem = fn(bm, bn, ctypes.byref(threads), ctypes.byref(stages), ctypes.byref(regs))
         return smem, threads.value, stages.value, regs.value
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for call, n_out, e in (("shift_mm, analysis forward (w_af)", 3751, 512),
-                           ("shift_mm, analysis VJP (w_ab)", 3753, 256),
-                           ("shift_mm, synthesis VJP (w_sb)", 3751, 512),
-                           ("band_analysis VJP", 625, 256)):
-        plan = rt.plan_slab_gemm(BATCH, n_out, e, sms)
-        smem, threads, stages, _ = config(plan.bm, plan.bn)
-        say(f"  slab GEMM {call}: n_out {n_out}, E {e}: tile {plan.bm} x {plan.bn}, grid "
+    uses = [(f"shift_mm, {u}", "slab", rt.plan_slab_gemm(BATCH, n_out, e, sms), n_out, e)
+            for u, n_out, e in (("analysis forward (w_af)", 3751, 512),
+                                ("analysis VJP (w_ab)", 3753, 256),
+                                ("synthesis VJP (w_sb)", 3751, 512))]
+    uses += [(f"band_analysis {d}", "slab", rt.plan_slab_gemm(BATCH, n_out, e, sms), n_out, e)
+             for d, n_out, e in (("forward", 626, 512), ("VJP", 625, 256))]
+    uses += [(f"iteration_step {g.name} ({g.kind}, K {g.k})", g.kind, pl, g.rows, g.n)
+             for g, pl in zip(it.step_gemms(BATCH, 626, 256, 256),
+                              it.plan_step(BATCH, 626, 256, 256, sms))]
+    for call, family, plan, rows, e in uses:
+        smem, threads, stages, _ = config(family, plan.bm, plan.bn)
+        say(f"  sm90 GEMM {call}: rows {rows}, N {e}: tile {plan.bm} x {plan.bn}, grid "
             f"{plan.grid} = {plan.blocks} blocks on {sms} SMs, {threads} threads, "
             f"{stages} stages, {smem} B dynamic shared memory")
-    used, tile = {}, None
+    used, inst = {}, None
     for line in b.log.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"slab_gemm_sm90ILi(\d+)ELi(\d+)E", line)
-            tile = (64 * int(m.group(1)), int(m.group(2))) if m else None
-        elif tile and "Used" in line:
-            used[tile] = int(re.search(r"Used (\d+) registers", line).group(1))
-    for bm, bn in rt.SLAB_TILES:
-        want = config(bm, bn)[3]
-        say(f"  slab GEMM {bm} x {bn} tiles: {used.get((bm, bn))} registers at entry, "
-            f"{want} assumed by its setmaxnreg split")
-        if used.get((bm, bn)) != want:
-            raise RuntimeError(f"slab GEMM {bm} x {bn}: {used.get((bm, bn))} registers at "
-                               f"entry, not the {want} its setmaxnreg split assumes")
+            inst = sm90_instance(line)
+        elif inst and "Used" in line:
+            used[inst] = int(re.search(r"Used (\d+) registers", line).group(1))
+            inst = None
+    if not any(k[0] == "dense" for k in used) or not any(k[0] == "slab" for k in used):
+        raise RuntimeError(f"ptxas reported no sm90 GEMM of one family: {sorted(used)}")
+    for (family, bm, bn, epi), regs in sorted(used.items()):
+        want = config(family, bm, bn)[3]
+        say(f"  {family} GEMM {bm} x {bn} tiles, {epi}: {regs} registers at entry, {want} "
+            f"assumed by its setmaxnreg split")
+        if regs != want:
+            raise RuntimeError(f"{family} GEMM {bm} x {bn} {epi}: {regs} registers at entry, "
+                               f"not the {want} its setmaxnreg split assumes")
     ops = ("HGMMA", "UTMALDG")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        src = (pathlib.Path(rt.__file__).resolve().parents[2] / "csrc"
-               / "slab_gemm_sm90.cuh").read_text()
-        say("  no cuobjdump: in csrc/slab_gemm_sm90.cuh, wgmma.mma_async "
-            f"{src.count('wgmma.mma_async')}x, cp.async.bulk.tensor "
-            f"{src.count('cp.async.bulk.tensor')}x")
+        csrc = pathlib.Path(rt.__file__).resolve().parents[2] / "csrc"
+        for name in ("slab_gemm_sm90.cuh", "dense_gemm_sm90.cuh"):
+            text = (csrc / name).read_text()
+            say(f"  no cuobjdump: in csrc/{name}, wgmma.mma_async "
+                f"{text.count('wgmma.mma_async')}x, cp.async.bulk.tensor "
+                f"{text.count('cp.async.bulk.tensor')}x")
         return
     sass = subprocess.run([tool, "-sass", str(b.path)], capture_output=True, text=True,
                           check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            if "slab_gemm_sm90" in fn:
+            fn = sm90_instance(line.split("Function :")[1].strip())
+            if fn:
                 counts[fn] = dict.fromkeys(ops, 0)
         elif fn in counts:
             for op in ops:
                 counts[fn][op] += op in line
-    if not counts:
-        raise RuntimeError("no slab_gemm_sm90 kernel in the library's SASS")
-    for fn, c in counts.items():
-        nwg, bn = map(int, re.search(r"slab_gemm_sm90ILi(\d+)ELi(\d+)E", fn).groups())
-        tile = f"<{nwg}, {bn}> ({64 * nwg} x {bn} tiles)"
-        say(f"  SASS of slab_gemm_sm90{tile}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    if {k[0] for k in counts} != {"slab", "dense"}:
+        raise RuntimeError(f"the library's SASS lacks an sm90 GEMM family: {sorted(counts)}")
+    for (family, bm, bn, epi), c in sorted(counts.items()):
+        tile = f"{family}_gemm_sm90 {bm} x {bn}, {epi}"
+        say(f"  SASS of {tile}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
         if not all(c.values()):
-            raise RuntimeError(f"slab_gemm_sm90 {tile}: no {[op for op in ops if not c[op]]}")
+            raise RuntimeError(f"{tile}: no {[op for op in ops if not c[op]]}")
 
 
 def in_turns(torch, fns: dict) -> dict:
@@ -431,9 +462,245 @@ def slab_turns(torch, name, new, wmma, plain, library, ref, exact, quick) -> dic
     return {k: sum(v) / len(v) for k, v in turns.items()}
 
 
-def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
+def step_work(bsz, t, p, hop, chain) -> list:
+    """Each launch of one iteration_step call, in launch order, as (what,
+    FLOP, bytes), the bytes each input read once and each output written
+    once.  ``chain`` "wmma" is the first chain (aw_iteration_step_wmma:
+    the WMMA loaders build the A operands), "sm90" the TMA + wgmma chain
+    (aw_iteration_step: the pass before each product writes its A)."""
+    lr, t2, p2 = t - 1, t // 2, 2 * p
+    state = bsz * t * p * F32                     # one (B, T, P) f32 tensor
+    re32, re16 = bsz * t * p2 * F32, bsz * t * p2 * BF16
+    rows = bsz * lr * hop * F32                   # one (B, T-1, hop) f32 tensor
+    padded = bsz * (t + 3) * hop * F32            # the reflect-padded rows
+    env, basis, clip = lr * hop * F32, 4 * hop * p2 * BF16, bsz * F32
+    mel32, mel16, mag16 = bsz * t * 128 * F32, bsz * t * 128 * BF16, bsz * t * p * BF16
+
+    def h32(c):
+        return bsz * t2 * c * F32
+
+    def h16(c):
+        return bsz * t2 * c * BF16
+
+    def stats(c):
+        return bsz * c * F32
+
+    sm90 = chain == "sm90"
+    slab = 2 * bsz * t * p2 * 4 * hop             # a round-trip product's FLOP
+    if sm90:
+        out = [("reim = ct csin (f32), m1 = 0", 0, state + re16 + re32 + clip),
+               ("synthesis: slab + SynthEpi", slab, re32 + basis + env + 2 * rows + clip),
+               ("reflect-padded y2 = u / cden", 0, rows + clip + padded),
+               ("reflect analysis: slab", slab, padded + basis + re32),
+               ("bf16 |cs|, nph", 0, re32 + re16 + mag16),
+               ("mel: dense", 2 * bsz * t * p * 128, mag16 + p * 128 * BF16 + mel32),
+               ("mel norm 1: channel sums, bf16 mel", 0, mel32 + mel16),
+               ("mel norm 2: channel variances", 0, mel32),
+               ("mel norm 3: sum of a", 0, mel32),
+               ("mel norm 4: sum of (a - gmu)^2", 0, mel32),
+               ("mel norm 5: the pool's bf16 A", 0,
+                mel32 + h16(128) + 2 * stats(128) + 3 * clip)]
+    else:
+        out = [("memset m1", 0, clip),
+               ("synthesis: SynthA, SynthEpi", slab, state + re16 + basis + env + 2 * rows + clip),
+               ("reflect analysis: ReflectA", slab, rows + clip + basis + re32),
+               ("mel: MagA", 2 * bsz * t * p * 128, re32 + re16 + p * 128 * BF16 + mel32),
+               ("mel_norm_fwd", 0, mel32 + mel16 + 2 * stats(128) + 3 * clip)]
+    ch = (128, 512, 1024, 1024, 128)
+    for i in range(4):
+        cin, cout = ch[i], ch[i + 1]
+        if sm90:
+            a, how = h16(cin), "dense"
+        elif i == 0:
+            a, how = mel32 + 2 * stats(128) + 2 * clip, "PoolA"
+        else:
+            a, how = h32(cin) + 2 * stats(cin), "NormLeakyA"
+        out.append((f"conv {i} ({cin} -> {cout}): {how}", 2 * bsz * t2 * cin * cout,
+                    a + cin * cout * BF16 + cout * F32 + h32(cout)))
+        nxt = h16(cout) if sm90 and i < 3 else 0
+        out.append((f"in_norm_fwd {cout}" + (" + the next bf16 A" if nxt else ""), 0,
+                    h32(cout) + h16(cout) + 2 * stats(cout) + nxt
+                    + (stats(128) if i == 3 else 0)))
+    out.append(("brh_fwd", 2 * bsz * 128 * 128, 2 * stats(128) + 128 * 128 * F32))
+    out.append(("brh_bwd (loss, gradient)", 2 * bsz * 128 * 128,
+                4 * stats(128) + 128 * 128 * F32 + clip))
+    for i in range(3, -1, -1):
+        cin, cout = ch[i], ch[i + 1]
+        dx = stats(128) if i == 3 else h32(cout)
+        out.append((f"in_norm_bwd_stats {cout}" + (" + bf16 dh" if sm90 else ""), 0,
+                    dx + h16(cout) + 2 * stats(cout) + (stats(cout) + h16(cout) if sm90 else 0)))
+        a = h16(cout) if sm90 else dx + h16(cout) + 3 * stats(cout)
+        out.append((f"conv {i} VJP ({cout} -> {cin}): " + ("dense" if sm90 else "NormBwdA"),
+                    2 * bsz * t2 * cout * cin, a + cout * cin * BF16 + h32(cin)))
+    mel_in = h32(128) + mel16 + 2 * stats(128) + 3 * clip
+    if sm90:
+        out += [("mel VJP stats 1: clip sums", 0, mel_in),
+                ("mel VJP stats 2: channel sums", 0, mel_in),
+                ("mel VJP stats 3: the mel VJP's bf16 A", 0, mel_in + mel16)]
+    else:
+        out.append(("mel_bwd_stats", 0, mel_in + 2 * stats(128) + 2 * clip))
+    out.append(("mel VJP: " + ("dense + PhaseEpi" if sm90 else "MelBwdA, PhaseEpi"),
+                2 * bsz * t * 128 * p,
+                (mel16 if sm90 else mel_in + 2 * stats(128) + 2 * clip)
+                + 128 * p * BF16 + re16 + re32))
+    out.append(("reflect analysis VJP" + (": slab + ReflectBwdEpi" if sm90 else ""),
+                2 * bsz * (t + 3) * hop * 4 * p2, re32 + basis + rows + bsz * 4 * hop * F32))
+    if sm90:
+        out += [("reflect fold, q and max partials", 0,
+                 2 * bsz * 4 * hop * F32 + 2 * rows + clip),
+                ("ties partials", 0, rows + clip),
+                ("scalars, gcrop = peak-norm VJP / env", 0, 3 * rows + env + 5 * clip),
+                ("synthesis VJP: slab", slab, rows + basis + re32)]
+    else:
+        out += [("fold_scalars", 0, 2 * bsz * 4 * hop * F32 + 2 * rows + 5 * clip),
+                ("synthesis VJP: SynthBwdA", slab, 2 * rows + env + 4 * clip + basis + re32)]
+    out.append(("nadam_fold", 0, re32 + re16 + 9 * state + 4 * clip + F32))
+    out.append(("best_loss_update", 0, 3 * clip))
+    return out
+
+
+def launch_table(torch, label, call, work, reps=5) -> list:
+    """Each launch of one call of a chain of kernels: device us (the
+    torch.profiler rows of ``reps`` calls, in launch order, each
+    position's mean) beside its bound from ``work`` (step_work's list).
+    Prints the table; returns [(what, kernel, us, bound us)]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    evs = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+                  and ev.time_range.end > ev.time_range.start),
+                 key=lambda ev: ev.time_range.start)
+    n = len(work)
+    if len(evs) != reps * n:
+        raise RuntimeError(f"{label}: {len(evs)} device rows for {reps} calls of {n} launches")
+    rows = []
+    for i, (what, flops, nbytes) in enumerate(work):
+        us = sum(evs[r * n + i].time_range.end - evs[r * n + i].time_range.start
+                 for r in range(reps)) / reps
+        name = re.sub(r"\(anonymous namespace\)::|void |\(.*", "", evs[i].name)[:56]
+        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e6
+        rows.append((what, name, us, bound))
+    say(f"  {label}: {n} launches, {sum(r[2] for r in rows):.1f} us of device time per call "
+        f"(torch.profiler rows, mean of {reps} calls), bound {sum(r[3] for r in rows):.2f} us")
+    for i, (what, name, us, bound) in enumerate(rows):
+        say(f"    {i:2d} {what:<40s} {us:9.2f} us  bound {bound:7.3f} us  {name}")
+    return rows
+
+
+def step_gemm_checks(torch, it, c, bsz, t, p, hop, rng) -> None:
+    """Each of the step's 14 GEMMs alone, on its planned tile through the
+    generic entries (aw_slab_gemm, aw_dense_gemm: the step's kernels with a
+    plain store), with the step's weights and a random A at the step's
+    shapes: the same bits on two launches, and the rms error against a
+    float64 product of the same bf16 operands within SUM_TOL times the
+    plain float32 product's."""
+    import torch.nn.functional as F
+
+    from aware_tpu_torch.ops.kernels import roundtrip as rt
+
+    dev = c.env.device
+    plans = it.plan_step(bsz, t, p, hop, torch.cuda.get_device_properties(0).multi_processor_count)
+    # the slab GEMMs' weights and geometry: (w, rows of A, k_row, k_col, dir, pad)
+    slab = {"synthesis": (c.ab, t, 0, hop, -1, 2),
+            "reflect analysis": (c.csw, t + 3, hop, 0, +1, 0),
+            "reflect analysis VJP": (c.cswt, t, 0, hop, -1, 0),
+            "synthesis VJP": (c.abt, t - 1, hop, 0, +1, 2)}
+    dense_w = [c.det.melb, c.det.w0t, c.det.w1t, c.det.w2t, c.det.w3t,
+               c.det.w3, c.det.w2, c.det.w1, c.det.w0, c.det.melbt]
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)
+
+    for g, pl in zip(it.step_gemms(bsz, t, p, hop), plans):
+        if g.kind == "slab":
+            w, n_src, k_row, k_col, dr, pad = slab[g.name]
+            a = rand(bsz, n_src, g.k)
+            out = torch.empty(bsz, g.rows, g.n, device=dev)
+            args = ("aw_slab_gemm", dev, a, w, out, bsz, n_src, g.k, w.shape[0], w.shape[1],
+                    g.rows, g.n, k_row, k_col, dr, pad, pl.bm, pl.bn)
+
+            def prod(dtype, a=a, w=w, k_row=k_row, k_col=k_col, dr=dr, pad=pad, g=g):
+                ab = F.pad(a.to(torch.bfloat16).to(dtype), (0, 0, 8, g.rows + 8))
+                wd = w.to(dtype)
+                return sum(ab[:, 8 + dr * (k - pad): 8 + dr * (k - pad) + g.rows]
+                           @ wd[k * k_row: k * k_row + g.k, k * k_col: k * k_col + g.n]
+                           for k in range(rt.R))
+        else:
+            w = dense_w.pop(0)
+            a = rand(g.rows, g.k).to(torch.bfloat16)
+            out = torch.empty(g.rows, g.n, device=dev)
+            args = ("aw_dense_gemm", dev, a, w, out, g.rows, g.k, g.n, pl.bm, pl.bn)
+
+            def prod(dtype, a=a, w=w):
+                return a.to(dtype) @ w.to(dtype)
+        rt._run(*args)
+        first = out.clone()
+        rt._run(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(first, out):
+            raise RuntimeError(f"step GEMM {g.name}: two launches gave different bits")
+        ex = prod(torch.float64)
+        rms = {k: float((v.double() - ex).pow(2).mean().sqrt() / ex.abs().max())
+               for k, v in (("new", out), ("plain", prod(torch.float32)))}
+        say(f"  step GEMM {g.name} ({g.kind}, {g.rows} rows, K {g.k}, N {g.n}, tile "
+            f"{pl.bm} x {pl.bn}): rms error / max|float64| new {rms['new']:.3e}, plain "
+            f"{rms['plain']:.3e}; the same bits on two launches")
+        if rms["new"] > SUM_TOL * rms["plain"]:
+            raise RuntimeError(f"step GEMM {g.name}: rms error {rms['new']:.3e} over {SUM_TOL} x "
+                               f"the plain product's {rms['plain']:.3e}")
+
+
+def step_checks(torch, it, states, step_args, bufs, bsz, t, p, hop, rng, quick) -> dict:
+    """Row 11 beyond agreement.check_iteration: the sm90 chain repeats bit
+    for bit from the same state; each of its GEMMs alone
+    (step_gemm_checks); each launch of it and of its first WMMA chain
+    (aw_iteration_step_wmma, reached by no path) timed beside its bound
+    (launch_table); then (not ``quick``) the two chains and the plain
+    version timed in turns (new, WMMA, plain, then reversed).  Returns the
+    record's ms, wmma_ms and plain_ms, each the mean of two readings."""
+    st_k, st_p = states
+    outs = []
+    for _ in range(2):
+        state = [x.clone() for x in st_k]
+        loss = it.iteration_step(*state, *step_args, bufs).clone()
+        torch.cuda.synchronize()
+        outs.append([*state, loss, bufs.scratch.big.clone()])
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise RuntimeError("iteration_step: two launches from the same state gave different bits")
+    say("  iteration_step: two launches from the same state gave the same bits "
+        "(ct, m, v, best, best_loss, loss, dreim)")
+    step_gemm_checks(torch, it, step_args[6], bsz, t, p, hop, rng)
+    bufs_w = it.step_buffers(bsz, t, 2 * p, hop, st_k[0].device)
+    st_w = [x.clone() for x in st_k]
+    fns = {"ms": lambda: it.iteration_step(*st_k, *step_args, bufs),
+           "wmma_ms": lambda: it._iteration_step_wmma(*st_w, *step_args, bufs_w),
+           "plain_ms": lambda: it.iteration_step_plain(*st_p, *step_args)}
+    launch_table(torch, "iteration_step per launch (sm90 chain, aw_iteration_step)", fns["ms"],
+                 step_work(bsz, t, p, hop, "sm90"))
+    launch_table(torch, "iteration_step per launch (WMMA chain, aw_iteration_step_wmma)",
+                 fns["wmma_ms"], step_work(bsz, t, p, hop, "wmma"))
+    if quick:
+        return {"wmma_ms": None}
+    turns = in_turns(torch, fns)
+    say("  iteration_step in turns (sm90 chain, WMMA chain, plain, then reversed), device ms: "
+        + "; ".join(f"{k} {v[0]:.5f} {v[1]:.5f}" for k, v in turns.items())
+        + f"; per call from Python (checks and launches included): sm90 chain "
+        f"{time_ms(torch, fns['ms'], REPS)[1]:.5f} ms")
+    return {k: sum(v) / len(v) for k, v in turns.items()}
+
+
+def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool) -> dict:
     """Phase 2: each kernel against its plain version on the main path's
-    operands; returns one record per kernel."""
+    operands (random cotangents from ``rng``; the step's GEMMs alone on
+    operands from ``gemm_rng``, a generator of their own, so that the
+    later phases' data do not depend on them); returns one record per
+    kernel."""
     from aware_tpu_torch.ops.kernels import agreement as ag
     from aware_tpu_torch.ops.kernels import analysis_detector as tad
     from aware_tpu_torch.ops.kernels import detector as td
@@ -523,7 +790,7 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
         "band_analysis_fwd": (
             lambda: rt.band_analysis_fwd(y2, pb.csw),
             lambda: rt.band_analysis_fwd_plain(y2, pb.csw),
-            _close, rt_src, "aware_tpu/ops/pallas/roundtrip.py:254",
+            _close, slab_src, "aware_tpu/ops/pallas/roundtrip.py:254",
             ana_flops, y2_bytes + basis + cs_bytes,
         ),
         "band_analysis_bwd": (
@@ -571,7 +838,7 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
         "iteration_step": (
             lambda: it.iteration_step(*st_k, *step_args, bufs),
             lambda: it.iteration_step_plain(*st_p, *step_args),
-            None, it_src, "aware_tpu/ops/pallas/iteration.py:513",
+            None, "aware_tpu_torch/csrc/iteration_sm90.cu", "aware_tpu/ops/pallas/iteration.py:513",
             it_fwd_flops + it_bwd_flops, it_step_bytes,
         ),
     }
@@ -588,8 +855,18 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
         "band_analysis_fwd": lambda: F.conv1d(y2_t, csw_w, padding=rt.PAD),
         "band_analysis_bwd": lambda: F.conv_transpose1d(g_t, cswt_w, padding=rt.PAD),
     }
-    # the VJP's first WMMA version, which no path reaches, for the turns
+    # the analysis's first WMMA versions, which no path reaches, for the turns
+    cs2_wmma = torch.empty(bsz, t, 2 * p, device=dev)
     gy2_wmma = torch.empty(bsz, lr, hop, device=dev)
+
+    def fwd_wmma():
+        rt._run("aw_band_analysis_fwd_wmma", dev, y2, pb.csw, cs2_wmma, bsz, t, 2 * p, hop)
+        return cs2_wmma
+
+    def fwd_exact():
+        yd = F.pad(y2, (0, 0, rt.PAD, rt.R - rt.PAD)).to(torch.bfloat16).double()
+        cd = pb.csw.double()
+        return sum(yd[:, k : k + t] @ cd[k * hop : (k + 1) * hop] for k in range(rt.R))
 
     def vjp_wmma():
         rt._run("aw_band_analysis_bwd_wmma", dev, g_cs, pb.cswt, gy2_wmma, bsz, t, 2 * p, hop)
@@ -600,7 +877,7 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
         return sum(F.pad(gd @ cd[:, k * hop : (k + 1) * hop], (0, 0, k, rt.R - 1 - k))
                    for k in range(rt.R))[:, rt.PAD : rt.PAD + lr]
 
-    wmma = {"band_analysis_bwd": (vjp_wmma, vjp_exact)}
+    wmma = {"band_analysis_fwd": (fwd_wmma, fwd_exact), "band_analysis_bwd": (vjp_wmma, vjp_exact)}
     records = {}
     for name, (kern, plain, close, source, replaces, flops, nbytes) in cases.items():
         out_k = kern()
@@ -624,12 +901,15 @@ def check_kernels(torch, pb, hop, rng, quick: bool) -> dict:
         elif name in library:
             ref = out_p[0] if isinstance(out_p, tuple) else out_p
             rec["library_ms"] = _library_ms(torch, name, library[name], ref, quick)
-        if not quick and name not in wmma:
+        if name == "iteration_step":
+            rec.update(step_checks(torch, it, (st_k, st_p), step_args, bufs, bsz, t, p, hop,
+                                   gemm_rng, quick))
+        elif not quick and name not in wmma:
             rec["ms"], call_k = time_ms(torch, kern, REPS)
             rec["plain_ms"], call_p = time_ms(torch, plain, REPS)
             call = (call_k, call_p)
         records[name] = rec
-        wmma_ms = f" WMMA version device ms {rec['wmma_ms']}" if name in wmma else ""
+        wmma_ms = f" WMMA version device ms {rec['wmma_ms']}" if "wmma_ms" in rec else ""
         say(
             f"phase 2 kernel {name}: max_abs_err {err:.3e} device ms {rec['ms']}{wmma_ms} "
             f"plain device ms {rec['plain_ms']} library device ms {rec['library_ms']} "
@@ -1013,7 +1293,7 @@ def main() -> int:
     for line in b.log.splitlines():
         if any(k in line for k in ("registers", "Compiling entry", "spill", "(C75")):
             say("  " + line.strip())
-    slab_report(torch, b)
+    sm90_report(torch, b)
 
     # ---- phase 2: kernels vs plain on the main path's shapes
     dev = torch.device("cuda")
@@ -1028,7 +1308,8 @@ def main() -> int:
     pb = build_problem(det.net, x, wm, cfg)
     if pb.path != "iteration_step":
         raise RuntimeError(f"the default card took the {pb.path} path, not iteration_step")
-    records = check_kernels(torch, pb, cfg.hop_length, rng, args.quick)
+    records = check_kernels(torch, pb, cfg.hop_length, rng,
+                            np.random.default_rng([args.seed, 11]), args.quick)
     del pb
     # the long path's kernels on its operands: 8 clips of 60 s, from a
     # generator of their own, so that the other phases' data do not depend

@@ -14,9 +14,11 @@ aware_tpu_torch/ops/kernels/agreement.py (which says why they are what
 they are); the whole-iteration kernels by agreement.check_iteration;
 ola_normalize to the JAX suite's tolerances for it (forward atol/rtol
 1e-6, VJP atol 1e-5 rtol 1e-4), with a silent lane and a tie probe; the
-sm90 slab GEMM (shift_mm at its three uses, the band_analysis VJP) on
-each tile it can take, to 1e-3 * max|plain|, bit for bit over two
-launches, and its wrapper checks.
+sm90 slab GEMM (shift_mm at its three uses, the band_analysis forward and
+VJP) on each tile it can take, to 1e-3 * max|plain|, bit for bit over two
+launches, and its wrapper checks; the sm90 dense GEMM of the whole step on
+each tile, to the same bound against the float32 product of its bf16
+operands, and the whole step bit for bit over two launches from one state.
 """
 
 import numpy as np
@@ -405,6 +407,55 @@ def test_slab_gemm_band_analysis_vjp_matches_plain_on_every_tile(cuda, t):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 97, 626])
+def test_slab_gemm_band_analysis_forward_matches_plain_on_every_tile(cuda, t):
+    d = _data(t, cuda)
+    y2 = d["g_y2"]
+    ref = rt.band_analysis_fwd_plain(y2, d["csw"])
+    before = rt.band_analysis_fwd.launches
+    _close(rt.band_analysis_fwd(y2, d["csw"]), ref)
+    for bm, bn in rt.SLAB_TILES:
+        out = torch.full((B, t, 512), float("nan"), device=cuda)
+        rt._run("aw_band_analysis_fwd", cuda, y2, d["csw"], out, B, t, 512, HOP, bm, bn)
+        _close(out, ref)
+    torch.cuda.synchronize()
+    assert rt.band_analysis_fwd.launches - before == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n", [(8 * 313, 1024, 128), (3 * 48, 512, 1024), (7, 128, 256)])
+def test_dense_gemm_matches_plain_on_every_tile(cuda, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    a = torch.as_tensor(rng.standard_normal((m, k)).astype(np.float32), device=cuda)
+    w = torch.as_tensor(rng.standard_normal((k, n)).astype(np.float32) / 16, device=cuda)
+    a, w = a.to(torch.bfloat16), w.to(torch.bfloat16)
+    ref = a.float() @ w.float()
+    for bm, bn in rt.SLAB_TILES:
+        out = torch.full((m, n), float("nan"), device=cuda)
+        rt._run("aw_dense_gemm", cuda, a, w, out, m, k, n, bm, bn)
+        _close(out, ref)
+        again = out.clone()
+        rt._run("aw_dense_gemm", cuda, a, w, out, m, k, n, bm, bn)
+        assert torch.equal(again, out)
+
+
+@pytest.mark.gpu
+def test_iteration_step_repeats_bit_for_bit(cuda):
+    ct, c, wm, _ = _iter_inputs(97, cuda)
+    s = torch.full((B,), 0.1, device=cuda)
+    bufs = it.step_buffers(B, 97, 512, HOP, cuda)
+    outs = []
+    for _ in range(2):
+        state = [ct.clone(), torch.zeros_like(ct), torch.zeros_like(ct), ct.clone(),
+                 torch.full((B,), float("inf"), device=cuda)]
+        loss = it.iteration_step(*state, ct - 1, ct + 1, wm, s, s,
+                                 torch.full((1,), 1e-3, device=cuda), c, it.nadam_coefs(), bufs)
+        outs.append([*state, loss.clone(), bufs.scratch.big.clone()])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
+
+
+@pytest.mark.gpu
 def test_slab_gemm_kernels_repeat_bit_for_bit(cuda):
     d = _tiled_data(1281, cuda)
     for x, w, n_out in _slab_uses(d, 1281):
@@ -412,6 +463,8 @@ def test_slab_gemm_kernels_repeat_bit_for_bit(cuda):
     d = _data(626, cuda)
     assert torch.equal(rt.band_analysis_bwd(d["g_cs"], d["cswt"]),
                        rt.band_analysis_bwd(d["g_cs"], d["cswt"]))
+    assert torch.equal(rt.band_analysis_fwd(d["g_y2"], d["csw"]),
+                       rt.band_analysis_fwd(d["g_y2"], d["csw"]))
 
 
 @pytest.mark.gpu
@@ -434,7 +487,13 @@ def test_slab_gemm_wrappers_reject_what_the_kernels_do_not_take(cuda):
     g_moved.copy_(g)
     with pytest.raises(ValueError):
         rt.band_analysis_bwd(g_moved, _data(97, cuda)["cswt"])
+    y_moved = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    y_moved.copy_(x)
+    before_fwd = rt.band_analysis_fwd.launches
+    with pytest.raises(ValueError):
+        rt.band_analysis_fwd(y_moved, _data(300, cuda)["csw"])
     assert (rtt.shift_mm.launches, rt.band_analysis_bwd.launches) == before
+    assert rt.band_analysis_fwd.launches == before_fwd
 
 
 def _ola_data(t, device, batch=B):

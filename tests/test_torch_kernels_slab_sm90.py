@@ -15,7 +15,11 @@ smallest); output rows at or past n_out are masked.  That walk is held:
   planner can choose;
 * at the band_analysis VJP's geometry (dir -1, pad 2) against
   ``band_analysis_bwd_plain`` and the VJP of the JAX ``band_analysis``
-  (``jax.vjp``, interpret mode), at T = 8, 40 and 97 with B = 3.
+  (``jax.vjp``, interpret mode), at T = 8, 40 and 97 with B = 3;
+* at the band_analysis forward's geometry (dir +1, pad 2, the weight
+  slabs csw[k hop:(k+1) hop, :]) against ``band_analysis_fwd_plain`` and
+  the JAX ``band_analysis`` (interpret mode), at T = 8, 40 and 97 with
+  B = 3, on the tile the planner chooses.
 
 Tolerances, relative to max|ref|: 1e-5 against the plain versions and the
 JAX forward (the same bf16 operands, float32 sums in another order); 1e-4
@@ -144,6 +148,30 @@ def test_tile_walk_holds_band_analysis_vjp(t):
     for i in range(B):
         ref = _jax_analysis_vjp(y, csw_j, cswt_j, jnp.asarray(g[i]))
         assert _rel_err(ours[i], ref) <= 1e-4
+
+
+@jax.jit
+def _jax_analysis(y, csw, cswt):
+    return jrt.band_analysis(y, csw, cswt)
+
+
+@pytest.mark.parametrize("t", [8, 40, 97])
+def test_tile_walk_holds_band_analysis_forward(t):
+    """Output row i reads y2 rows i - 2, i - 1, i and i + 1: rows -2, -1
+    and T - 1 of each clip are zero."""
+    rng = np.random.default_rng(2000 + t)
+    csw_np = (rng.standard_normal((N_FFT, 2 * P)) / 16).astype(np.float32)
+    y2 = rng.standard_normal((B, t - 1, HOP)).astype(np.float32)
+    csw = torch.from_numpy(csw_np).to(torch.bfloat16)
+    csw_f = csw.float()
+    plan = rt.plan_slab_gemm(B, t, 2 * P)
+    ours = tile_walk(torch.from_numpy(y2), lambda k: csw_f[k * HOP : (k + 1) * HOP], t, 2 * P,
+                     +1, 2, plan.bm, plan.bn)
+    assert _rel_err(ours, rt.band_analysis_fwd_plain(torch.from_numpy(y2), csw)) <= 1e-5
+    csw_j = jnp.asarray(csw_np, jnp.bfloat16)
+    cswt_j = jnp.asarray(csw_np.T.copy(), jnp.bfloat16)
+    for i in range(B):
+        assert _rel_err(ours[i], _jax_analysis(jnp.asarray(y2[i]), csw_j, cswt_j)) <= 1e-5
 
 
 @pytest.mark.parametrize("batch, n_out, e", [
