@@ -5,7 +5,9 @@
 //   aw_iteration_fwd  <- iteration_forward forward (_iter_fwd_impl :173,
 //                        _iter_fwd_kernel :72)
 //   aw_iteration_bwd  <- iteration_forward VJP (_iter_bwd_impl :285,
-//                        _iter_bwd_kernel :193)
+//                        _iter_bwd_kernel :193): in iteration_sm90.cu, the
+//                        backward half of the sm90 step; its first chain
+//                        stays here as aw_iteration_bwd_wmma
 //   aw_iteration_step <- iteration_step (pallas_call :513, _step_kernel :341):
 //                        in iteration_sm90.cu, on TMA + wgmma; its first
 //                        chain stays here as aw_iteration_step_wmma
@@ -43,12 +45,12 @@
 //        GEMM, whose loader forms y2 = u / cden as it stages it (no
 //        peak_scale pass, no y2 in memory); the 11 launches of the detector
 //        forward;
-//   bwd  (15 launches): the 11 of the detector backward; the transposed
-//        analysis GEMM (pad rows' cotangents to a small scratch); ONE
-//        per-clip kernel that folds the pad rows into the six boundary rows
-//        and then reduces q = sum gy2 y2, max |y2| and its ties (two
-//        launches in the two-kernel chain); the synthesis-VJP GEMM; the
-//        phase fold;
+//   bwd  (15 launches, aw_iteration_bwd_wmma): the 11 of the detector
+//        backward; the transposed analysis GEMM (pad rows' cotangents to a
+//        small scratch); ONE per-clip kernel that folds the pad rows into
+//        the six boundary rows and then reduces q = sum gy2 y2, max |y2|
+//        and its ties (two launches in the two-kernel chain); the
+//        synthesis-VJP GEMM; the phase fold;
 //   step (29 launches + 1 memset, aw_iteration_step_wmma): fwd, bwd with
 //        the loss in brh_bwd, and the NAdam epilogue in place of the phase
 //        fold, then best_loss.
@@ -148,29 +150,19 @@ int aw_iteration_fwd(void* const* ptrs, int n, int batch, int t, int p, int hop,
   return (int)cudaGetLastError();
 }
 
-// ptrs (41): g (B, 128) f32; the forward's 16 residuals, u and m1; csin,
-// env, abt, cswt (RoundConsts); w0..w3, eot, melbt (the detector's backward
-// constants) -> dct (B, T, P) f32; then the 11 scratch buffers.
-int aw_iteration_bwd(void* const* ptrs, int n, int batch, int t, int p, int hop,
-                     void* stream) {
+// ptrs (41, BwdArgs).  The first WMMA chain of the VJP, which
+// aw_iteration_bwd (iteration_sm90.cu) replaced; no wrapper reaches it:
+// chip_smoke.py times the two in turns.
+int aw_iteration_bwd_wmma(void* const* ptrs, int n, int batch, int t, int p, int hop,
+                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Ptrs a{ptrs, n, 0};
-  const float* g = a.next<const float>();
-  const DetRes r = take_res(a);
-  const float* u = a.next<const float>();
-  const float* m1 = a.next<const float>();
-  RoundConsts c{};
-  c.csin = a.next<const bf16>();
-  c.env = a.next<const float>();
-  c.abt = a.next<const bf16>();
-  c.cswt = a.next<const bf16>();
-  const DetBwdConsts dc = take_det_bwd(a);
-  float* dct = a.next<float>();
-  const IterScratch w = take_scratch(a);
+  const BwdArgs s = take_bwd(a);
   if (!a.done()) return (int)cudaErrorInvalidValue;
-  iteration_bwd_chain(g, nullptr, nullptr, r, u, m1, c, dc, w, batch, t, p, hop, st);
+  iteration_bwd_chain(s.g, nullptr, nullptr, s.r, s.u, s.m1, s.c, s.dc, s.w, batch, t, p, hop,
+                      st);
   const long long rows = (long long)batch * t;
-  fold_phase<<<elementwise_blocks(rows * p), 256, 0, st>>>(w.big, c.csin, dct, rows, p);
+  fold_phase<<<elementwise_blocks(rows * p), 256, 0, st>>>(s.w.big, s.c.csin, s.dct, rows, p);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
-// What iteration.cu (the WMMA chains: aw_iteration_fwd, aw_iteration_bwd,
-// aw_iteration_step_wmma) and iteration_sm90.cu (the TMA + wgmma chain:
-// aw_iteration_step) share: the reading of the pointer table their C
+// What iteration.cu (the WMMA chains: aw_iteration_fwd,
+// aw_iteration_bwd_wmma, aw_iteration_step_wmma) and iteration_sm90.cu (the
+// TMA + wgmma chains: aw_iteration_step, aw_iteration_bwd) share: the reading of the pointer table their C
 // entries take, the round trip's constants, the scratch, and the step's
 // NAdam / clamp / best epilogue.  What they compute: iteration.cu.
 
@@ -98,6 +98,37 @@ IterScratch take_scratch(Ptrs& a) {
                  &w.small, &w.clip2, &w.gy2, &w.gpad, &w.scal};
   for (float** q : f) *q = a.next<float>();
   return w;
+}
+
+// The VJP's pointer table (41), as aw_iteration_bwd and
+// aw_iteration_bwd_wmma take it: g (B, 128) f32; the forward's 16
+// residuals, u and m1; csin, env, abt, cswt (RoundConsts); w0..w3, eot,
+// melbt (the detector's backward constants) -> dct (B, T, P) f32; then the
+// 11 scratch buffers.
+struct BwdArgs {
+  const float* g;
+  DetRes r;
+  const float *u, *m1;
+  RoundConsts c;
+  DetBwdConsts dc;
+  float* dct;
+  IterScratch w;
+};
+
+BwdArgs take_bwd(Ptrs& a) {
+  BwdArgs s{};
+  s.g = a.next<const float>();
+  s.r = take_res(a);
+  s.u = a.next<const float>();
+  s.m1 = a.next<const float>();
+  s.c.csin = a.next<const bf16>();
+  s.c.env = a.next<const float>();
+  s.c.abt = a.next<const bf16>();
+  s.c.cswt = a.next<const bf16>();
+  s.dc = take_det_bwd(a);
+  s.dct = a.next<float>();
+  s.w = take_scratch(a);
+  return s;
 }
 
 // The step's pointer table (61), as aw_iteration_step and

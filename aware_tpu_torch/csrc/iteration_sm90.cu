@@ -1,8 +1,11 @@
 // The whole solver step for Hopper (sm_90a) on TMA and wgmma: the port's
-// aw_iteration_step.
+// aw_iteration_step, and its backward half alone as aw_iteration_bwd.
 //
 //   aw_iteration_step <- aware_tpu/ops/pallas/iteration.py iteration_step
 //                        (pallas_call :513, _step_kernel :341)
+//   aw_iteration_bwd  <- the iteration_forward VJP (pallas_call :285,
+//                        _iter_bwd_kernel :193): the step's backward half
+//                        from a given g, then the phase fold
 //
 // It computes what the first chain, aw_iteration_step_wmma (iteration.cu,
 // which says what a step is), computes, with the same pointer table, the
@@ -44,7 +47,12 @@
 // reflect pad; analysis; |cs| and nph; mel; 5 mel-norm stages; 4 x (conv,
 // in_norm_fwd); brh_fwd; brh_bwd; 4 x (in_norm_bwd_stats, conv VJP); 3 mel
 // VJP statistics stages; mel VJP; analysis VJP; 2 fold and scalar stages;
-// gcrop; synthesis VJP; nadam_fold; best_loss_update: 40.
+// gcrop; synthesis VJP; nadam_fold; best_loss_update: 40.  The chain is
+// two halves (step_fwd: 20 launches, step_bwd: 18) and the epilogue;
+// aw_iteration_bwd is step_bwd from g, reading only the residuals, then
+// fold_phase: 19 launches.  Its first chain, aw_iteration_bwd_wmma
+// (iteration.cu, 15 launches on the WMMA template), measured 1.62 ms at
+// B = 8, T = 626 (PERF.md), 81x its 0.020 ms bound.
 
 #include "dense_gemm_sm90.cuh"
 #include "iteration.cuh"
@@ -66,10 +74,12 @@ struct StepOps {
   float* part;
 };
 
-// The planned tiles, (bm, bn) per GEMM in launch order.
-enum Gemm {
-  gSynth, gAnalysis, gMel, gConv0, gConv1, gConv2, gConv3,
-  gConv3Vjp, gConv2Vjp, gConv1Vjp, gConv0Vjp, gMelVjp, gAnalysisVjp, gSynthVjp, gGemms
+// The planned tiles, (bm, bn) per GEMM in launch order: the forward
+// half's seven, then the backward half's (the step takes both lists in
+// one array, aw_iteration_bwd the second).
+enum FwdGemm { gSynth, gAnalysis, gMel, gConv0, gConv1, gConv2, gConv3, gFwdGemms };
+enum BwdGemm {
+  gConv3Vjp, gConv2Vjp, gConv1Vjp, gConv0Vjp, gMelVjp, gAnalysisVjp, gSynthVjp, gBwdGemms
 };
 
 // The sum (or max) over a kRedBlock block in a fixed order: every thread
@@ -89,30 +99,6 @@ __device__ float block_reduce(float v, float* sh) {
 }
 
 // ------------------------------------------------- slab GEMM epilogues ---
-
-// The synthesis: u = acc / env + y_const, written out; |u| for m1's bits.
-// env and y_const come through the read-only path (__ldg), which lets the
-// compiler issue a step's loads ahead of the previous step's store to u
-// (plain loads may not pass a store that could alias them).
-struct SlabSynthEpi {
-  static constexpr bool kMax = true;
-  float* u;
-  const float* env;
-  const float* y_const;
-  unsigned int* max_bits;
-  int lr;
-  int hop;
-  __device__ float operator()(int b, int row, int col, float v0, float v1) const {
-    const long long e = (long long)row * hop + col;
-    const long long i = (long long)b * lr * hop + e;
-    const float2 ev = __ldg(reinterpret_cast<const float2*>(env + e));
-    const float2 yc = __ldg(reinterpret_cast<const float2*>(y_const + i));
-    const float u0 = v0 / ev.x + yc.x;
-    const float u1 = v1 / ev.y + yc.y;
-    *reinterpret_cast<float2*>(u + i) = make_float2(u0, u1);
-    return fmaxf(fabsf(u0), fabsf(u1));
-  }
-};
 
 // The reflect analysis's VJP: padded row j, interior -> gy2 (B, lr, hop),
 // the four pad rows -> gpad (B, 4, hop), rounded to bf16.
@@ -200,6 +186,13 @@ struct MelChunks {
   __device__ int lo() const { return blockIdx.x * rc; }
   __device__ int hi() const { return min(t, (int)blockIdx.x * rc + rc); }
 };
+
+// Chunks of rc rows, rc even, at most kMelChunks of them.
+MelChunks mel_chunks(int t) {
+  int rc = (t + kMelChunks - 1) / kMelChunks;
+  rc += rc & 1;
+  return MelChunks{t, rc, (t + rc - 1) / rc};
+}
 
 constexpr int kMelBlockLanes = kRedBlock / kMel;
 
@@ -526,22 +519,29 @@ gcrop_pass(const float* gy2, const float* u, const float* m1, const float* env,
 // ---------------------------------------------------------------- chain ---
 
 struct Tiles {
-  const int* bmbn;  // gGemms pairs
-  int bm(Gemm g) const { return bmbn[2 * g]; }
-  int bn(Gemm g) const { return bmbn[2 * g + 1]; }
+  const int* bmbn;  // (bm, bn) pairs
+  int bm(int g) const { return bmbn[2 * g]; }
+  int bn(int g) const { return bmbn[2 * g + 1]; }
 };
 
-// The step, or the first CUDA error of a launch.
-int step_chain(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, int t, int p,
-               int hop, NadamCoefs k, cudaStream_t st) {
+// The (T-1) hop samples of a clip fit the fold's partial sums.
+bool fold_fits(int t, int hop) {
+  return (long long)(t - 1) * hop <= (long long)kFoldChunk * (kPartLd / 3);
+}
+
+#define AW_TRY(call)               \
+  if ((err = (call)) != 0) return err
+#define AW_LAUNCHED() AW_TRY((int)cudaGetLastError())
+
+// The forward half: ct -> u, m1, pred and the detector's residuals, or
+// the first CUDA error of a launch.  tl: the FwdGemm tiles.
+int step_fwd(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, int t, int p,
+             int hop, cudaStream_t st) {
   const int lr = t - 1, t2 = t / 2, p2 = 2 * p;
   const RoundConsts& c = s.c;
   const IterScratch& w = s.w;
   const DetRes& r = s.r;
   int err;
-#define AW_TRY(call)               \
-  if ((err = (call)) != 0) return err
-#define AW_LAUNCHED() AW_TRY((int)cudaGetLastError())
 
   // ---- the round trip forward
   const long long rows_t = (long long)batch * t;
@@ -551,7 +551,7 @@ int step_chain(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, 
   AW_TRY(sm90::launch_slab_gemm(
       sm90::Problem{w.big, batch, t, c.ab, p2, 4 * hop,
                     sm90::Params{lr, hop, p2, /*k_row=*/0, /*k_col=*/hop, /*dir=*/-1, /*pad=*/kPad}},
-      SlabSynthEpi{s.u, c.env, c.y_const, (unsigned int*)s.m1, lr, hop}, tl.bm(gSynth),
+      sm90::SlabSynthEpi{s.u, c.env, c.y_const, (unsigned int*)s.m1, lr, hop}, tl.bm(gSynth),
       tl.bn(gSynth), st));
   reflect_pad<<<elementwise_blocks((long long)batch * (lr + 2 * kPad) * hop), 256, 0, st>>>(
       s.u, s.m1, o.rows, batch, lr, hop);
@@ -566,9 +566,7 @@ int step_chain(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, 
   AW_LAUNCHED();
   AW_TRY(sm90::launch_dense_gemm(o.a16, s.dfc.melb, (int)rows_t, p, kMel,
                                  sm90::DenseStore{w.mel32, kMel}, tl.bm(gMel), tl.bn(gMel), st));
-  int rc = (t + kMelChunks - 1) / kMelChunks;  // even, at most kMelChunks chunks
-  rc += rc & 1;
-  const MelChunks mc{t, rc, (t + rc - 1) / rc};
+  const MelChunks mc = mel_chunks(t);
   const dim3 mel_grid(mc.nch, batch);
   mel_norm1<<<mel_grid, kRedBlock, 0, st>>>(w.mel32, r.mel, o.part, mc);
   mel_norm2<<<mel_grid, kRedBlock, 0, st>>>(w.mel32, o.part, mc);
@@ -583,7 +581,7 @@ int step_chain(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, 
   float* hs[2] = {w.ha, w.hb};
   const int rows_t2 = batch * t2;
   for (int i = 0; i < 4; ++i) {
-    const Gemm g = (Gemm)(gConv0 + i);
+    const int g = gConv0 + i;
     AW_TRY(sm90::launch_dense_gemm(o.a16, wt[i], rows_t2, kCh[i], kCh[i + 1],
                                    sm90::DenseBias{hs[i % 2], s.dfc.biases + i * kBiasLd,
                                                    kCh[i + 1]},
@@ -594,32 +592,54 @@ int step_chain(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, 
     AW_LAUNCHED();
   }
   brh_fwd<<<batch, kMel, 0, st>>>(w.small, s.dfc.eo, r.pred);
+  return (int)cudaGetLastError();
+}
 
-  // ---- the loss, the gradient and the detector backward
-  brh_bwd<<<batch, kMel, 0, st>>>(nullptr, s.wm, s.loss, r.pred, s.dbc.eot, t2, w.small);
+// The backward half: g (B, 128), or given wm the push_extremes gradient
+// with the loss out, -> dreim (B, T, 2P) in w.big, or the first CUDA error
+// of a launch.  It reads only the forward's residuals (r, u, m1) and the
+// constants: every StepOps buffer it reads, it has written itself
+// (o.a16 by in_norm_bwd_stats and mel_bwd3, o.part by mel_bwd1 and
+// fold_partial, o.rows by gcrop_pass).  tl: the BwdGemm tiles.
+int step_bwd(const float* g, const float* wm, float* loss, const DetRes& r, const float* u,
+             const float* m1, const RoundConsts& c, const DetBwdConsts& dbc,
+             const IterScratch& w, const StepOps& o, const Tiles& tl, int batch, int t, int p,
+             int hop, cudaStream_t st) {
+  const int lr = t - 1, t2 = t / 2, p2 = 2 * p;
+  const long long rows_t = (long long)batch * t;
+  const int rows_t2 = batch * t2;
+  int err;
+
+  // ---- the detector backward
+  brh_bwd<<<batch, kMel, 0, st>>>(g, wm, loss, r.pred, dbc.eot, t2, w.small);
   AW_LAUNCHED();
-  const bf16* ws[4] = {s.dbc.w0, s.dbc.w1, s.dbc.w2, s.dbc.w3};
+  const bf16* ws[4] = {dbc.w0, dbc.w1, dbc.w2, dbc.w3};
+  const bf16* ys[4] = {r.y0, r.y1, r.y2, r.y3};
+  const float* rins[4] = {r.rin0, r.rin1, r.rin2, r.rin3};
+  float* hs[2] = {w.ha, w.hb};
   const float* dx = w.small;  // layer 3's cotangent: one row, broadcast over time
   long long dx_clip = kMel, dx_row = 0;
   for (int i = 3; i >= 0; --i) {
     const int c_out = kCh[i + 1], c_in = kCh[i];
-    const Gemm g = (Gemm)(gConv3Vjp + (3 - i));
+    const int gi = gConv3Vjp + (3 - i);
     in_norm_bwd_stats<<<norm_grid(c_out, batch), kNormCh * kNormLanes, 0, st>>>(
         dx, dx_clip, dx_row, ys[i], t2, c_out, w.mu, w.m2, rins[i], o.a16);
     AW_LAUNCHED();
     float* out = hs[i % 2];
     AW_TRY(sm90::launch_dense_gemm(o.a16, ws[i], rows_t2, c_out, c_in,
-                                   sm90::DenseStore{out, c_in}, tl.bm(g), tl.bn(g), st));
+                                   sm90::DenseStore{out, c_in}, tl.bm(gi), tl.bn(gi), st));
     dx = out;
     dx_clip = (long long)t2 * c_in;
     dx_row = c_in;
   }
+  const MelChunks mc = mel_chunks(t);
+  const dim3 mel_grid(mc.nch, batch);
   const MelBwdTerms terms{dx, r.mel, r.mu1, r.r1, r.gmu, r.gr, t};
   mel_bwd1<<<mel_grid, kRedBlock, 0, st>>>(terms, o.part, mc);
   mel_bwd2<<<mel_grid, kRedBlock, 0, st>>>(terms, r.s, o.part, mc);
   mel_bwd3<<<mel_grid, kRedBlock, 0, st>>>(terms, r.s, o.part, mc, o.a16);
   AW_LAUNCHED();
-  AW_TRY(sm90::launch_dense_gemm(o.a16, s.dbc.melbt, (int)rows_t, kMel, p,
+  AW_TRY(sm90::launch_dense_gemm(o.a16, dbc.melbt, (int)rows_t, kMel, p,
                                  sm90::DensePhase{w.big, r.nph, p}, tl.bm(gMelVjp),
                                  tl.bn(gMelVjp), st));
 
@@ -632,22 +652,40 @@ int step_chain(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, 
       st));
   const FoldChunks fc{(long long)lr * hop, (int)(((long long)lr * hop + kFoldChunk - 1) / kFoldChunk)};
   const dim3 fold_grid(fc.nch, batch);
-  fold_partial<<<fold_grid, kRedBlock, 0, st>>>(w.gpad, w.gy2, s.u, s.m1, o.part, fc, hop);
-  ties_partial<<<fold_grid, kRedBlock, 0, st>>>(s.u, s.m1, o.part, fc);
-  gcrop_pass<<<fold_grid, kRedBlock, 0, st>>>(w.gy2, s.u, s.m1, c.env, o.part, w.scal, o.rows,
-                                              fc);
+  fold_partial<<<fold_grid, kRedBlock, 0, st>>>(w.gpad, w.gy2, u, m1, o.part, fc, hop);
+  ties_partial<<<fold_grid, kRedBlock, 0, st>>>(u, m1, o.part, fc);
+  gcrop_pass<<<fold_grid, kRedBlock, 0, st>>>(w.gy2, u, m1, c.env, o.part, w.scal, o.rows, fc);
   AW_LAUNCHED();
   AW_TRY(sm90::launch_slab_gemm(
       sm90::Problem{o.rows, batch, lr, c.abt, 4 * hop, p2,
                     sm90::Params{t, p2, hop, /*k_row=*/hop, /*k_col=*/0, /*dir=*/+1, /*pad=*/kPad}},
       w.big, tl.bm(gSynthVjp), tl.bn(gSynthVjp), st));
+  return (int)cudaGetLastError();
+}
 
-  // ---- NAdam, the clamp and the best snapshot, in place
-  launch_step_epilogue(w.big, c.csin, s.ct, s.m, s.v, s.best, s.best_loss, s.lower, s.upper,
+// The step, or the first CUDA error of a launch: the forward half, the
+// backward half with the loss, then NAdam, the clamp and the best
+// snapshot, in place.  tl: the FwdGemm tiles, then the BwdGemm tiles.
+int step_chain(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, int t, int p,
+               int hop, NadamCoefs k, cudaStream_t st) {
+  int err;
+  AW_TRY(step_fwd(s, o, tl, batch, t, p, hop, st));
+  AW_TRY(step_bwd(nullptr, s.wm, s.loss, s.r, s.u, s.m1, s.c, s.dbc, s.w, o,
+                  Tiles{tl.bmbn + 2 * gFwdGemms}, batch, t, p, hop, st));
+  launch_step_epilogue(s.w.big, s.c.csin, s.ct, s.m, s.v, s.best, s.best_loss, s.lower, s.upper,
                        s.loss, s.s1, s.s2, s.d2, k, batch, t, p, st);
+  return (int)cudaGetLastError();
+}
+
 #undef AW_LAUNCHED
 #undef AW_TRY
-  return (int)cudaGetLastError();
+
+StepOps take_ops(Ptrs& a) {
+  StepOps o;
+  o.a16 = a.next<bf16>();
+  o.rows = a.next<float>();
+  o.part = a.next<float>();
+  return o;
 }
 
 }  // namespace
@@ -656,22 +694,39 @@ extern "C" {
 
 // ptrs (64): the 61 of StepArgs (iteration.cuh), then StepOps: a16 (B,
 // max(T2 1024, T P)) bf16, rows (B, T+3, hop) f32, part (B, 4096) f32.
-// tiles: (bm, bn) of each of the 14 GEMMs in launch order (Gemm), as the
-// wrapper planned them.  c_m, b2, c_v, eps: NadamCoefs.  Needs T >= 8
-// and (T-1) hop within the fold's partial sums' room.
+// tiles: (bm, bn) of each of the 14 GEMMs in launch order (FwdGemm, then
+// BwdGemm), as the wrapper planned them.  c_m, b2, c_v, eps: NadamCoefs.
+// Needs T >= 8 and (T-1) hop within the fold's partial sums' room.
 int aw_iteration_step(void* const* ptrs, int n, const int* tiles, int n_tiles, int batch, int t,
                       int p, int hop, float c_m, float b2, float c_v, float eps, void* stream) {
   Ptrs a{ptrs, n, 0};
   const StepArgs s = take_step(a);
-  StepOps o;
-  o.a16 = a.next<bf16>();
-  o.rows = a.next<float>();
-  o.part = a.next<float>();
-  if (!a.done() || n_tiles != 2 * gGemms || t < 8 ||
-      (long long)(t - 1) * hop > (long long)kFoldChunk * (kPartLd / 3))
+  const StepOps o = take_ops(a);
+  if (!a.done() || n_tiles != 2 * (gFwdGemms + gBwdGemms) || t < 8 || !fold_fits(t, hop))
     return (int)cudaErrorInvalidValue;
   return step_chain(s, o, Tiles{tiles}, batch, t, p, hop, NadamCoefs{c_m, b2, c_v, eps},
                     (cudaStream_t)stream);
+}
+
+// The iteration_forward VJP: ptrs (44), the 41 of BwdArgs (iteration.cuh),
+// then StepOps' 3 -> dct (B, T, P) f32: the step's backward half from g,
+// then the phase fold of its dreim.  tiles: (bm, bn) of the 7 backward
+// GEMMs (BwdGemm).  Refuses what aw_iteration_step refuses, before any
+// launch.
+int aw_iteration_bwd(void* const* ptrs, int n, const int* tiles, int n_tiles, int batch, int t,
+                     int p, int hop, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Ptrs a{ptrs, n, 0};
+  const BwdArgs s = take_bwd(a);
+  const StepOps o = take_ops(a);
+  if (!a.done() || n_tiles != 2 * gBwdGemms || t < 8 || !fold_fits(t, hop))
+    return (int)cudaErrorInvalidValue;
+  const int err = step_bwd(s.g, nullptr, nullptr, s.r, s.u, s.m1, s.c, s.dc, s.w, o,
+                           Tiles{tiles}, batch, t, p, hop, st);
+  if (err != 0) return err;
+  const long long rows = (long long)batch * t;
+  fold_phase<<<elementwise_blocks(rows * p), 256, 0, st>>>(s.w.big, s.c.csin, s.dct, rows, p);
+  return (int)cudaGetLastError();
 }
 
 // One dense GEMM of the step's kind on given operands, with a plain f32

@@ -188,6 +188,42 @@ struct StoreF32 {  // out (B, n_out, e) f32
   }
 };
 
+// The synthesis (the whole step's, iteration_sm90.cu): u = acc / env +
+// y_const into u (B, lr, hop); |u| for m1's bits.  env and y_const come
+// through the read-only path (__ldg), which lets the compiler issue a
+// step's loads ahead of the previous step's store to u (plain loads may
+// not pass a store that could alias them).
+struct SlabSynthEpi {
+  static constexpr bool kMax = true;
+  float* u;
+  const float* env;
+  const float* y_const;
+  unsigned int* max_bits;
+  int lr;
+  int hop;
+  __device__ float operator()(int b, int row, int col, float v0, float v1) const {
+    const long long e = (long long)row * hop + col;
+    const long long i = (long long)b * lr * hop + e;
+    const float2 ev = __ldg(reinterpret_cast<const float2*>(env + e));
+    const float2 yc = __ldg(reinterpret_cast<const float2*>(y_const + i));
+    const float u0 = v0 / ev.x + yc.x;
+    const float u1 = v1 / ev.y + yc.y;
+    *reinterpret_cast<float2*>(u + i) = make_float2(u0, u1);
+    return fmaxf(fabsf(u0), fabsf(u1));
+  }
+};
+
+// The long-clip synthesis (roundtrip_tiled.cu): SlabSynthEpi for the rows
+// of u; the rows from lr on (the reference's m1 tail rows, which still
+// hold the overlap-add tail of the last frames) enter the max with env 1
+// and y_const 0 and are not written.
+struct SlabSynthTailEpi : SlabSynthEpi {
+  __device__ float operator()(int b, int row, int col, float v0, float v1) const {
+    if (row >= lr) return fmaxf(fabsf(v0), fabsf(v1));  // acc / 1 + 0
+    return SlabSynthEpi::operator()(b, row, col, v0, v1);
+  }
+};
+
 // The rows of A that slab k reads lie off_k rows into the window that
 // starts at row t0 + first_row(dir, pad): the smallest shift of the four.
 __device__ __forceinline__ int first_row(int dir, int pad) {

@@ -47,8 +47,9 @@ SIGNATURES = {
     "aw_reflect_analysis_bwd": [_P] * 4 + [_I] * 4 + [_P],
     # a host array of device pointers and its length, then the sizes
     "aw_iteration_fwd": [_P] + [_I] * 5 + [_P],
-    "aw_iteration_bwd": [_P] + [_I] * 5 + [_P],
-    # the step also takes a host array of the planned tiles and its length
+    "aw_iteration_bwd_wmma": [_P] + [_I] * 5 + [_P],
+    # the sm90 chains also take a host array of the planned tiles and its length
+    "aw_iteration_bwd": [_P, _I, _P, _I] + [_I] * 4 + [_P],
     "aw_iteration_step": [_P, _I, _P, _I] + [_I] * 4 + [_F] * 4 + [_P],
     "aw_iteration_step_wmma": [_P] + [_I] * 5 + [_F] * 4 + [_P],
     "aw_step_epilogue": [_P] + [_I] * 4 + [_F] * 4 + [_P],
@@ -58,7 +59,10 @@ SIGNATURES = {
     "aw_slab_gemm": [_P] * 3 + [_I] * 13 + [_P],
     "aw_dense_gemm": [_P] * 3 + [_I] * 5 + [_P],
     "aw_dense_gemm_config": [_I] * 2 + [_P] * 3,
-    "aw_synth_tiled_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "aw_synth_tiled_fwd": [_P] * 8 + [_I] * 7 + [_P],
+    "aw_synth_tiled_reim": [_P] * 4 + [_I] * 3 + [_P],
+    "aw_synth_tiled_gemm": [_P] * 6 + [_I] * 7 + [_P],
+    "aw_synth_tiled_fwd_wmma": [_P] * 7 + [_I] * 5 + [_P],
     "aw_ola_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "aw_ola_bwd": [_P] * 8 + [_I] * 3 + [_P],
 }

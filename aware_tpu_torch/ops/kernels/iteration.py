@@ -11,22 +11,28 @@ time-major coefficient layout,
 (``synth_norm`` then ``analysis_detector`` in one chain), its VJP back to
 the coefficients, and the solver's whole step on top of them: the
 push_extremes loss and gradient, the backward, torch's NAdam update, the
-clamp to the box and the best snapshot.  Three CUDA entries of
-``csrc/iteration.cu``, each a fixed chain of launches on the current
-stream (their launches are listed there):
+clamp to the box and the best snapshot.  Three CUDA entries, each a fixed
+chain of launches on the current stream (their launches are listed in
+the sources):
 
 * ``iteration_forward_fwd`` replaces ``_iter_fwd_kernel``
   (aware_tpu/ops/pallas/iteration.py:72, pallas_call :173): ct (B, T, P)
   f32 -> pred (B, 128) f32 and ``IterResiduals`` (the detector's 16, u and
-  m1; 13 launches);
+  m1); the WMMA chain of ``csrc/iteration.cu`` (13 launches);
 * ``iteration_forward_bwd`` replaces ``_iter_bwd_kernel`` (:193,
-  pallas_call :285): g (B, 128) -> dct (B, T, P) f32 (15 launches);
+  pallas_call :285): g (B, 128) -> dct (B, T, P) f32; the backward half of
+  the TMA + wgmma step chain of ``csrc/iteration_sm90.cu`` from g, then the
+  phase fold (19 launches), its 7 GEMMs' tiles planned here
+  (``bwd_tiles``: the step's own tiles for them);
 * ``iteration_step`` replaces ``_step_kernel`` (:341, pallas_call :513):
   ct, m, v, best (B, T, P) and best_loss (B,) updated in place, loss (B,)
-  out; the TMA + wgmma chain of ``csrc/iteration_sm90.cu`` (40 launches),
-  its 14 GEMMs' tiles planned here (``step_tiles``).  Its first WMMA
-  chain stays in the library as ``aw_iteration_step_wmma``, which no path
-  reaches (``chip_smoke.py`` times the two in turns).
+  out; the step chain of ``csrc/iteration_sm90.cu`` (40 launches: its
+  forward half, its backward half, the NAdam epilogue), its 14 GEMMs'
+  tiles planned here (``step_tiles``).
+
+The first WMMA chains of the VJP and the step stay in the library as
+``aw_iteration_bwd_wmma`` and ``aw_iteration_step_wmma``, which no path
+reaches (``chip_smoke.py`` times each beside its sm90 chain in turns).
 
 Each wrapper checks its operands, counts its own launches in
 ``launches``, and on CUDA tensors launches its kernel or raises; on CPU
@@ -199,12 +205,8 @@ def _ops_shapes(b: int, t: int, p2: int, hop: int) -> tuple:
 def step_buffers(b: int, t: int, p2: int, hop: int, device) -> StepBuffers:
     """The buffers of ``iteration_step`` for B clips of T frames (CUDA;
     the plain version needs none)."""
-    a16, rows, part = _ops_shapes(b, t, p2, hop)
-    ops = StepOps(torch.empty(a16, dtype=_BF16, device=device),
-                  torch.empty(rows, dtype=_F32, device=device),
-                  torch.empty(part, dtype=_F32, device=device))
     return StepBuffers(_residuals(b, t, p2, hop, device), _scratch(b, t, p2, hop, device),
-                       torch.empty(b, device=device), ops)
+                       torch.empty(b, device=device), step_ops(b, t, p2, hop, device))
 
 
 class StepGemm(NamedTuple):
@@ -220,32 +222,65 @@ class StepGemm(NamedTuple):
     n: int
 
 
-def step_gemms(b: int, t: int, p: int, hop: int) -> list:
-    """The step's GEMMs in the order of csrc/iteration_sm90.cu's ``Gemm``."""
+def step_gemms_fwd(b: int, t: int, p: int, hop: int) -> list:
+    """The forward half's GEMMs in the order of csrc/iteration_sm90.cu's
+    ``FwdGemm``."""
     lr, t2, p2 = t - 1, t // 2, 2 * p
     conv = [StepGemm(f"conv {i}", "dense", b * t2, CH[i], CH[i + 1]) for i in range(4)]
-    conv_vjp = [StepGemm(f"conv {i} VJP", "dense", b * t2, CH[i + 1], CH[i])
-                for i in range(3, -1, -1)]
     return [StepGemm("synthesis", "slab", lr, p2, hop),
             StepGemm("reflect analysis", "slab", t, hop, p2),
             StepGemm("mel", "dense", b * t, p, CH[0]),
-            *conv, *conv_vjp,
+            *conv]
+
+
+def step_gemms_bwd(b: int, t: int, p: int, hop: int) -> list:
+    """The backward half's GEMMs (the iteration_forward VJP's) in the order
+    of csrc/iteration_sm90.cu's ``BwdGemm``."""
+    lr, t2, p2 = t - 1, t // 2, 2 * p
+    conv_vjp = [StepGemm(f"conv {i} VJP", "dense", b * t2, CH[i + 1], CH[i])
+                for i in range(3, -1, -1)]
+    return [*conv_vjp,
             StepGemm("mel VJP", "dense", b * t, CH[0], p),
             StepGemm("reflect analysis VJP", "slab", lr + 2 * PAD, p2, hop),
             StepGemm("synthesis VJP", "slab", t, hop, p2)]
 
 
+def step_gemms(b: int, t: int, p: int, hop: int) -> list:
+    """The step's 14 GEMMs in launch order: the two halves'."""
+    return step_gemms_fwd(b, t, p, hop) + step_gemms_bwd(b, t, p, hop)
+
+
+def _plan(gemms: list, b: int, sms: int) -> list:
+    return [plan_slab_gemm(b, g.rows, g.n, sms) if g.kind == "slab"
+            else plan_dense_gemm(g.rows, g.n, sms) for g in gemms]
+
+
 def plan_step(b: int, t: int, p: int, hop: int, sms: int) -> list:
     """The planned tile of each of the step's GEMMs (``step_gemms``)."""
-    return [plan_slab_gemm(b, g.rows, g.n, sms) if g.kind == "slab"
-            else plan_dense_gemm(g.rows, g.n, sms) for g in step_gemms(b, t, p, hop)]
+    return _plan(step_gemms(b, t, p, hop), b, sms)
+
+
+def plan_bwd(b: int, t: int, p: int, hop: int, sms: int) -> list:
+    """The planned tile of each of the backward half's GEMMs
+    (``step_gemms_bwd``): the step's own tiles for them."""
+    return _plan(step_gemms_bwd(b, t, p, hop), b, sms)
+
+
+def _tile_array(plans: list):
+    pairs = [x for pl in plans for x in (pl.bm, pl.bn)]
+    return (ctypes.c_int * len(pairs))(*pairs)
 
 
 @functools.lru_cache(maxsize=64)
 def step_tiles(b: int, t: int, p: int, hop: int, sms: int):
     """``plan_step`` as the host array of (bm, bn) pairs the C entry takes."""
-    pairs = [x for pl in plan_step(b, t, p, hop, sms) for x in (pl.bm, pl.bn)]
-    return (ctypes.c_int * len(pairs))(*pairs)
+    return _tile_array(plan_step(b, t, p, hop, sms))
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_tiles(b: int, t: int, p: int, hop: int, sms: int):
+    """``plan_bwd`` as the host array of (bm, bn) pairs aw_iteration_bwd takes."""
+    return _tile_array(plan_bwd(b, t, p, hop, sms))
 
 
 # ---------------------------------------------------------- plain versions ---
@@ -376,24 +411,69 @@ def iteration_forward_fwd(ct: torch.Tensor, c: IterConsts):
     return res.det.pred, res
 
 
-def iteration_forward_bwd(g: torch.Tensor, res: IterResiduals, c: IterConsts):
-    """g (B, 128) -> dct (B, T, P).  Replaces the TPU kernel
-    ``_iter_bwd_kernel`` (aware_tpu/ops/pallas/iteration.py:285)."""
-    if g.device.type == "cpu":
-        return iteration_forward_bwd_plain(g, res, c)
+def _bwd_tensors(g, res: IterResiduals, c: IterConsts, dct, ws: Scratch) -> list:
+    """The VJP's pointer table (csrc/iteration.cuh ``BwdArgs``), as both
+    VJP entries take it."""
+    return [g, *res.det, res.u, res.m1, c.csin, c.env, c.abt, c.cswt,
+            *(getattr(c.det, k) for k in _DET_BWD), dct, *ws]
+
+
+def step_ops(b: int, t: int, p2: int, hop: int, device) -> StepOps:
+    """The sm90 chains' own buffers (``StepOps``) for B clips of T frames."""
+    a16, rows, part = _ops_shapes(b, t, p2, hop)
+    return StepOps(torch.empty(a16, dtype=_BF16, device=device),
+                   torch.empty(rows, dtype=_F32, device=device),
+                   torch.empty(part, dtype=_F32, device=device))
+
+
+def check_iteration_bwd(g, res: IterResiduals, c: IterConsts) -> tuple:
+    """What the VJP's chain cannot take: raise, before any launch.  The
+    constants, g and the residuals; T >= 8 (``_check_iter``) and the fold's
+    room for the partial sums; the backward GEMMs' weights as their tensor
+    maps take them.  Returns (B, T, P, hop)."""
     b, t, p2 = res.det.nph.shape
     p = p2 // 2
     dev = g.device
     hop = _check_iter(c, b, t, p, dev)
     _check("g", g, (b, CH[4]), _F32, dev)
     _check_residuals(res, b, t, p2, hop, dev)
+    _check_fold(t, hop)
+    for gm, w in zip(step_gemms_bwd(b, t, p, hop), _bwd_weights(c)):
+        if w.data_ptr() % 16:  # TMA's 16-byte address alignment
+            raise ValueError(f"the {gm.name} GEMM needs its weight 16-byte aligned "
+                             f"(at {w.data_ptr():#x})")
+    return b, t, p, hop
+
+
+def iteration_forward_bwd(g: torch.Tensor, res: IterResiduals, c: IterConsts):
+    """g (B, 128) -> dct (B, T, P): the sm90 step's backward half from g,
+    then the phase fold (csrc/iteration_sm90.cu ``aw_iteration_bwd``, 19
+    launches).  Replaces the TPU kernel ``_iter_bwd_kernel``
+    (aware_tpu/ops/pallas/iteration.py:285)."""
+    if g.device.type == "cpu":
+        return iteration_forward_bwd_plain(g, res, c)
+    b, t, p, hop = check_iteration_bwd(g, res, c)
+    dev = g.device
     dct = torch.empty(b, t, p, device=dev)
-    _run_table("aw_iteration_bwd", dev,
-               [g, *res.det, res.u, res.m1, c.csin, c.env, c.abt, c.cswt,
-                *(getattr(c.det, k) for k in _DET_BWD), dct,
-                *_scratch(b, t, p2, hop, dev)],
-               b, t, p, hop)
+    ws = _scratch(b, t, 2 * p, hop, dev)
+    ops = step_ops(b, t, 2 * p, hop, dev)
+    tiles = bwd_tiles(b, t, p, hop, _sms(dev.index or 0))
+    _run_table("aw_iteration_bwd", dev, [*_bwd_tensors(g, res, c, dct, ws), *ops],
+               tiles, len(tiles), b, t, p, hop)
     iteration_forward_bwd.launches += 1
+    return dct
+
+
+def _iteration_forward_bwd_wmma(g: torch.Tensor, res: IterResiduals, c: IterConsts):
+    """The VJP's first chain, ``aw_iteration_bwd_wmma`` (the WMMA
+    template), on the CUDA tensors ``iteration_forward_bwd`` takes: no path
+    reaches it; the chip check times it beside the sm90 chain.  Not counted
+    in ``iteration_forward_bwd.launches``."""
+    b, t, p, hop = check_iteration_bwd(g, res, c)
+    dct = torch.empty(b, t, p, device=g.device)
+    _run_table("aw_iteration_bwd_wmma", g.device,
+               _bwd_tensors(g, res, c, dct, _scratch(b, t, 2 * p, hop, g.device)),
+               b, t, p, hop)
     return dct
 
 
@@ -402,26 +482,39 @@ def _check_state(names, tensors, shape, dev) -> None:
         _check(name, x, shape, _F32, dev)
 
 
+def _check_fold(t: int, hop: int) -> None:
+    if (t - 1) * hop > FOLD_CHUNK * (PART_LD // 3):
+        raise ValueError(f"the sm90 chains' partial sums need (T-1) hop <= "
+                         f"{FOLD_CHUNK * (PART_LD // 3)} (got T={t}, hop={hop})")
+
+
+def _fwd_weights(c: IterConsts) -> list:
+    """The weights of ``step_gemms_fwd``, in order."""
+    d = c.det
+    return [c.ab, c.csw, d.melb, d.w0t, d.w1t, d.w2t, d.w3t]
+
+
+def _bwd_weights(c: IterConsts) -> list:
+    """The weights of ``step_gemms_bwd``, in order."""
+    d = c.det
+    return [d.w3, d.w2, d.w1, d.w0, d.melbt, c.cswt, c.abt]
+
+
 def _check_step_ops(bufs: StepBuffers, c: IterConsts, b: int, t: int, p: int, hop: int,
                     dev) -> None:
     """The sm90 step's own buffers, and what its GEMMs' tensor maps need."""
     for name, x, shape, dtype in zip(StepOps._fields, bufs.ops, _ops_shapes(b, t, 2 * p, hop),
                                      (_BF16, _F32, _F32)):
         _check(name, x, shape, dtype, dev)
-    if (t - 1) * hop > FOLD_CHUNK * (PART_LD // 3):
-        raise ValueError(f"the whole-step kernel's partial sums need (T-1) hop <= "
-                         f"{FOLD_CHUNK * (PART_LD // 3)} (got T={t}, hop={hop})")
+    _check_fold(t, hop)
     big, rows = bufs.scratch.big, bufs.ops.rows
-    a_of = {"synthesis": (big, c.ab), "reflect analysis": (rows, c.csw),
-            "reflect analysis VJP": (big, c.cswt), "synthesis VJP": (rows, c.abt)}
-    dense_w = [c.det.melb, c.det.w0t, c.det.w1t, c.det.w2t, c.det.w3t,
-               c.det.w3, c.det.w2, c.det.w1, c.det.w0, c.det.melbt]
-    for g in step_gemms(b, t, p, hop):
+    a_of = {"synthesis": big, "reflect analysis": rows, "reflect analysis VJP": big,
+            "synthesis VJP": rows}
+    for g, w in zip(step_gemms(b, t, p, hop), _fwd_weights(c) + _bwd_weights(c)):
         if g.kind == "slab":
-            a, w = a_of[g.name]
-            check_slab_gemm(a.view(b, -1, g.k), w, g.n, g.rows)
+            check_slab_gemm(a_of[g.name].view(b, -1, g.k), w, g.n, g.rows)
         else:
-            check_dense_gemm(bufs.ops.a16, dense_w.pop(0), g.rows, g.k, g.n)
+            check_dense_gemm(bufs.ops.a16, w, g.rows, g.k, g.n)
 
 
 def _step_tensors(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c: IterConsts,

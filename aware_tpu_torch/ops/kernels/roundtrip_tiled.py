@@ -1,9 +1,12 @@
 """The long-clip round trip's kernels: shift_mm and the synth_norm_tiled forward.
 
 The port of ``aware_tpu/ops/pallas/roundtrip_tiled.py``, the JAX package's
-round trip for clips over 1024 frames.  Both TPU kernels are CUDA entries,
-natively batched over the clip: ``shift_mm`` of ``csrc/slab_gemm_sm90.cu``
-(TMA and wgmma), the synthesis of ``csrc/roundtrip_tiled.cu``:
+round trip for clips over 1024 frames.  Both TPU kernels are CUDA entries
+on the sm90 slab GEMM (``csrc/slab_gemm_sm90.cuh``: TMA and wgmma),
+natively batched over the clip: ``shift_mm`` of ``csrc/slab_gemm_sm90.cu``,
+the synthesis of ``csrc/roundtrip_tiled.cu`` (a pass that writes the f32
+phase products, then one slab GEMM whose epilogue divides by env, adds
+y_const and takes m1 by the tail rule):
 
 * ``shift_mm`` (``_shift_mm_kernel``): out[b, t] = sum_{o<4} bf16(x[b, t+o]) @ w[o]
   for t < n_out, x (B, N, D) f32 with rows at or past N read as zero,
@@ -17,11 +20,14 @@ natively batched over the clip: ``shift_mm`` of ``csrc/slab_gemm_sm90.cu``
   m1 = max |u| (the tail rule below).  The peak-norm scale and its VJP
   are torch ops, as they are XLA ops in the JAX package.
 
-Each has a wrapper that checks its operands, launches on the current
-stream and counts the launch in its ``launches`` attribute (given CPU
-tensors it runs the plain version instead; on a CUDA tensor it launches
-the kernel or raises), and a plain PyTorch version (``*_plain``) with the
-same bf16 rounding of the product operands and float32 accumulation.
+Each has a wrapper that checks its operands, plans its slab GEMM's tile
+(``slab_plan_for``), launches on the current stream and counts the launch
+in its ``launches`` attribute (given CPU tensors it runs the plain version
+instead; on a CUDA tensor it launches the kernel or raises), and a plain
+PyTorch version (``*_plain``) with the same bf16 rounding of the product
+operands and float32 accumulation.  Their first WMMA versions stay in the
+library as ``aw_shift_mm_wmma`` and ``aw_synth_tiled_fwd_wmma``, which no
+wrapper reaches (``chip_smoke.py`` times each pair in turns).
 
 ``csinp`` is float32 on this path (``make_csinp``): the product with the
 coefficients is rounded to bf16, never the phase itself, unlike the
@@ -150,24 +156,45 @@ def shift_mm(x, w, n_out):
     return out
 
 
-def synth_tiled_fwd(ct, csinp, y_const, env, w_sf):
-    """The long-clip synthesis before its peak-norm: (u, m1).  Replaces
-    ``_synth_tiled_kernel`` (aware_tpu/ops/pallas/roundtrip_tiled.py:214)."""
-    if ct.device.type == "cpu":
-        return synth_tiled_fwd_plain(ct, csinp, y_const, env, w_sf)
+def check_synth_tiled(ct, csinp, y_const, env, w_sf) -> tuple:
+    """What the tiled synthesis's two launches cannot take: raise, before
+    any launch.  Returns (B, T, P, hop)."""
     b, t, p = ct.shape
     hop = env.shape[-1]
     dev = ct.device
     _check_geometry(p, hop, R * hop)
+    if t < 2:
+        raise ValueError(f"the tiled synthesis needs T >= 2 frames (got {t})")
     _check("ct", ct, (b, t, p), torch.float32, dev)
     _check("csinp", csinp, (b, t + HALO, 2 * p), torch.float32, dev)
     _check("y_const", y_const, (b, t - 1, hop), torch.float32, dev)
     _check("env", env, (t - 1, hop), torch.float32, dev)
     _check("w_sf", w_sf, (R, 2 * p, hop), _BF16, dev)
+    # the reim pass reads ct and csinp as float4, the GEMM's epilogue
+    # y_const and env as float2, its tensor map w_sf
+    for name, x, align in (("ct", ct, 16), ("csinp", csinp, 16), ("w_sf", w_sf, 16),
+                           ("y_const", y_const, 8), ("env", env, 8)):
+        if x.data_ptr() % align:
+            raise ValueError(f"the tiled synthesis needs {name} {align}-byte aligned "
+                             f"(at {x.data_ptr():#x})")
+    return b, t, p, hop
+
+
+def synth_tiled_fwd(ct, csinp, y_const, env, w_sf):
+    """The long-clip synthesis before its peak-norm: (u, m1), the reim pass
+    then the slab GEMM.  Replaces ``_synth_tiled_kernel``
+    (aware_tpu/ops/pallas/roundtrip_tiled.py:214)."""
+    if ct.device.type == "cpu":
+        return synth_tiled_fwd_plain(ct, csinp, y_const, env, w_sf)
+    b, t, p, hop = check_synth_tiled(ct, csinp, y_const, env, w_sf)
+    dev = ct.device
+    rows = m1_rows(t - 1)
+    reim = torch.empty(b, t, 2 * p, device=dev)
+    plan = slab_plan_for(reim, rows, hop)
     u = torch.empty(b, t - 1, hop, device=dev)
     m1 = torch.empty(b, device=dev)
-    _run("aw_synth_tiled_fwd", dev, ct, csinp, y_const, env, w_sf, u, m1,
-         b, t, p, hop, m1_rows(t - 1))
+    _run("aw_synth_tiled_fwd", dev, ct, csinp, y_const, env, w_sf, reim, u, m1,
+         b, t, p, hop, rows, plan.bm, plan.bn)
     synth_tiled_fwd.launches += 1
     return u, m1
 

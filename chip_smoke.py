@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases, the default card's 400 iterations
     python3 chip_smoke.py --quick    # phases 0-2 only, each kernel checked, none timed
+    python3 chip_smoke.py --reference-lib LIB  # also: aw_iteration_step gives LIB's bits
 
 Phases, each printing one progress line (plus details) and failing the run
 with a non-zero exit on any error:
@@ -52,7 +53,20 @@ with a non-zero exit on any error:
    alone the same bits twice and an rms error against float64 within
    SUM_TOL of the plain product's; each launch of it and of its first WMMA
    chain (aw_iteration_step_wmma) is timed beside its bound, and the two
-   chains and the plain version in turns;
+   chains and the plain version in turns; with --reference-lib, it must
+   give the bits of another build's aw_iteration_step from the same state.
+   iteration_forward_bwd (the sm90 step's backward half from g, then the
+   phase fold) must give the same bits on two launches and, like its
+   first WMMA chain (aw_iteration_bwd_wmma), meet agreement.VJP_TOL
+   against the plain VJP; each of its launches is timed beside its bound,
+   and the two chains and the plain version in turns.  The tiled
+   synthesis (a reim pass, then the slab GEMM) must give the same bits on
+   two launches and from its two launches alone, its pass exactly ct
+   csinp, its GEMM's sums an rms error against float64 within SUM_TOL of
+   the plain product's, and u and m1 exactly what the tail rule makes of
+   those sums (on the problem and on the tail probe); it, its WMMA version
+   (aw_synth_tiled_fwd_wmma), the plain version and its two launches alone
+   are timed in turns;
 3. main path: load() -> embed_watermark_batch on 8 speech-like 10 s 16 kHz
    clips with random 20-bit messages (400 iterations) -> detect_watermark_
    batch, on the four solver paths: the default (the iteration_step kernel
@@ -193,7 +207,7 @@ def profile_solve(torch, run, trace: str | None = None, markers=GEMM_KERNELS) ->
             "mel_norm_fwd", "brh_fwd", "brh_bwd", "in_norm_bwd_stats", "mel_bwd_stats",
             "reflect_fold", "fold_scalars", "nadam_fold", "best_loss_update", "ola_",
             "reim_pass", "reflect_pad", "mag_pass", "mel_norm", "mel_bwd", "fold_partial",
-            "ties_partial", "gcrop_pass")
+            "ties_partial", "gcrop_pass", "tiled_reim")
     kinds = {"our kernels": 0.0, "cuBLAS GEMM": 0.0, "FFT": 0.0, "other": 0.0}
     top = []
     dtoh = 0
@@ -314,8 +328,8 @@ def _library_ms(torch, name, call, ref, quick):
     return None if quick else time_ms(torch, call, REPS)[0]
 
 
-SM90_EPILOGUES = ("StoreF32", "SlabSynthEpi", "SlabReflectBwdEpi", "DenseStore", "DenseBias",
-                  "DensePhase")
+SM90_EPILOGUES = ("StoreF32", "SlabSynthEpi", "SlabSynthTailEpi", "SlabReflectBwdEpi", "DenseStore",
+                  "DenseBias", "DensePhase")
 
 
 def sm90_instance(name: str):
@@ -328,11 +342,13 @@ def sm90_instance(name: str):
 
 
 def sm90_report(torch, b) -> None:
-    """Phase 1, the sm90 GEMMs (slab: shift_mm, band_analysis and the step's
-    round trip; dense: the step's detector products): the tile, grid,
+    """Phase 1, the sm90 GEMMs (slab: shift_mm, band_analysis, the tiled
+    synthesis and the step's round trip; dense: the step's detector
+    products, the iteration_forward VJP's among them): the tile, grid,
     threads, ring stages and dynamic shared memory of each launch the main
-    paths make (shift_mm at the long path's three uses, B = 8 x 3751
-    frames; the band_analysis pair and the step's 14 GEMMs at B = 8 x 626);
+    paths make (shift_mm at the long path's three uses and the tiled
+    synthesis, B = 8 x 3751 frames; the band_analysis pair and the step's
+    14 GEMMs at B = 8 x 626, the VJP's 7 the step's last 7);
     each instance's registers at entry, which must be the count its
     setmaxnreg split assumes (with fewer, its consumers would wait
     forever); and the HGMMA and UTMALDG instructions in the SASS of each
@@ -345,6 +361,7 @@ def sm90_report(torch, b) -> None:
 
     from aware_tpu_torch.ops.kernels import iteration as it
     from aware_tpu_torch.ops.kernels import roundtrip as rt
+    from aware_tpu_torch.ops.kernels import roundtrip_tiled as rtt
 
     def config(family, bm, bn):
         threads, stages, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -359,6 +376,9 @@ def sm90_report(torch, b) -> None:
                                 ("synthesis VJP (w_sb)", 3751, 512))]
     uses += [(f"band_analysis {d}", "slab", rt.plan_slab_gemm(BATCH, n_out, e, sms), n_out, e)
              for d, n_out, e in (("forward", 626, 512), ("VJP", 625, 256))]
+    rows = rtt.m1_rows(3750)
+    uses.append(("synth_tiled_fwd (w_sf, T = 3751)", "slab", rt.plan_slab_gemm(BATCH, rows, 256, sms),
+                 rows, 256))
     uses += [(f"iteration_step {g.name} ({g.kind}, K {g.k})", g.kind, pl, g.rows, g.n)
              for g, pl in zip(it.step_gemms(BATCH, 626, 256, 256),
                               it.plan_step(BATCH, 626, 256, 256, sms))]
@@ -559,6 +579,17 @@ def step_work(bsz, t, p, hop, chain) -> list:
     return out
 
 
+def bwd_work(bsz, t, p, hop) -> list:
+    """Each launch of one iteration_forward_bwd call (aw_iteration_bwd:
+    the sm90 step's backward half from g, then the phase fold), in launch
+    order, as step_work gives them."""
+    sm90 = step_work(bsz, t, p, hop, "sm90")
+    first = next(i for i, w in enumerate(sm90) if w[0].startswith("brh_bwd"))
+    state = bsz * t * p * F32
+    return ([("brh_bwd (the given g)",) + sm90[first][1:]] + sm90[first + 1 : -2]
+            + [("fold_phase", 0, bsz * t * 2 * p * (F32 + BF16) + state)])
+
+
 def launch_table(torch, label, call, work, reps=5) -> list:
     """Each launch of one call of a chain of kernels: device us (the
     torch.profiler rows of ``reps`` calls, in launch order, each
@@ -656,9 +687,34 @@ def step_gemm_checks(torch, it, c, bsz, t, p, hop, rng) -> None:
                                f"the plain product's {rms['plain']:.3e}")
 
 
-def step_checks(torch, it, states, step_args, bufs, bsz, t, p, hop, rng, quick) -> dict:
+def reference_step(torch, it, lib_path, state, step_args, bsz, t, p, hop) -> list:
+    """aw_iteration_step of another build of the kernel library (the
+    shared library at ``lib_path``, whose entry takes the same pointer
+    table and tiles) from ``state``: its state, loss and dreim."""
+    import ctypes
+
+    from aware_tpu_torch.ops.kernels.build import SIGNATURES
+
+    fn = ctypes.CDLL(lib_path).aw_iteration_step
+    fn.argtypes, fn.restype = SIGNATURES["aw_iteration_step"], ctypes.c_int
+    state = [x.clone() for x in state]
+    bufs = it.step_buffers(bsz, t, 2 * p, hop, state[0].device)
+    tensors = [*it._step_tensors(*state, *step_args[:7], bufs), *bufs.ops]
+    table = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+    tiles = it.step_tiles(bsz, t, p, hop, torch.cuda.get_device_properties(0).multi_processor_count)
+    err = fn(table, len(tensors), tiles, len(tiles), bsz, t, p, hop, *step_args[7],
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err != 0:
+        raise RuntimeError(f"{lib_path}: aw_iteration_step: CUDA error {err}")
+    return [*state, bufs.loss, bufs.scratch.big]
+
+
+def step_checks(torch, it, states, step_args, bufs, bsz, t, p, hop, rng, quick,
+                reference_lib=None) -> dict:
     """Row 11 beyond agreement.check_iteration: the sm90 chain repeats bit
-    for bit from the same state; each of its GEMMs alone
+    for bit from the same state (and, given ``reference_lib``, gives the
+    bits of that build's aw_iteration_step); each of its GEMMs alone
     (step_gemm_checks); each launch of it and of its first WMMA chain
     (aw_iteration_step_wmma, reached by no path) timed beside its bound
     (launch_table); then (not ``quick``) the two chains and the plain
@@ -675,6 +731,12 @@ def step_checks(torch, it, states, step_args, bufs, bsz, t, p, hop, rng, quick) 
         raise RuntimeError("iteration_step: two launches from the same state gave different bits")
     say("  iteration_step: two launches from the same state gave the same bits "
         "(ct, m, v, best, best_loss, loss, dreim)")
+    if reference_lib:
+        ref = reference_step(torch, it, reference_lib, st_k, step_args, bsz, t, p, hop)
+        if not all(torch.equal(a, b) for a, b in zip(outs[0], ref)):
+            raise RuntimeError(f"iteration_step: not the bits of {reference_lib}'s")
+        say(f"  iteration_step: the same bits as {reference_lib}'s aw_iteration_step from the "
+            "same state (ct, m, v, best, best_loss, loss, dreim)")
     step_gemm_checks(torch, it, step_args[6], bsz, t, p, hop, rng)
     bufs_w = it.step_buffers(bsz, t, 2 * p, hop, st_k[0].device)
     st_w = [x.clone() for x in st_k]
@@ -695,12 +757,44 @@ def step_checks(torch, it, states, step_args, bufs, bsz, t, p, hop, rng, quick) 
     return {k: sum(v) / len(v) for k, v in turns.items()}
 
 
-def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool) -> dict:
+def bwd_checks(torch, it, g, res, c, out_p, bsz, t, p, hop, quick) -> dict:
+    """Row 10 beyond agreement.check_iteration: the sm90 VJP
+    (aw_iteration_bwd) against the plain VJP from the plain residuals
+    (_close_vjp), the same bits on two launches; its first WMMA chain
+    (aw_iteration_bwd_wmma, reached by no path) held to the same bound;
+    each launch of both timed beside its bound (launch_table); then (not
+    ``quick``) the two chains and the plain version timed in turns (new,
+    WMMA, plain, then reversed).  Returns the record's ms, wmma_ms and
+    plain_ms, each the mean of two readings."""
+    fns = {"ms": lambda: it.iteration_forward_bwd(g, res, c),
+           "wmma_ms": lambda: it._iteration_forward_bwd_wmma(g, res, c),
+           "plain_ms": lambda: it.iteration_forward_bwd_plain(g, res, c)}
+    a, b = fns["ms"](), fns["ms"]()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise RuntimeError("iteration_forward_bwd: two launches gave different bits")
+    _close_vjp("iteration_forward_bwd (sm90 chain)", a, out_p)
+    _close_vjp("iteration_forward_bwd (WMMA chain)", fns["wmma_ms"](), out_p)
+    say("  iteration_forward_bwd: the same bits on two launches")
+    launch_table(torch, "iteration_forward_bwd per launch (sm90 chain, aw_iteration_bwd)",
+                 fns["ms"], bwd_work(bsz, t, p, hop))
+    if quick:
+        return {"wmma_ms": None}
+    turns = in_turns(torch, fns)
+    say("  iteration_forward_bwd in turns (sm90 chain, WMMA chain, plain, then reversed), "
+        "device ms: " + "; ".join(f"{k} {v[0]:.5f} {v[1]:.5f}" for k, v in turns.items())
+        + f"; per call from Python (checks, allocations and launches included): sm90 chain "
+        f"{time_ms(torch, fns['ms'], REPS)[1]:.5f} ms")
+    return {k: sum(v) / len(v) for k, v in turns.items()}
+
+
+def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None) -> dict:
     """Phase 2: each kernel against its plain version on the main path's
     operands (random cotangents from ``rng``; the step's GEMMs alone on
     operands from ``gemm_rng``, a generator of their own, so that the
     later phases' data do not depend on them); returns one record per
-    kernel."""
+    kernel.  ``reference_lib``: another build of the kernel library whose
+    aw_iteration_step must give the same bits (step_checks)."""
     from aware_tpu_torch.ops.kernels import agreement as ag
     from aware_tpu_torch.ops.kernels import analysis_detector as tad
     from aware_tpu_torch.ops.kernels import detector as td
@@ -832,7 +926,7 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool) -> dict:
         "iteration_forward_bwd": (
             lambda: it.iteration_forward_bwd(g_det, res_it, c),
             lambda: it.iteration_forward_bwd_plain(g_det, res_it, c),
-            None, it_src, "aware_tpu/ops/pallas/iteration.py:285",
+            None, "aware_tpu_torch/csrc/iteration_sm90.cu", "aware_tpu/ops/pallas/iteration.py:285",
             it_bwd_flops, it_bwd_bytes,
         ),
         "iteration_step": (
@@ -903,7 +997,9 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool) -> dict:
             rec["library_ms"] = _library_ms(torch, name, library[name], ref, quick)
         if name == "iteration_step":
             rec.update(step_checks(torch, it, (st_k, st_p), step_args, bufs, bsz, t, p, hop,
-                                   gemm_rng, quick))
+                                   gemm_rng, quick, reference_lib))
+        elif name == "iteration_forward_bwd":
+            rec.update(bwd_checks(torch, it, g_det, res_it, c, out_p, bsz, t, p, hop, quick))
         elif not quick and name not in wmma:
             rec["ms"], call_k = time_ms(torch, kern, REPS)
             rec["plain_ms"], call_p = time_ms(torch, plain, REPS)
@@ -1027,13 +1123,109 @@ def check_tiled_kernels(torch, pb, rng, quick: bool) -> dict:
     synth_rec = _record("synth_tiled_fwd", "aware_tpu_torch/csrc/roundtrip_tiled.cu",
                         "aware_tpu/ops/pallas/roundtrip_tiled.py:214",
                         err, flops, nbytes)
-    if not quick:
-        synth_rec["ms"] = time_ms(torch, kern, REPS)[0]
-        synth_rec["plain_ms"] = time_ms(torch, plain, REPS)[0]
+    synth_rec.update(synth_tiled_checks(torch, rt, rtt, synth, probe, quick))
     say(f"phase 2 kernel synth_tiled_fwd: max_abs_err {err:.3e} device ms {synth_rec['ms']} "
-        f"plain device ms {synth_rec['plain_ms']} bound_us {synth_rec['bound_ms'] * 1e3:.2f} "
+        f"WMMA version device ms {synth_rec['wmma_ms']} plain device ms "
+        f"{synth_rec['plain_ms']} (reim pass {synth_rec.get('reim_ms')}, slab GEMM "
+        f"{synth_rec.get('gemm_ms')}) bound_us {synth_rec['bound_ms'] * 1e3:.2f} "
         f"({synth_rec['bound_by']}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
     return {"shift_mm": shift, "synth_tiled_fwd": synth_rec}
+
+
+def synth_tiled_checks(torch, rt, rtt, synth, probe, quick) -> dict:
+    """Row 13 beyond its TOL check against the plain version: the same
+    bits on two launches, and from its two launches alone (the reim pass,
+    aw_synth_tiled_reim: the f32 products exactly; the slab GEMM,
+    aw_synth_tiled_gemm); the GEMM's sums (the same kernel on its planned
+    tile with a plain store, aw_slab_gemm) against a float64 product of
+    the same bf16 operands, rms error within SUM_TOL of the plain float32
+    product's; u and m1 exactly what the tail rule makes of those sums (u
+    = acc / env + y_const below lr, m1 = max |u| and |acc| of the rows from
+    lr to m1_rows), on the problem's operands and on the tail probe; the
+    first WMMA version (aw_synth_tiled_fwd_wmma, reached by no path) to
+    TOL; then (not ``quick``) new, WMMA, plain and the two launches alone
+    timed in turns.  Returns the record's ms, wmma_ms, plain_ms, reim_ms
+    and gemm_ms, each the mean of two readings."""
+    import torch.nn.functional as F
+
+    ct, csinp, y_const, env, w_sf = synth
+    bsz, t, p = ct.shape
+    lr, hop = env.shape
+    dev = ct.device
+    rows = rtt.m1_rows(lr)
+    reim = torch.empty(bsz, t, 2 * p, device=dev)
+    u, m1 = torch.empty(bsz, lr, hop, device=dev), torch.empty(bsz, device=dev)
+    u_w, m1_w = torch.empty_like(u), torch.empty_like(m1)
+    plan = rt.slab_plan_for(reim, rows, hop)
+
+    def parts(x=ct, csinp=csinp, y_const=y_const, env=env):
+        rt._run("aw_synth_tiled_reim", dev, x, csinp, reim, m1, bsz, t, p)
+        rt._run("aw_synth_tiled_gemm", dev, reim, y_const, env, w_sf, u, m1, bsz, t, p, hop,
+                rows, plan.bm, plan.bn)
+        return u, m1
+
+    def sums():  # the slab GEMM on reim, with a plain store
+        acc = torch.empty(bsz, rows, hop, device=dev)
+        rt._run("aw_slab_gemm", dev, reim, w_sf, acc, bsz, t, 2 * p, rtt.R * 2 * p, hop, rows,
+                hop, 2 * p, 0, +1, 1, plan.bm, plan.bn)
+        return acc
+
+    def product(dtype):  # output row j reads reim rows j - 1 .. j + 2
+        xb = F.pad(reim, (0, 0, 1, rows + 2 - t)).to(torch.bfloat16).to(dtype)
+        return sum(xb[:, k : k + rows] @ w_sf[k].to(dtype) for k in range(rtt.R))
+
+    a, b = rtt.synth_tiled_fwd(*synth), rtt.synth_tiled_fwd(*synth)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise RuntimeError("synth_tiled_fwd: two launches gave different bits")
+    for label, args in (("problem", synth), ("tail probe", probe)):
+        full = [x.clone() for x in rtt.synth_tiled_fwd(*args)]
+        got = parts(*args[:4])
+        x, cs = args[0], args[1]
+        if not torch.equal(reim, torch.cat([x * cs[:, 1 : t + 1, :p], x * cs[:, 1 : t + 1, p:]],
+                                           dim=-1)):
+            raise RuntimeError(f"synth_tiled_fwd {label}: the reim pass is not ct csinp")
+        if not all(torch.equal(x, y) for x, y in zip(full, got)):
+            raise RuntimeError(f"synth_tiled_fwd {label}: its two launches alone gave other bits")
+        acc = sums()
+        u_rule = acc[:, :lr] / args[3] + args[2]
+        m1_rule = u_rule.abs().amax(dim=(1, 2))
+        if rows > lr:  # the tail rows
+            m1_rule = torch.maximum(m1_rule, acc[:, lr:].abs().amax(dim=(1, 2)))
+        if not (torch.equal(full[0], u_rule) and torch.equal(full[1], m1_rule)):
+            raise RuntimeError(f"synth_tiled_fwd {label}: u and m1 are not the tail rule's of "
+                               "the GEMM's sums")
+        if label == "problem":
+            ex = product(torch.float64)
+            rms = {k: float((v.double() - ex).pow(2).mean().sqrt() / ex.abs().max())
+                   for k, v in (("new", acc), ("plain", product(torch.float32)))}
+            say(f"  synth_tiled_fwd slab GEMM ({rows} rows, tile {plan.bm} x {plan.bn}, grid "
+                f"{plan.grid}) against a float64 product, rms error / max|float64|: new "
+                f"{rms['new']:.3e}, plain {rms['plain']:.3e}")
+            if rms["new"] > SUM_TOL * rms["plain"]:
+                raise RuntimeError(f"synth_tiled_fwd: rms error {rms['new']:.3e} over {SUM_TOL} x "
+                                   f"the plain product's {rms['plain']:.3e}")
+    say("  synth_tiled_fwd: the same bits on two launches and from its two launches alone; "
+        "the reim pass exactly ct csinp; u and m1 exactly the tail rule's of the GEMM's sums "
+        "(problem and tail probe)")
+
+    def wmma():
+        rt._run("aw_synth_tiled_fwd_wmma", dev, *synth, u_w, m1_w, bsz, t, p, hop, rows)
+        return u_w, m1_w
+
+    _close("synth_tiled_fwd (WMMA version)", wmma(), rtt.synth_tiled_fwd_plain(*synth))
+    if quick:
+        return {"wmma_ms": None}
+    turns = in_turns(torch, {
+        "ms": lambda: rtt.synth_tiled_fwd(*synth), "wmma_ms": wmma,
+        "plain_ms": lambda: rtt.synth_tiled_fwd_plain(*synth),
+        "reim_ms": lambda: rt._run("aw_synth_tiled_reim", dev, ct, csinp, reim, m1, bsz, t, p),
+        "gemm_ms": lambda: rt._run("aw_synth_tiled_gemm", dev, reim, y_const, env, w_sf, u, m1,
+                                   bsz, t, p, hop, rows, plan.bm, plan.bn)})
+    say("  synth_tiled_fwd in turns (new, WMMA, plain, the reim pass, the slab GEMM, then "
+        "reversed), device ms: "
+        + "; ".join(f"{k} {v[0]:.5f} {v[1]:.5f}" for k, v in turns.items()))
+    return {k: sum(v) / len(v) for k, v in turns.items()}
 
 
 OLA_FWD_TOL = (1e-6, 1e-6)   # ola_normalize forward: atol, rtol (tests/test_pallas.py:43)
@@ -1254,6 +1446,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None,
                     help="a directory for the Chrome traces of the phase 3 profiles")
+    ap.add_argument("--reference-lib", default=None,
+                    help="another build of the kernel library (a shared library path), whose "
+                    "aw_iteration_step must give the same bits in phase 2")
     args = ap.parse_args()
 
     import torch
@@ -1309,7 +1504,8 @@ def main() -> int:
     if pb.path != "iteration_step":
         raise RuntimeError(f"the default card took the {pb.path} path, not iteration_step")
     records = check_kernels(torch, pb, cfg.hop_length, rng,
-                            np.random.default_rng([args.seed, 11]), args.quick)
+                            np.random.default_rng([args.seed, 11]), args.quick,
+                            args.reference_lib)
     del pb
     # the long path's kernels on its operands: 8 clips of 60 s, from a
     # generator of their own, so that the other phases' data do not depend

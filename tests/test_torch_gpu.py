@@ -18,7 +18,9 @@ sm90 slab GEMM (shift_mm at its three uses, the band_analysis forward and
 VJP) on each tile it can take, to 1e-3 * max|plain|, bit for bit over two
 launches, and its wrapper checks; the sm90 dense GEMM of the whole step on
 each tile, to the same bound against the float32 product of its bf16
-operands, and the whole step bit for bit over two launches from one state.
+operands, and the whole step bit for bit over two launches from one state;
+the redesigned tiled synthesis and iteration_forward VJP beside their
+first WMMA versions and their plain versions, and their wrappers' checks.
 """
 
 import numpy as np
@@ -360,6 +362,78 @@ def test_tiled_wrappers_reject_what_the_kernels_do_not_take(cuda):
         rtt.shift_mm(d["g_cs"][:, :, ::2], d["w_ab"], 300)
     with pytest.raises(ValueError):
         rtt.shift_mm(d["g_y2"], d["w_sb"].cpu(), 300)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t, loud_tail", [(257, False), (300, True), (3751, False)])
+def test_synth_tiled_against_its_wmma_version_and_plain(cuda, t, loud_tail):
+    """The sm90 synthesis (the reim pass, then the slab GEMM) and its first
+    WMMA version (aw_synth_tiled_fwd_wmma, reached by no wrapper) against
+    the plain version; the new one bit for bit over two launches."""
+    d = _tiled_data(t, cuda, loud_tail)
+    args = (d["ct"], d["csinp"], d["yconst"], d["env"], d["w_sf"])
+    b, _, p = d["ct"].shape
+    before = rtt.synth_tiled_fwd.launches
+    new, again = rtt.synth_tiled_fwd(*args), rtt.synth_tiled_fwd(*args)
+    ref = rtt.synth_tiled_fwd_plain(*args)
+    old = (torch.empty_like(ref[0]), torch.empty_like(ref[1]))
+    rt._run("aw_synth_tiled_fwd_wmma", cuda, *args, *old, b, t, p, HOP, rtt.m1_rows(t - 1))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(new, again))
+    for ours in (new, old):
+        _close(ours[0], ref[0])
+        _close(ours[1], ref[1])
+    if loud_tail:  # the rows past lr set m1
+        assert torch.all(new[1] > 1.1 * new[0].abs().amax(dim=(1, 2)))
+    assert rtt.synth_tiled_fwd.launches - before == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 97, 626])
+def test_iteration_bwd_against_its_wmma_version_and_plain(cuda, t):
+    """The sm90 VJP (the step's backward half from g, then the phase fold)
+    and its first WMMA chain (aw_iteration_bwd_wmma, reached by no wrapper)
+    against the plain VJP from the plain residuals, to agreement.VJP_TOL;
+    the new one bit for bit over two launches."""
+    ct, c, _, g = _iter_inputs(t, cuda)
+    _, res = it.iteration_forward_fwd_plain(ct, c)
+    before = [k.launches for k in it.KERNELS]
+    new, again = it.iteration_forward_bwd(g, res, c), it.iteration_forward_bwd(g, res, c)
+    old = it._iteration_forward_bwd_wmma(g, res, c)
+    ref = it.iteration_forward_bwd_plain(g, res, c)
+    torch.cuda.synchronize()
+    assert torch.equal(new, again)
+    ag.check_vjp(new, ref)
+    ag.check_vjp(old, ref)
+    assert [k.launches - n for k, n in zip(it.KERNELS, before)] == [0, 2, 0]
+
+
+@pytest.mark.gpu
+def test_redesigned_wrappers_refuse_before_any_launch(cuda):
+    def moved(x):  # a copy 4 (bf16: 2) bytes past a 16-byte boundary
+        out = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    d = _tiled_data(300, cuda)
+    before = rtt.synth_tiled_fwd.launches
+    for i, name in enumerate(("ct", "csinp", "yconst", "env", "w_sf")):
+        args = [d[k] for k in ("ct", "csinp", "yconst", "env", "w_sf")]
+        args[i] = moved(args[i])
+        with pytest.raises(ValueError):
+            rtt.synth_tiled_fwd(*args)
+    assert rtt.synth_tiled_fwd.launches == before
+    ct, c, _, g = _iter_inputs(8, cuda)
+    _, res = it.iteration_forward_fwd_plain(ct, c)
+    before = it.iteration_forward_bwd.launches
+    with pytest.raises(ValueError):
+        it.iteration_forward_bwd(g, res, c._replace(cswt=moved(c.cswt)))
+    with pytest.raises(ValueError):
+        it.iteration_forward_bwd(g, res, c._replace(det=c.det._replace(w2=moved(c.det.w2))))
+    with pytest.raises(ValueError):  # T = 7 < 8
+        short = res._replace(det=res.det._replace(nph=res.det.nph[:, :7].contiguous()))
+        it.iteration_forward_bwd(g, short, c)
+    assert it.iteration_forward_bwd.launches == before
 
 
 def _slab_uses(d, t):

@@ -35,6 +35,7 @@ import jax.numpy as jnp
 
 from aware_tpu_torch.ops.kernels import agreement as ag
 from aware_tpu_torch.ops.kernels import iteration as it
+from aware_tpu_torch.ops.kernels.detector import DetResiduals
 from aware_tpu_torch.ops.kernels import roundtrip as rt
 from test_torch_kernels_iteration import B1, B2, EPS, HI, LO, _jax_fwd, _jax_step, _problem
 from test_torch_kernels_iteration import _scalars, _spread
@@ -115,14 +116,18 @@ def chunk_sum(x, dim, size):
 
 # -------------------------------------------------------------- the walk ---
 
-def step_walk(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c, k, sms=132):
-    """One step of the sm90 chain, in place on ct, m, v, best and
-    best_loss; returns (loss, pred, the step's gradient on ct)."""
+def step_plans(b, t, p, hop, sms=132):
+    """The planned tile of each of the step's GEMMs, by name."""
+    return dict(zip((g.name for g in it.step_gemms(b, t, p, hop)),
+                    it.plan_step(b, t, p, hop, sms)))
+
+
+def fwd_walk(ct, c, plans):
+    """The chain's forward half: ct (B, T, P) -> (pred (B, 128),
+    IterResiduals), the residuals in the dtypes the chain writes them."""
     b, t, p = ct.shape
     hop = c.env.shape[-1]
-    lr, t2, p2 = t - 1, t // 2, 2 * p
-    plans = dict(zip((g.name for g in it.step_gemms(b, t, p, hop)),
-                     it.plan_step(b, t, p, hop, sms)))
+    lr, t2 = t - 1, t // 2
     d = c.det
     # the round trip forward: reim, the synthesis, the reflect-padded y2, the analysis
     cs_in = c.csin.float()
@@ -135,7 +140,7 @@ def step_walk(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c, k, sms
     f = torch.arange(-2 * hop, n + 2 * hop)
     f = torch.where(f < 0, -f, torch.where(f >= n, 2 * (n - 1) - f, f))
     ypad = y2[:, f].reshape(b, t + 3, hop)
-    cs = slab_walk(ypad, c.csw.float(), t, p2, hop, 0, +1, 0, plans["reflect analysis"])
+    cs = slab_walk(ypad, c.csw.float(), t, 2 * p, hop, 0, +1, 0, plans["reflect analysis"])
     # the detector forward, each product's A materialized in bf16
     re, im = cs[..., :p], cs[..., p:]
     sq = re * re + im * im
@@ -161,24 +166,41 @@ def step_walk(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c, k, sms
         mu = h.mean(dim=1, keepdim=True)
         r = 1.0 / torch.sqrt(((h - mu) ** 2).mean(dim=1, keepdim=True) + IN_EPS)
         yhat = (h - mu) * r
-        ys.append(_bf16(yhat))
-        rins.append(r)
+        ys.append(yhat.to(torch.bfloat16))
+        rins.append(r[:, 0])
         x = _bf16(torch.where(yhat >= 0, yhat, 0.2 * yhat))
     pool4 = torch.where(yhat >= 0, yhat, 0.2 * yhat).mean(dim=1)
     pred = torch.tanh(pool4 @ d.eo)
-    # the loss and its gradient, then the detector backward
-    loss, dpred = it.push_extremes_grad(pred, wm)
+    det = DetResiduals(pred, nph.to(torch.bfloat16), mel.to(torch.bfloat16), *ys, mu1, r1,
+                       *rins, gmu, gr, sd)
+    return pred, it.IterResiduals(det, u, m1)
+
+
+def bwd_walk(dpred, res, c, plans):
+    """The chain's backward half from dpred (B, 128) and the forward's
+    residuals alone -> the gradient on ct (B, T, P): the phase fold of the
+    dreim it leaves."""
+    det = res.det
+    b, t, p2 = det.nph.shape
+    p, hop = p2 // 2, c.env.shape[-1]
+    lr, t2 = t - 1, t // 2
+    d = c.det
+    pred = det.pred
     dx = ((dpred * (1 - pred * pred)) @ d.eot / t2)[:, None, :].expand(b, t2, CH[4])
     for i in range(3, -1, -1):
-        y = ys[i]
+        y = getattr(det, f"y{i}").float()
         du = dx * torch.where(y >= 0, 1.0, 0.2)
         g1, g2 = du.mean(dim=1, keepdim=True), (du * y).mean(dim=1, keepdim=True)
-        dh = _bf16(rins[i] * (du - g1 - y * g2))
+        dh = _bf16(getattr(det, f"rin{i}")[:, None] * (du - g1 - y * g2))
         dx = dense_walk(dh.reshape(b * t2, CH[i + 1]), getattr(d, f"w{i}").float(),
                         plans[f"conv {i} VJP"]).reshape(b, t2, CH[i])
+    rc = -(-t // 15)
+    rc += rc % 2
+    n_el = t * CH[0]
+    mu1, r1, gmu, gr, sd = det.mu1, det.r1, det.gmu, det.gr, det.s
     db = torch.zeros(b, t, CH[0])
     db[:, : 2 * t2] = 0.5 * dx.repeat_interleave(2, dim=1)
-    a = (_bf16(mel) - mu1[:, None]) * r1[:, None]
+    a = (det.mel.float() - mu1[:, None]) * r1[:, None]
     bs = (a - gmu[:, None, None]) * gr[:, None, None]
     mean_db = chunk_sum(db.sum(dim=2), 1, rc) / n_el
     coef = chunk_sum((db * bs).sum(dim=2), 1, rc) / (sd * (n_el - 1))
@@ -187,7 +209,7 @@ def step_walk(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c, k, sms
     g2 = chunk_sum(da * a, 1, rc) / t
     dmel = _bf16(r1[:, None] * (da - g1[:, None] - a * g2[:, None]))
     dm = dense_walk(dmel.reshape(b * t, CH[0]), d.melbt.float(), plans["mel VJP"])
-    dcs = dm.reshape(b, t, p).repeat(1, 1, 2) * nph
+    dcs = dm.reshape(b, t, p).repeat(1, 1, 2) * det.nph.float()
     # the round trip backward: the analysis VJP, the reflect fold, gcrop,
     # the synthesis VJP
     gp = slab_walk(dcs, c.cswt.float(), t + 3, hop, 0, hop, -1, 0,
@@ -196,9 +218,11 @@ def step_walk(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c, k, sms
     gpad = _bf16(torch.cat([gp[:, :2], gp[:, lr + 2 :]], dim=1)).reshape(b, -1)
     half = 2 * hop
     e = torch.arange(2 * half)
+    n = lr * hop
     gy2[:, torch.where(e < half, half - e, n - 2 - (e - half))] += gpad
+    m1 = res.m1
     cden = rt.peak_den(m1)[:, 0, 0]
-    yv = y2
+    yv = (res.u / rt.peak_den(m1)).reshape(b, -1)
     q = chunk_sum(gy2 * yv, 1, it.FOLD_CHUNK)
     mx = yv.abs().amax(dim=1)
     ties = (yv.abs() == mx[:, None]).float().sum(dim=1)
@@ -206,7 +230,17 @@ def step_walk(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c, k, sms
     gu = gy2 / cden[:, None] - (q * (1.0 + 1e-8) / cden)[:, None] * torch.sign(yv) * mask / ties[:, None]
     gcrop = gu.reshape(b, lr, hop) / c.env
     dreim = slab_walk(gcrop, c.abt.float(), t, p2, hop, 0, +1, 2, plans["synthesis VJP"])
-    g = rt.phase_fold_plain(dreim, c.csin)
+    return rt.phase_fold_plain(dreim, c.csin)
+
+
+def step_walk(ct, m, v, best, best_loss, lower, upper, wm, s1, s2, d2, c, k, sms=132):
+    """One step of the sm90 chain, in place on ct, m, v, best and
+    best_loss; returns (loss, pred, the step's gradient on ct)."""
+    b, t, p = ct.shape
+    plans = step_plans(b, t, p, c.env.shape[-1], sms)
+    pred, res = fwd_walk(ct, c, plans)
+    loss, dpred = it.push_extremes_grad(pred, wm)
+    g = bwd_walk(dpred, res, c, plans)
     it.step_epilogue_plain(g, ct, m, v, best, best_loss, lower, upper, loss, s1, s2, d2, k)
     return loss, pred, g
 
