@@ -3,13 +3,17 @@
 //
 // They replace the analysis halves of the two Pallas TPU kernels of
 // aware_tpu/ops/pallas/analysis_detector.py; the detector halves are
-// aw_detector_fwd / aw_detector_bwd (detector.cu), which the wrappers
-// launch right after:
+// aw_detector_fwd (detector.cu) and aw_detector_bwd (detector_sm90.cu),
+// which the wrappers launch right after and right before:
 //
 //   aw_reflect_analysis_fwd <- analysis_detector forward (_ad_fwd_kernel:
 //                              reflect-pad framing + slab DFT)
 //   aw_reflect_analysis_bwd <- analysis_detector VJP (_ad_bwd_kernel:
-//                              transposed slabs + reflect-pad routing)
+//                              transposed slabs + reflect-pad routing): in
+//                              detector_sm90.cu, on the sm90 slab GEMM; its
+//                              first version stays here as
+//                              aw_reflect_analysis_bwd_wmma, and the
+//                              detector half of the VJP is aw_detector_bwd
 //
 // Per clip (T frames, lr = T - 1 signal rows of hop samples, y the
 // flattened rows, L = lr * hop, R = 4 slabs, 2 rows of centre padding):
@@ -33,17 +37,6 @@
 
 #include "analysis_detector.cuh"
 
-namespace {
-
-// gy2[reflected sample] += gpad, one block per clip.
-__global__ void reflect_fold(const float* gpad, float* gy2, int lr, int hop) {
-  const int b = blockIdx.x;
-  reflect_fold_clip(gpad + (long long)b * 2 * kPad * hop, gy2 + (long long)b * lr * hop, lr,
-                    hop);
-}
-
-}  // namespace
-
 extern "C" {
 
 // y2 (B, T-1, hop) f32, csw (4 hop, 2P) bf16 -> cs2 (B, T, 2P) f32.
@@ -54,13 +47,14 @@ int aw_reflect_analysis_fwd(const float* y2, const __nv_bfloat16* csw, float* cs
 }
 
 // dcs (B, T, 2P) f32, cswt (2P, 4 hop) bf16 -> gy2 (B, T-1, hop) f32;
-// scratch gpad (B, 4, hop) f32.
-int aw_reflect_analysis_bwd(const float* dcs, const __nv_bfloat16* cswt, float* gy2,
-                            float* gpad, int batch, int t, int p2, int hop, void* stream) {
+// scratch gpad (B, 4, hop) f32.  The first WMMA version, which
+// aw_reflect_analysis_bwd (detector_sm90.cu) replaced; no wrapper reaches
+// it: chip_smoke.py times the two in turns.
+int aw_reflect_analysis_bwd_wmma(const float* dcs, const __nv_bfloat16* cswt, float* gy2,
+                                 float* gpad, int batch, int t, int p2, int hop, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   launch_reflect_analysis_bwd(dcs, cswt, gy2, gpad, batch, t, p2, hop, st);
-  reflect_fold<<<batch, 2 * kPad * hop < 1024 ? 2 * kPad * hop : 1024, 0, st>>>(
-      gpad, gy2, t - 1, hop);
+  launch_reflect_fold(gpad, gy2, batch, t - 1, hop, st);
   return (int)cudaGetLastError();
 }
 

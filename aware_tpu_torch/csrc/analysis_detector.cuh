@@ -54,6 +54,20 @@ __device__ void reflect_fold_clip(const float* gpad, float* gy2, int lr, int hop
   }
 }
 
+// gy2[reflected sample] += gpad, one block per clip: the fold after
+// either version of the reflect analysis's VJP.
+__global__ void reflect_fold(const float* gpad, float* gy2, int lr, int hop) {
+  const int b = blockIdx.x;
+  reflect_fold_clip(gpad + (long long)b * 2 * kPad * hop, gy2 + (long long)b * lr * hop, lr,
+                    hop);
+}
+
+void launch_reflect_fold(const float* gpad, float* gy2, int batch, int lr, int hop,
+                         cudaStream_t st) {
+  reflect_fold<<<batch, 2 * kPad * hop < 1024 ? 2 * kPad * hop : 1024, 0, st>>>(gpad, gy2, lr,
+                                                                                 hop);
+}
+
 // The reflect-pad analysis GEMM: cs2 (B, T, 2P) from the signal rows
 // (ReflectA's y, m1) and csw (4 hop, 2P) bf16.
 void launch_reflect_analysis(const float* y, const float* m1, const __nv_bfloat16* csw,

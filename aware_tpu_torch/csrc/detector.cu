@@ -3,7 +3,9 @@
 // They replace the two Pallas TPU kernels of aware_tpu/ops/pallas/detector.py:
 //
 //   aw_detector_fwd <- detector_fused forward (_fwd_impl, _fwd_kernel, _det_fwd_values)
-//   aw_detector_bwd <- detector_fused VJP     (_bwd_impl, _bwd_kernel, _det_bwd_values)
+//   aw_detector_bwd <- detector_fused VJP     (_bwd_impl, _bwd_kernel, _det_bwd_values):
+//                      in detector_sm90.cu, the sm90 step's detector VJP;
+//                      its first chain stays here as aw_detector_bwd_wmma
 //
 // The device code and the two chains of launches are in detector.cuh, which
 // the whole-iteration entries of iteration.cu share.
@@ -48,16 +50,18 @@ int aw_detector_fwd(const float* cs, const __nv_bfloat16* melb, const __nv_bfloa
 // g (B, 128) f32 and the forward's outputs (see aw_detector_fwd); w0..w3
 // (C_out, C_in) bf16, eot (128, 128) f32, melbt (128, P) bf16 -> dcs
 // (B, T, 2P) f32.  Scratch: dxa, dxb (B, T2, 1024), m1, m2 (B, 1024),
-// dx4 (B, 128), clip2 (B, 2) f32.
-int aw_detector_bwd(const float* g, float* pred, __nv_bfloat16* nph, __nv_bfloat16* mel_bf,
-                    __nv_bfloat16* y0, __nv_bfloat16* y1, __nv_bfloat16* y2,
-                    __nv_bfloat16* y3, float* mu1, float* r1, float* rin0, float* rin1,
-                    float* rin2, float* rin3, float* gmu, float* gr, float* s,
-                    const __nv_bfloat16* w0, const __nv_bfloat16* w1,
-                    const __nv_bfloat16* w2, const __nv_bfloat16* w3, const float* eot,
-                    const __nv_bfloat16* melbt, float* dcs, float* dxa, float* dxb,
-                    float* m1, float* m2, float* dx4, float* clip2, int batch, int t, int p,
-                    void* stream) {
+// dx4 (B, 128), clip2 (B, 2) f32.  The first WMMA chain of the VJP, which
+// aw_detector_bwd (detector_sm90.cu) replaced; no wrapper reaches it:
+// chip_smoke.py times the two in turns.
+int aw_detector_bwd_wmma(const float* g, float* pred, __nv_bfloat16* nph,
+                         __nv_bfloat16* mel_bf, __nv_bfloat16* y0, __nv_bfloat16* y1,
+                         __nv_bfloat16* y2, __nv_bfloat16* y3, float* mu1, float* r1,
+                         float* rin0, float* rin1, float* rin2, float* rin3, float* gmu,
+                         float* gr, float* s, const __nv_bfloat16* w0, const __nv_bfloat16* w1,
+                         const __nv_bfloat16* w2, const __nv_bfloat16* w3, const float* eot,
+                         const __nv_bfloat16* melbt, float* dcs, float* dxa, float* dxb,
+                         float* m1, float* m2, float* dx4, float* clip2, int batch, int t,
+                         int p, void* stream) {
   detector_bwd_chain(g, nullptr, nullptr,
                      DetRes{pred, nph, mel_bf, y0, y1, y2, y3, mu1, r1, rin0, rin1, rin2, rin3,
                             gmu, gr, s},

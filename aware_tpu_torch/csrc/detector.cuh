@@ -1,6 +1,8 @@
 // The fused detector's device code, for Hopper (sm_90a): the kernels and
-// the two chains of launches that detector.cu's C entries (detector_fused)
-// and iteration.cu's (iteration_forward, iteration_step) run.
+// the two chains of launches that detector.cu's C entries (detector_fused
+// forward, and the VJP's first chain aw_detector_bwd_wmma) and
+// iteration.cu's WMMA chains run; the sm90 chains (detector_sm90.cuh,
+// iteration_sm90.cu) share its norm, BRH and mel-term kernels.
 //
 // What they compute, per clip b (T frames, T2 = T // 2, P padded band bins,
 // channels 128 -> 512 -> 1024 -> 1024 -> 128, the last padded from 40):

@@ -3,7 +3,10 @@
 // They replace the three Pallas TPU kernels of aware_tpu/ops/pallas/iteration.py:
 //
 //   aw_iteration_fwd  <- iteration_forward forward (_iter_fwd_impl :173,
-//                        _iter_fwd_kernel :72)
+//                        _iter_fwd_kernel :72); the forward half of the
+//                        sm90 step computes it too, as
+//                        aw_iteration_fwd_sm90 (iteration_sm90.cu), which
+//                        no path reaches yet
 //   aw_iteration_bwd  <- iteration_forward VJP (_iter_bwd_impl :285,
 //                        _iter_bwd_kernel :193): in iteration_sm90.cu, the
 //                        backward half of the sm90 step; its first chain
@@ -40,11 +43,11 @@
 // shared memory, so here each direction stays a chain of launches through
 // device memory, on the caller's stream, with nothing allocated:
 //
-//   fwd  (13 launches + 1 memset): memset m1; the synthesis GEMM with the
-//        per-clip atomicMax of |u| into m1's bits; the reflect-pad analysis
-//        GEMM, whose loader forms y2 = u / cden as it stages it (no
-//        peak_scale pass, no y2 in memory); the 11 launches of the detector
-//        forward;
+//   fwd  (13 launches + 1 memset, aw_iteration_fwd): memset m1; the
+//        synthesis GEMM with the per-clip atomicMax of |u| into m1's bits;
+//        the reflect-pad analysis GEMM, whose loader forms y2 = u / cden
+//        as it stages it (no peak_scale pass, no y2 in memory); the 11
+//        launches of the detector forward;
 //   bwd  (15 launches, aw_iteration_bwd_wmma): the 11 of the detector
 //        backward; the transposed analysis GEMM (pad rows' cotangents to a
 //        small scratch); ONE per-clip kernel that folds the pad rows into
@@ -126,27 +129,15 @@ void iteration_bwd_chain(const float* g, const float* wm, float* loss, const Det
 
 extern "C" {
 
-// ptrs (42): ct (B, T, P) f32; csin, y_const, env, ab, csw (RoundConsts);
-// melb, w0t..w3t, biases, eo (the detector's forward constants) -> the 16
-// residuals (DetResiduals' order: pred first), u (B, T-1, hop) and m1 (B,)
-// f32; then the 11 scratch buffers (IterScratch).
+// ptrs (42, FwdArgs).  The forward the weight-decay path runs;
+// chip_smoke.py times it in turns with aw_iteration_fwd_sm90.
 int aw_iteration_fwd(void* const* ptrs, int n, int batch, int t, int p, int hop,
                      void* stream) {
   Ptrs a{ptrs, n, 0};
-  const float* ct = a.next<const float>();
-  RoundConsts c{};
-  c.csin = a.next<const bf16>();
-  c.y_const = a.next<const float>();
-  c.env = a.next<const float>();
-  c.ab = a.next<const bf16>();
-  c.csw = a.next<const bf16>();
-  const DetFwdConsts dc = take_det_fwd(a);
-  const DetRes r = take_res(a);
-  float* u = a.next<float>();
-  float* m1 = a.next<float>();
-  const IterScratch w = take_scratch(a);
+  const FwdArgs s = take_fwd(a);
   if (!a.done()) return (int)cudaErrorInvalidValue;
-  iteration_fwd_chain(ct, c, dc, r, u, m1, w, batch, t, p, hop, (cudaStream_t)stream);
+  iteration_fwd_chain(s.ct, s.c, s.dc, s.r, s.u, s.m1, s.w, batch, t, p, hop,
+                      (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

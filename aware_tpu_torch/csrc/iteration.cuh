@@ -1,6 +1,7 @@
 // What iteration.cu (the WMMA chains: aw_iteration_fwd,
 // aw_iteration_bwd_wmma, aw_iteration_step_wmma) and iteration_sm90.cu (the
-// TMA + wgmma chains: aw_iteration_step, aw_iteration_bwd) share: the reading of the pointer table their C
+// TMA + wgmma chains: aw_iteration_step, aw_iteration_fwd_sm90,
+// aw_iteration_bwd) share: the reading of the pointer table their C
 // entries take, the round trip's constants, the scratch, and the step's
 // NAdam / clamp / best epilogue.  What they compute: iteration.cu.
 
@@ -98,6 +99,36 @@ IterScratch take_scratch(Ptrs& a) {
                  &w.small, &w.clip2, &w.gy2, &w.gpad, &w.scal};
   for (float** q : f) *q = a.next<float>();
   return w;
+}
+
+// The forward's pointer table (42), as aw_iteration_fwd and
+// aw_iteration_fwd_sm90 take it: ct (B, T, P) f32; csin, y_const, env, ab,
+// csw (RoundConsts); melb, w0t..w3t, biases, eo (the detector's forward
+// constants) -> the 16 residuals (DetResiduals' order: pred first), u
+// (B, T-1, hop) and m1 (B,) f32; then the 11 scratch buffers.
+struct FwdArgs {
+  const float* ct;
+  RoundConsts c;
+  DetFwdConsts dc;
+  DetRes r;
+  float *u, *m1;
+  IterScratch w;
+};
+
+FwdArgs take_fwd(Ptrs& a) {
+  FwdArgs s{};
+  s.ct = a.next<const float>();
+  s.c.csin = a.next<const bf16>();
+  s.c.y_const = a.next<const float>();
+  s.c.env = a.next<const float>();
+  s.c.ab = a.next<const bf16>();
+  s.c.csw = a.next<const bf16>();
+  s.dc = take_det_fwd(a);
+  s.r = take_res(a);
+  s.u = a.next<float>();
+  s.m1 = a.next<float>();
+  s.w = take_scratch(a);
+  return s;
 }
 
 // The VJP's pointer table (41), as aw_iteration_bwd and

@@ -1,11 +1,16 @@
 // The whole solver step for Hopper (sm_90a) on TMA and wgmma: the port's
-// aw_iteration_step, and its backward half alone as aw_iteration_bwd.
+// aw_iteration_step, and its halves alone as aw_iteration_fwd_sm90 and
+// aw_iteration_bwd.
 //
-//   aw_iteration_step <- aware_tpu/ops/pallas/iteration.py iteration_step
-//                        (pallas_call :513, _step_kernel :341)
-//   aw_iteration_bwd  <- the iteration_forward VJP (pallas_call :285,
-//                        _iter_bwd_kernel :193): the step's backward half
-//                        from a given g, then the phase fold
+//   aw_iteration_step     <- aware_tpu/ops/pallas/iteration.py iteration_step
+//                            (pallas_call :513, _step_kernel :341)
+//   aw_iteration_fwd_sm90 <- the iteration_forward forward (pallas_call :173,
+//                            _iter_fwd_kernel :72): the step's forward half,
+//                            reached by no path yet (ops/kernels/iteration.py
+//                            says why)
+//   aw_iteration_bwd      <- the iteration_forward VJP (pallas_call :285,
+//                            _iter_bwd_kernel :193): the step's backward half
+//                            from a given g, then the phase fold
 //
 // It computes what the first chain, aw_iteration_step_wmma (iteration.cu,
 // which says what a step is), computes, with the same pointer table, the
@@ -48,22 +53,22 @@
 // in_norm_fwd); brh_fwd; brh_bwd; 4 x (in_norm_bwd_stats, conv VJP); 3 mel
 // VJP statistics stages; mel VJP; analysis VJP; 2 fold and scalar stages;
 // gcrop; synthesis VJP; nadam_fold; best_loss_update: 40.  The chain is
-// two halves (step_fwd: 20 launches, step_bwd: 18) and the epilogue;
+// two halves (step_fwd: 20 launches, step_bwd: 18) and the epilogue.
+// aw_iteration_fwd_sm90 is step_fwd: 20 launches; the forward the
+// weight-decay path runs, aw_iteration_fwd (iteration.cu, 13 launches on
+// the WMMA template), measured 1.33 ms at B = 8, T = 626 (PERF.md), 67x
+// its 0.020 ms bound.
 // aw_iteration_bwd is step_bwd from g, reading only the residuals, then
-// fold_phase: 19 launches.  Its first chain, aw_iteration_bwd_wmma
-// (iteration.cu, 15 launches on the WMMA template), measured 1.62 ms at
-// B = 8, T = 626 (PERF.md), 81x its 0.020 ms bound.
+// fold_phase: 19 launches; its first chain, aw_iteration_bwd_wmma
+// (iteration.cu, 15 launches), measured 1.62 ms, 81x its 0.020 ms bound.
+// The backward half's detector part and its analysis VJP are shared with
+// the detector_fused and analysis_detector VJPs (detector_sm90.cuh).
 
-#include "dense_gemm_sm90.cuh"
-#include "iteration.cuh"
-#include "slab_gemm_sm90.cuh"
+#include "detector_sm90.cuh"
 
 namespace {
 
-constexpr int kRedBlock = 256;  // threads of the chunked reductions and passes
-constexpr int kPartLd = 4096;   // floats of one clip's partial sums
 constexpr int kFoldChunk = 4096;  // samples of a fold / scalar block
-constexpr int kMelChunks = 15;    // row chunks of the mel stages: 2 x 15 x 128 + 30 partials
 
 // The step's own buffers: a16 (B, max(T2 1024, T P)) bf16, the detector
 // GEMMs' A operands in turn; rows (B, T+3, hop) f32, the reflect-padded
@@ -72,53 +77,6 @@ struct StepOps {
   bf16* a16;
   float* rows;
   float* part;
-};
-
-// The planned tiles, (bm, bn) per GEMM in launch order: the forward
-// half's seven, then the backward half's (the step takes both lists in
-// one array, aw_iteration_bwd the second).
-enum FwdGemm { gSynth, gAnalysis, gMel, gConv0, gConv1, gConv2, gConv3, gFwdGemms };
-enum BwdGemm {
-  gConv3Vjp, gConv2Vjp, gConv1Vjp, gConv0Vjp, gMelVjp, gAnalysisVjp, gSynthVjp, gBwdGemms
-};
-
-// The sum (or max) over a kRedBlock block in a fixed order: every thread
-// gets it.
-template <bool kIsMax>
-__device__ float block_reduce(float v, float* sh) {
-  for (int o = 16; o > 0; o /= 2) {
-    const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = kIsMax ? fmaxf(v, w) : v + w;
-  }
-  __syncthreads();
-  if (threadIdx.x % 32 == 0) sh[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = sh[0];
-  for (int w = 1; w < kRedBlock / 32; ++w) s = kIsMax ? fmaxf(s, sh[w]) : s + sh[w];
-  return s;
-}
-
-// ------------------------------------------------- slab GEMM epilogues ---
-
-// The reflect analysis's VJP: padded row j, interior -> gy2 (B, lr, hop),
-// the four pad rows -> gpad (B, 4, hop), rounded to bf16.
-struct SlabReflectBwdEpi {
-  static constexpr bool kMax = false;
-  float* gy2;
-  float* gpad;
-  int lr;
-  int hop;
-  __device__ float operator()(int b, int j, int col, float v0, float v1) const {
-    if (j >= kPad && j < lr + kPad) {
-      *reinterpret_cast<float2*>(gy2 + ((long long)b * lr + j - kPad) * hop + col) =
-          make_float2(v0, v1);
-    } else {
-      const int pr = j < kPad ? j : j - lr;  // 0, 1 | 2, 3
-      *reinterpret_cast<float2*>(gpad + ((long long)b * 2 * kPad + pr) * hop + col) =
-          make_float2(bf16_round(v0), bf16_round(v1));
-    }
-    return 0.f;
-  }
 };
 
 // ------------------------------------------------------------- passes ---
@@ -172,51 +130,8 @@ __global__ void mag_pass(const float* cs, bf16* nph, bf16* mag, long long rows, 
 
 // ------------------------------------------- the mel norm, in chunks ---
 //
-// mel_norm_fwd's reductions (detector.cuh) over (row chunk, clip) blocks of
-// kRedBlock threads: channel c = thread % 128, two row lanes.  Stage k
-// writes its partials to part (the clip's kPartLd floats) at its own
-// offset, and every later block of the clip finishes them in chunk order.
-// Chunks are `rc` rows, rc even, so that a pool row's two frames share a
-// block.
-
-struct MelChunks {
-  int t;
-  int rc;   // rows per chunk
-  int nch;  // chunks
-  __device__ int lo() const { return blockIdx.x * rc; }
-  __device__ int hi() const { return min(t, (int)blockIdx.x * rc + rc); }
-};
-
-// Chunks of rc rows, rc even, at most kMelChunks of them.
-MelChunks mel_chunks(int t) {
-  int rc = (t + kMelChunks - 1) / kMelChunks;
-  rc += rc & 1;
-  return MelChunks{t, rc, (t + rc - 1) / rc};
-}
-
-constexpr int kMelBlockLanes = kRedBlock / kMel;
-
-// The per-channel sums of this block's two lanes, to part[off + chunk 128 + c].
-__device__ void put_channel(float v, float* sh, float* part, int off) {
-  __syncthreads();
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  if (threadIdx.x < kMel)
-    part[off + blockIdx.x * kMel + threadIdx.x] = sh[threadIdx.x] + sh[kMel + threadIdx.x];
-}
-
-// Channel c's sum over the chunks of part[off + k 128 + c].
-__device__ float channel_total(const float* part, int off, int nch, int c) {
-  float s = 0.f;
-  for (int k = 0; k < nch; ++k) s += part[off + k * kMel + c];
-  return s;
-}
-
-__device__ float chunk_total(const float* part, int off, int nch) {
-  float s = 0.f;
-  for (int k = 0; k < nch; ++k) s += part[off + k];
-  return s;
-}
+// mel_norm_fwd's reductions (detector.cuh) over (row chunk, clip) blocks,
+// on the chunks of detector_sm90.cuh (MelChunks).
 
 // The offsets of the stages' partials in a clip's kPartLd floats.
 struct MelParts {
@@ -338,87 +253,6 @@ mel_norm5(const float* mel, float* part_all, MelChunks ch, bf16* pool_a, float* 
   }
 }
 
-// ------------------------------------ the mel VJP's statistics, in chunks ---
-//
-// mel_bwd_stats (detector.cuh) over (row chunk, clip) blocks: stage 1 the
-// clip's sums of db and db bs, stage 2 each channel's sums of da and da a,
-// stage 3 the mel VJP GEMM's bf16 A, MelBwdA's value.
-
-struct MelBwdParts {
-  int nch;
-  __device__ int db() const { return 0; }              // nch
-  __device__ int dbbs() const { return nch; }           // nch
-  __device__ int da() const { return 2 * nch; }         // nch x 128
-  __device__ int daa() const { return 2 * nch + nch * kMel; }  // nch x 128
-};
-
-__global__ void __launch_bounds__(kRedBlock)
-mel_bwd1(MelBwdTerms terms, float* part_all, MelChunks ch) {
-  __shared__ float sh[kRedBlock / 32];
-  const int b = blockIdx.y, c = threadIdx.x % kMel, lane = threadIdx.x / kMel;
-  float a1 = 0.f, a2 = 0.f, db, a, bs;
-  for (int i = ch.lo() + lane; i < ch.hi(); i += kMelBlockLanes) {
-    terms(b, i, c, db, a, bs);
-    a1 += db;
-    a2 += db * bs;
-  }
-  a1 = block_reduce<false>(a1, sh);
-  a2 = block_reduce<false>(a2, sh);
-  float* part = part_all + (long long)b * kPartLd;
-  const MelBwdParts o{ch.nch};
-  if (threadIdx.x == 0) {
-    part[o.db() + blockIdx.x] = a1;
-    part[o.dbbs() + blockIdx.x] = a2;
-  }
-}
-
-struct MelBwdClip {
-  float mean_db, coef;
-};
-
-__device__ MelBwdClip mel_bwd_clip(const float* part, MelBwdParts o, const float* s, int b,
-                                   int t) {
-  const float n_el = (float)t * kMel;
-  return {chunk_total(part, o.db(), o.nch) / n_el,
-          chunk_total(part, o.dbbs(), o.nch) / (s[b] * (n_el - 1.f))};
-}
-
-__global__ void __launch_bounds__(kRedBlock)
-mel_bwd2(MelBwdTerms terms, const float* s, float* part_all, MelChunks ch) {
-  __shared__ float sh[kRedBlock];
-  const int b = blockIdx.y, c = threadIdx.x % kMel, lane = threadIdx.x / kMel;
-  float* part = part_all + (long long)b * kPartLd;
-  const MelBwdParts o{ch.nch};
-  const MelBwdClip k = mel_bwd_clip(part, o, s, b, ch.t);
-  const float g_r = terms.gr[b];
-  float a1 = 0.f, a2 = 0.f, db, a, bs;
-  for (int i = ch.lo() + lane; i < ch.hi(); i += kMelBlockLanes) {
-    terms(b, i, c, db, a, bs);
-    const float da = g_r * (db - k.mean_db) - bs * k.coef;
-    a1 += da;
-    a2 += da * a;
-  }
-  put_channel(a1, sh, part, o.da());
-  put_channel(a2, sh, part, o.daa());
-}
-
-__global__ void __launch_bounds__(kRedBlock)
-mel_bwd3(MelBwdTerms terms, const float* s, const float* part_all, MelChunks ch, bf16* dmel) {
-  const int b = blockIdx.y, c = threadIdx.x % kMel, lane = threadIdx.x / kMel;
-  const float* part = part_all + (long long)b * kPartLd;
-  const MelBwdParts o{ch.nch};
-  const MelBwdClip k = mel_bwd_clip(part, o, s, b, ch.t);
-  const float m1 = channel_total(part, o.da(), ch.nch, c) / ch.t;
-  const float m2 = channel_total(part, o.daa(), ch.nch, c) / ch.t;
-  const float g_r = terms.gr[b], r1 = terms.r1[b * kMel + c];
-  float db, a, bs;
-  for (int i = ch.lo() + lane; i < ch.hi(); i += kMelBlockLanes) {
-    terms(b, i, c, db, a, bs);
-    const float da = g_r * (db - k.mean_db) - bs * k.coef;
-    dmel[((long long)b * ch.t + i) * kMel + c] = __float2bfloat16(r1 * (da - m1 - a * m2));
-  }
-}
-
 // -------------------------- the reflect fold and the peak-norm VJP's scalars ---
 //
 // fold_scalars (iteration.cu) over (sample chunk, clip) blocks: stage 1
@@ -518,43 +352,33 @@ gcrop_pass(const float* gy2, const float* u, const float* m1, const float* env,
 
 // ---------------------------------------------------------------- chain ---
 
-struct Tiles {
-  const int* bmbn;  // (bm, bn) pairs
-  int bm(int g) const { return bmbn[2 * g]; }
-  int bn(int g) const { return bmbn[2 * g + 1]; }
-};
-
 // The (T-1) hop samples of a clip fit the fold's partial sums.
 bool fold_fits(int t, int hop) {
   return (long long)(t - 1) * hop <= (long long)kFoldChunk * (kPartLd / 3);
 }
 
-#define AW_TRY(call)               \
-  if ((err = (call)) != 0) return err
-#define AW_LAUNCHED() AW_TRY((int)cudaGetLastError())
-
-// The forward half: ct -> u, m1, pred and the detector's residuals, or
-// the first CUDA error of a launch.  tl: the FwdGemm tiles.
-int step_fwd(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, int t, int p,
-             int hop, cudaStream_t st) {
+// The forward half: ct (B, T, P) -> u (B, T-1, hop), m1 (B,), pred and
+// the detector's residuals r, or the first CUDA error of a launch.  w:
+// big, mel32, ha, hb, mu and small as scratch; o: all three.  tl: the
+// FwdGemm tiles.  20 launches.
+int step_fwd(const float* ct, const RoundConsts& c, const DetFwdConsts& dfc, const DetRes& r,
+             float* u, float* m1, const IterScratch& w, const StepOps& o, const Tiles& tl,
+             int batch, int t, int p, int hop, cudaStream_t st) {
   const int lr = t - 1, t2 = t / 2, p2 = 2 * p;
-  const RoundConsts& c = s.c;
-  const IterScratch& w = s.w;
-  const DetRes& r = s.r;
   int err;
 
   // ---- the round trip forward
   const long long rows_t = (long long)batch * t;
-  reim_pass<<<elementwise_blocks(rows_t * p2), 256, 0, st>>>(s.ct, c.csin, w.big, s.m1, rows_t,
-                                                             p, batch);
+  reim_pass<<<elementwise_blocks(rows_t * p2), 256, 0, st>>>(ct, c.csin, w.big, m1, rows_t, p,
+                                                             batch);
   AW_LAUNCHED();
   AW_TRY(sm90::launch_slab_gemm(
       sm90::Problem{w.big, batch, t, c.ab, p2, 4 * hop,
                     sm90::Params{lr, hop, p2, /*k_row=*/0, /*k_col=*/hop, /*dir=*/-1, /*pad=*/kPad}},
-      sm90::SlabSynthEpi{s.u, c.env, c.y_const, (unsigned int*)s.m1, lr, hop}, tl.bm(gSynth),
+      sm90::SlabSynthEpi{u, c.env, c.y_const, (unsigned int*)m1, lr, hop}, tl.bm(gSynth),
       tl.bn(gSynth), st));
   reflect_pad<<<elementwise_blocks((long long)batch * (lr + 2 * kPad) * hop), 256, 0, st>>>(
-      s.u, s.m1, o.rows, batch, lr, hop);
+      u, m1, o.rows, batch, lr, hop);
   AW_LAUNCHED();
   AW_TRY(sm90::launch_slab_gemm(
       sm90::Problem{o.rows, batch, lr + 2 * kPad, c.csw, 4 * hop, p2,
@@ -564,7 +388,7 @@ int step_fwd(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, in
   // ---- the detector forward
   mag_pass<<<elementwise_blocks(rows_t * p), 256, 0, st>>>(w.big, r.nph, o.a16, rows_t, p);
   AW_LAUNCHED();
-  AW_TRY(sm90::launch_dense_gemm(o.a16, s.dfc.melb, (int)rows_t, p, kMel,
+  AW_TRY(sm90::launch_dense_gemm(o.a16, dfc.melb, (int)rows_t, p, kMel,
                                  sm90::DenseStore{w.mel32, kMel}, tl.bm(gMel), tl.bn(gMel), st));
   const MelChunks mc = mel_chunks(t);
   const dim3 mel_grid(mc.nch, batch);
@@ -575,7 +399,7 @@ int step_fwd(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, in
   mel_norm5<<<mel_grid, kRedBlock, 0, st>>>(w.mel32, o.part, mc, o.a16, r.mu1, r.r1, r.gmu,
                                             r.gr, r.s);
   AW_LAUNCHED();
-  const bf16* wt[4] = {s.dfc.w0t, s.dfc.w1t, s.dfc.w2t, s.dfc.w3t};
+  const bf16* wt[4] = {dfc.w0t, dfc.w1t, dfc.w2t, dfc.w3t};
   bf16* ys[4] = {r.y0, r.y1, r.y2, r.y3};
   float* rins[4] = {r.rin0, r.rin1, r.rin2, r.rin3};
   float* hs[2] = {w.ha, w.hb};
@@ -583,7 +407,7 @@ int step_fwd(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, in
   for (int i = 0; i < 4; ++i) {
     const int g = gConv0 + i;
     AW_TRY(sm90::launch_dense_gemm(o.a16, wt[i], rows_t2, kCh[i], kCh[i + 1],
-                                   sm90::DenseBias{hs[i % 2], s.dfc.biases + i * kBiasLd,
+                                   sm90::DenseBias{hs[i % 2], dfc.biases + i * kBiasLd,
                                                    kCh[i + 1]},
                                    tl.bm(g), tl.bn(g), st));
     in_norm_fwd<<<norm_grid(kCh[i + 1], batch), kNormCh * kNormLanes, 0, st>>>(
@@ -591,65 +415,29 @@ int step_fwd(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, in
         i < 3 ? o.a16 : nullptr);
     AW_LAUNCHED();
   }
-  brh_fwd<<<batch, kMel, 0, st>>>(w.small, s.dfc.eo, r.pred);
+  brh_fwd<<<batch, kMel, 0, st>>>(w.small, dfc.eo, r.pred);
   return (int)cudaGetLastError();
 }
 
 // The backward half: g (B, 128), or given wm the push_extremes gradient
 // with the loss out, -> dreim (B, T, 2P) in w.big, or the first CUDA error
-// of a launch.  It reads only the forward's residuals (r, u, m1) and the
+// of a launch: the detector's VJP (det_bwd_sm90, dcs into w.big), then the
+// round trip's.  It reads only the forward's residuals (r, u, m1) and the
 // constants: every StepOps buffer it reads, it has written itself
 // (o.a16 by in_norm_bwd_stats and mel_bwd3, o.part by mel_bwd1 and
-// fold_partial, o.rows by gcrop_pass).  tl: the BwdGemm tiles.
+// fold_partial, o.rows by gcrop_pass).  tl: the BwdGemm tiles.  18
+// launches.
 int step_bwd(const float* g, const float* wm, float* loss, const DetRes& r, const float* u,
              const float* m1, const RoundConsts& c, const DetBwdConsts& dbc,
              const IterScratch& w, const StepOps& o, const Tiles& tl, int batch, int t, int p,
              int hop, cudaStream_t st) {
-  const int lr = t - 1, t2 = t / 2, p2 = 2 * p;
-  const long long rows_t = (long long)batch * t;
-  const int rows_t2 = batch * t2;
+  const int lr = t - 1, p2 = 2 * p;
   int err;
-
-  // ---- the detector backward
-  brh_bwd<<<batch, kMel, 0, st>>>(g, wm, loss, r.pred, dbc.eot, t2, w.small);
-  AW_LAUNCHED();
-  const bf16* ws[4] = {dbc.w0, dbc.w1, dbc.w2, dbc.w3};
-  const bf16* ys[4] = {r.y0, r.y1, r.y2, r.y3};
-  const float* rins[4] = {r.rin0, r.rin1, r.rin2, r.rin3};
-  float* hs[2] = {w.ha, w.hb};
-  const float* dx = w.small;  // layer 3's cotangent: one row, broadcast over time
-  long long dx_clip = kMel, dx_row = 0;
-  for (int i = 3; i >= 0; --i) {
-    const int c_out = kCh[i + 1], c_in = kCh[i];
-    const int gi = gConv3Vjp + (3 - i);
-    in_norm_bwd_stats<<<norm_grid(c_out, batch), kNormCh * kNormLanes, 0, st>>>(
-        dx, dx_clip, dx_row, ys[i], t2, c_out, w.mu, w.m2, rins[i], o.a16);
-    AW_LAUNCHED();
-    float* out = hs[i % 2];
-    AW_TRY(sm90::launch_dense_gemm(o.a16, ws[i], rows_t2, c_out, c_in,
-                                   sm90::DenseStore{out, c_in}, tl.bm(gi), tl.bn(gi), st));
-    dx = out;
-    dx_clip = (long long)t2 * c_in;
-    dx_row = c_in;
-  }
-  const MelChunks mc = mel_chunks(t);
-  const dim3 mel_grid(mc.nch, batch);
-  const MelBwdTerms terms{dx, r.mel, r.mu1, r.r1, r.gmu, r.gr, t};
-  mel_bwd1<<<mel_grid, kRedBlock, 0, st>>>(terms, o.part, mc);
-  mel_bwd2<<<mel_grid, kRedBlock, 0, st>>>(terms, r.s, o.part, mc);
-  mel_bwd3<<<mel_grid, kRedBlock, 0, st>>>(terms, r.s, o.part, mc, o.a16);
-  AW_LAUNCHED();
-  AW_TRY(sm90::launch_dense_gemm(o.a16, dbc.melbt, (int)rows_t, kMel, p,
-                                 sm90::DensePhase{w.big, r.nph, p}, tl.bm(gMelVjp),
-                                 tl.bn(gMelVjp), st));
+  AW_TRY(det_bwd_sm90(g, wm, loss, r, dbc, w.big, w, o.a16, o.part, tl, batch, t, p, st));
 
   // ---- the round trip backward
-  AW_TRY(sm90::launch_slab_gemm(
-      sm90::Problem{w.big, batch, t, c.cswt, p2, 4 * hop,
-                    sm90::Params{lr + 2 * kPad, hop, p2, /*k_row=*/0, /*k_col=*/hop,
-                                 /*dir=*/-1, /*pad=*/0}},
-      SlabReflectBwdEpi{w.gy2, w.gpad, lr, hop}, tl.bm(gAnalysisVjp), tl.bn(gAnalysisVjp),
-      st));
+  AW_TRY(reflect_analysis_bwd_sm90(w.big, c.cswt, w.gy2, w.gpad, tl.bm(gAnalysisVjp),
+                                   tl.bn(gAnalysisVjp), batch, t, p2, hop, st));
   const FoldChunks fc{(long long)lr * hop, (int)(((long long)lr * hop + kFoldChunk - 1) / kFoldChunk)};
   const dim3 fold_grid(fc.nch, batch);
   fold_partial<<<fold_grid, kRedBlock, 0, st>>>(w.gpad, w.gy2, u, m1, o.part, fc, hop);
@@ -669,7 +457,7 @@ int step_bwd(const float* g, const float* wm, float* loss, const DetRes& r, cons
 int step_chain(const StepArgs& s, const StepOps& o, const Tiles& tl, int batch, int t, int p,
                int hop, NadamCoefs k, cudaStream_t st) {
   int err;
-  AW_TRY(step_fwd(s, o, tl, batch, t, p, hop, st));
+  AW_TRY(step_fwd(s.ct, s.c, s.dfc, s.r, s.u, s.m1, s.w, o, tl, batch, t, p, hop, st));
   AW_TRY(step_bwd(nullptr, s.wm, s.loss, s.r, s.u, s.m1, s.c, s.dbc, s.w, o,
                   Tiles{tl.bmbn + 2 * gFwdGemms}, batch, t, p, hop, st));
   launch_step_epilogue(s.w.big, s.c.csin, s.ct, s.m, s.v, s.best, s.best_loss, s.lower, s.upper,
@@ -702,10 +490,25 @@ int aw_iteration_step(void* const* ptrs, int n, const int* tiles, int n_tiles, i
   Ptrs a{ptrs, n, 0};
   const StepArgs s = take_step(a);
   const StepOps o = take_ops(a);
-  if (!a.done() || n_tiles != 2 * (gFwdGemms + gBwdGemms) || t < 8 || !fold_fits(t, hop))
+  if (!a.done() || n_tiles != 2 * (gFwdGemms + gBwdGemms) || t < kMinFrames ||
+      !fold_fits(t, hop))
     return (int)cudaErrorInvalidValue;
   return step_chain(s, o, Tiles{tiles}, batch, t, p, hop, NadamCoefs{c_m, b2, c_v, eps},
                     (cudaStream_t)stream);
+}
+
+// The iteration_forward forward on the step's forward half: ptrs (45),
+// the 42 of FwdArgs (iteration.cuh), then StepOps' 3 -> pred, the 16
+// residuals, u and m1.  tiles: (bm, bn) of the 7 forward GEMMs (FwdGemm).
+// Refuses T < 8 and a wrong length of either array, before any launch.
+int aw_iteration_fwd_sm90(void* const* ptrs, int n, const int* tiles, int n_tiles, int batch,
+                          int t, int p, int hop, void* stream) {
+  Ptrs a{ptrs, n, 0};
+  const FwdArgs s = take_fwd(a);
+  const StepOps o = take_ops(a);
+  if (!a.done() || n_tiles != 2 * gFwdGemms || t < kMinFrames) return (int)cudaErrorInvalidValue;
+  return step_fwd(s.ct, s.c, s.dc, s.r, s.u, s.m1, s.w, o, Tiles{tiles}, batch, t, p, hop,
+                  (cudaStream_t)stream);
 }
 
 // The iteration_forward VJP: ptrs (44), the 41 of BwdArgs (iteration.cuh),
@@ -719,7 +522,7 @@ int aw_iteration_bwd(void* const* ptrs, int n, const int* tiles, int n_tiles, in
   Ptrs a{ptrs, n, 0};
   const BwdArgs s = take_bwd(a);
   const StepOps o = take_ops(a);
-  if (!a.done() || n_tiles != 2 * gBwdGemms || t < 8 || !fold_fits(t, hop))
+  if (!a.done() || n_tiles != 2 * gBwdGemms || t < kMinFrames || !fold_fits(t, hop))
     return (int)cudaErrorInvalidValue;
   const int err = step_bwd(s.g, nullptr, nullptr, s.r, s.u, s.m1, s.c, s.dc, s.w, o,
                            Tiles{tiles}, batch, t, p, hop, st);

@@ -362,6 +362,22 @@ def _readings(seeds: int, frames: tuple[int, ...], batch: int, dev: torch.device
         print(f"  {name} T={t} {k}: {v:.3e}")
 
 
+def _speech_clips(rng, batch: int, n: int):
+    """``batch`` speech-like clips of n samples at 16 kHz, (B, n) float64."""
+    import numpy as np
+
+    tt = np.arange(n) / 16000
+    clips = []
+    for _ in range(batch):
+        ph = np.cumsum(2 * np.pi * (rng.uniform(100, 180) + 25 * np.sin(2 * np.pi * 2.3 * tt))
+                       / 16000)
+        x = sum(np.cos(k * ph) / k for k in range(1, 25))
+        x = x * (0.4 + 0.6 * np.clip(np.sin(2 * np.pi * 3.1 * tt), 0, None))
+        x = x + 0.02 * rng.standard_normal(n)
+        clips.append(x / np.max(np.abs(x)))
+    return np.stack(clips)
+
+
 def iteration_problem(t: int, batch: int, seed: int, device):
     """Operands of the whole-iteration kernels for ``batch`` speech-like
     clips of ``t`` frames (noise and pitch from ``seed``), built by the
@@ -375,15 +391,7 @@ def iteration_problem(t: int, batch: int, seed: int, device):
 
     rng = np.random.default_rng(seed)
     cfg = AwareConfig()
-    sr, n = 16000, (t - 1) * cfg.hop_length
-    tt = np.arange(n) / sr
-    clips = []
-    for _ in range(batch):
-        ph = np.cumsum(2 * np.pi * (rng.uniform(100, 180) + 25 * np.sin(2 * np.pi * 2.3 * tt)) / sr)
-        x = sum(np.cos(k * ph) / k for k in range(1, 25))
-        x = x * (0.4 + 0.6 * np.clip(np.sin(2 * np.pi * 3.1 * tt), 0, None))
-        x = x + 0.02 * rng.standard_normal(n)
-        clips.append(x / np.max(np.abs(x)))
+    clips = _speech_clips(rng, batch, (t - 1) * cfg.hop_length)
     bits = rng.integers(0, 2, (batch, 20))
     wm = torch.zeros(batch, 128, device=device)
     wm[:, :20] = torch.as_tensor(2.0 * bits - 1.0, dtype=torch.float32, device=device)
@@ -391,7 +399,7 @@ def iteration_problem(t: int, batch: int, seed: int, device):
     g[:, :20] = torch.as_tensor(rng.standard_normal((batch, 20)), dtype=torch.float32,
                                 device=device)
     net = DetectorNet(params_from_jax(load_key_params()), cfg.detection_net).to(device)
-    pb = build_problem(net, torch.as_tensor(np.stack(clips), dtype=torch.float32, device=device),
+    pb = build_problem(net, torch.as_tensor(clips, dtype=torch.float32, device=device),
                        wm[:, :20], cfg)
     return pb.ct0, pb.iteration, wm, g
 
@@ -454,18 +462,79 @@ def _iteration_readings(seeds: int, frames: tuple[int, ...], batch: int, dev) ->
         print(f"  iteration T={t} {key}: {v:.3e}")
 
 
+def _short_solve_readings(seeds: int, frames: tuple[int, ...], dev) -> None:
+    """The weight-decay path's outcome below 32 frames, where chip_smoke.py
+    phase 3s holds only the outcome (no lane with a higher BER on the card
+    than the CPU plain solve's on the same lane): per pair of speech-like
+    clips of T frames (from the seed), the 400-iteration BER % per lane of
+    the solve on the card with the iteration_forward forward's sm90 chain
+    (``_iteration_forward_fwd_sm90``) in the place of the WMMA chain the
+    path runs, on the card as the path runs, and of the plain solve on the
+    CPU from the clips and from the clips moved by 1e-6 of themselves;
+    then, per variant, the lanes that read worse than the CPU plain
+    solve's."""
+    import numpy as np
+
+    from aware_tpu_torch import load
+    from aware_tpu_torch.embed.solver import embed_batch
+    from aware_tpu_torch.models.detector import detect_values_batch
+    from aware_tpu_torch.ops.kernels import iteration as it
+
+    opt = {"optimizer_params": {"lr": 0.1, "weight_decay": 1e-4}}
+    emb, det = load(device=dev, **opt)
+    _, det_cpu = load(device="cpu", **opt)
+    wmma_fwd = it.iteration_forward_fwd
+
+    def ber(net, audio, bits):
+        return np.mean((detect_values_batch(net, audio).cpu().numpy() > 0) != bits, axis=1) * 100
+
+    worse = {}
+    for t in frames:
+        for seed in range(seeds):
+            rng = np.random.default_rng([seed, t, 3])
+            clips = _speech_clips(rng, 2, (t - 1) * emb.cfg.hop_length)
+            bits = rng.integers(0, 2, (2, 20))
+            moved = clips * (1 + 1e-6 * rng.standard_normal(clips.shape))
+            wm = torch.as_tensor(2.0 * bits - 1.0, dtype=torch.float32)
+            row = {}
+            for name, fwd in (("card sm90", it._iteration_forward_fwd_sm90),
+                              ("card WMMA fwd", wmma_fwd)):
+                it.iteration_forward_fwd = fwd  # _IterationForward looks it up per call
+                try:
+                    x = torch.as_tensor(clips, dtype=torch.float32, device=dev)
+                    res = embed_batch(det.net, x, wm.to(dev), emb.cfg)
+                finally:
+                    it.iteration_forward_fwd = wmma_fwd
+                row[name] = ber(det.net, res.audio, bits)
+            for name, x in (("cpu", clips), ("cpu moved", moved)):
+                res = embed_batch(det_cpu.net, torch.as_tensor(x, dtype=torch.float32), wm,
+                                  emb.cfg)
+                row[name] = ber(det_cpu.net, res.audio, bits)
+            print(f"short solve T={t} seed {seed}: BER % per lane "
+                  + "; ".join(f"{k} {v.tolist()}" for k, v in row.items()), flush=True)
+            for k in ("card sm90", "card WMMA fwd", "cpu moved"):
+                worse[(t, k)] = worse.get((t, k), 0) + int(np.sum(row[k] > row["cpu"]))
+    print(f"short solve: lanes reading worse than the CPU plain solve's, of {2 * seeds} a T:")
+    for (t, k), v in sorted(worse.items()):
+        print(f"  T={t} {k}: {v}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, default=8)
     ap.add_argument("--frames", type=int, nargs="+", default=[8, 9, 33, 97, 626])
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--only", choices=("detector", "iteration"), default=None,
-                    help="the detector kernels' readings, or the whole-iteration kernels'")
+    ap.add_argument("--only", choices=("detector", "iteration", "short-solve"), default=None,
+                    help="the detector kernels' readings, the whole-iteration kernels', or the "
+                    "weight-decay solve's outcome below 32 frames")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("agreement: no CUDA card")
         return 1
     dev = torch.device("cuda")
+    if args.only == "short-solve":
+        _short_solve_readings(args.seeds, tuple(args.frames), dev)
+        return 0
     if args.only != "iteration":
         _readings(args.seeds, tuple(args.frames), args.batch, dev)
     if args.only != "detector":

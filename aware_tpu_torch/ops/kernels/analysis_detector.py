@@ -10,12 +10,14 @@ bit values, with the exact reflect-pad framing of the STFT
 and its VJP, the detector's VJP followed by the transposed slabs and the
 reflect-pad routing back into the boundary signal rows.  On the card each
 direction is two C entries: ``aw_reflect_analysis_fwd`` then
-``aw_detector_fwd``, and ``aw_detector_bwd`` then
-``aw_reflect_analysis_bwd`` (``csrc/analysis_detector.cu``,
-``csrc/detector.cu``).  The wrappers ``analysis_detector_fwd`` /
-``analysis_detector_bwd`` count their own launch in ``launches``, and the
-detector wrappers they call count theirs; given tensors on the CPU they
-run the plain versions.
+``aw_detector_fwd`` (``csrc/analysis_detector.cu``, ``csrc/detector.cu``:
+the WMMA template), and ``aw_detector_bwd`` then
+``aw_reflect_analysis_bwd`` (``csrc/detector_sm90.cu``: the sm90 step's
+detector VJP and its reflect analysis VJP, TMA + wgmma; their first WMMA
+versions stay as ``*_wmma``, which no path reaches).  The wrappers
+``analysis_detector_fwd`` / ``analysis_detector_bwd`` count their own
+launch in ``launches``, and the detector wrappers they call count theirs;
+given tensors on the CPU they run the plain versions.
 
 The JAX kernel builds the four pad rows as products with 0/1 flip matrices
 (``reflect_pad_matrices``, ``_pad_rows``); the plain version here does the
@@ -34,18 +36,31 @@ import torch.nn.functional as F
 
 from aware_tpu_torch.ops.kernels.detector import (
     CH,
+    MIN_FRAMES,
     N_BITS,
     DetConsts,
     DetResiduals,
+    _detector_fused_bwd_wmma,
+    check_detector_bwd,
     detector_fused_bwd,
     detector_fused_bwd_plain,
     detector_fused_fwd,
     detector_fused_fwd_plain,
 )
-from aware_tpu_torch.ops.kernels.roundtrip import PAD, R, _bf16, _check, _check_geometry, _run
+from aware_tpu_torch.ops.kernels.roundtrip import (
+    PAD,
+    R,
+    StepGemm,
+    _bf16,
+    _check,
+    _check_geometry,
+    _run,
+    check_slab_gemm,
+    check_weights_aligned,
+    slab_plan_for,
+)
 
 _BF16 = torch.bfloat16
-MIN_FRAMES = 8  # distinct reflect-pad boundary rows
 
 
 class AnalysisDetConsts(NamedTuple):
@@ -165,17 +180,48 @@ def _reflect_analysis_fwd(y2: torch.Tensor, ac: AnalysisDetConsts) -> torch.Tens
     return cs2
 
 
-def _reflect_analysis_bwd(dcs: torch.Tensor, ac: AnalysisDetConsts) -> torch.Tensor:
-    """The CUDA counterpart of :func:`reflect_analysis_bwd_plain`."""
+def reflect_gemm_bwd(t: int, p2: int, hop: int) -> StepGemm:
+    """The reflect analysis VJP's slab GEMM (the sm90 step's, and
+    aw_reflect_analysis_bwd's): the lr + 4 padded rows of hop from dcs's
+    2P columns."""
+    return StepGemm("reflect analysis VJP", "slab", t - 1 + 2 * PAD, p2, hop)
+
+
+def _reflect_analysis_bwd(dcs: torch.Tensor, ac: AnalysisDetConsts,
+                          wmma: bool = False) -> torch.Tensor:
+    """The CUDA counterpart of :func:`reflect_analysis_bwd_plain`: the
+    slab GEMM over the lr + 4 padded rows on its planned tile, then the
+    fold of the pad rows; with ``wmma``, its first WMMA version (no path
+    reaches it)."""
     b, t, p2 = dcs.shape
     hop = ac.cswt.shape[1] // R
     dev = dcs.device
     _check_analysis(ac, t, hop, dev)
     _check("dcs", dcs, (b, t, p2), torch.float32, dev)
+    gm = reflect_gemm_bwd(t, p2, hop)
+    check_slab_gemm(dcs, ac.cswt, gm.n, gm.rows)
     gy2 = torch.empty(b, t - 1, hop, device=dev)
     gpad = torch.empty(b, 2 * PAD, hop, device=dev)
-    _run("aw_reflect_analysis_bwd", dev, dcs, ac.cswt, gy2, gpad, b, t, p2, hop)
+    args = (dcs, ac.cswt, gy2, gpad, b, t, p2, hop)
+    if wmma:
+        _run("aw_reflect_analysis_bwd_wmma", dev, *args)
+    else:
+        plan = slab_plan_for(dcs, gm.rows, gm.n)
+        _run("aw_reflect_analysis_bwd", dev, *args, plan.bm, plan.bn)
     return gy2
+
+
+def check_analysis_detector_bwd(g: torch.Tensor, res: DetResiduals,
+                                ac: AnalysisDetConsts) -> tuple:
+    """What the VJP's two sm90 chains cannot take: raise, before either
+    launches.  The detector half's (``check_detector_bwd``), then the
+    analysis half's constants and its weight as its tensor map takes it.
+    Returns (B, T, 2P, hop)."""
+    b, t, _ = check_detector_bwd(g, res, ac.det)
+    hop = ac.cswt.shape[1] // R
+    p2 = _check_analysis(ac, t, hop, g.device)
+    check_weights_aligned([reflect_gemm_bwd(t, p2, hop)], [ac.cswt])
+    return b, t, p2, hop
 
 
 def analysis_detector_fwd(y2: torch.Tensor, ac: AnalysisDetConsts):
@@ -189,13 +235,25 @@ def analysis_detector_fwd(y2: torch.Tensor, ac: AnalysisDetConsts):
 
 
 def analysis_detector_bwd(g: torch.Tensor, res: DetResiduals, ac: AnalysisDetConsts):
-    """g (B, 128) -> gy2 (B, T-1, hop).  Replaces the TPU kernel
-    ``_ad_bwd_kernel`` (aware_tpu/ops/pallas/analysis_detector.py:251)."""
+    """g (B, 128) -> gy2 (B, T-1, hop): the sm90 detector VJP
+    (``detector_fused_bwd``), then the sm90 reflect analysis VJP and the
+    fold.  Replaces the TPU kernel ``_ad_bwd_kernel``
+    (aware_tpu/ops/pallas/analysis_detector.py:251)."""
     if g.device.type == "cpu":
         return analysis_detector_bwd_plain(g, res, ac)
+    check_analysis_detector_bwd(g, res, ac)
     gy2 = _reflect_analysis_bwd(detector_fused_bwd(g, res, ac.det), ac)
     analysis_detector_bwd.launches += 1
     return gy2
+
+
+def _analysis_detector_bwd_wmma(g: torch.Tensor, res: DetResiduals, ac: AnalysisDetConsts):
+    """The VJP's first versions, ``aw_detector_bwd_wmma`` then
+    ``aw_reflect_analysis_bwd_wmma`` (the WMMA template), on the CUDA
+    tensors ``analysis_detector_bwd`` takes: no path reaches them; the chip
+    check times them beside the sm90 pair.  Counted nowhere."""
+    check_analysis_detector_bwd(g, res, ac)
+    return _reflect_analysis_bwd(_detector_fused_bwd_wmma(g, res, ac.det), ac, wmma=True)
 
 
 KERNELS = (analysis_detector_fwd, analysis_detector_bwd)

@@ -11,8 +11,11 @@ kernels:
 
 with bf16 matmul operands, float32 accumulation and bf16 residuals, and a
 closed-form VJP for the input cotangent only (the detector is frozen key
-material).  ``aw_detector_fwd`` / ``aw_detector_bwd`` of
-``csrc/detector.cu`` are the CUDA kernels, behind:
+material).  ``aw_detector_fwd`` of ``csrc/detector.cu`` (the WMMA
+template) and ``aw_detector_bwd`` of ``csrc/detector_sm90.cu`` (the sm90
+step's detector VJP: TMA + wgmma, its first WMMA chain kept as
+``aw_detector_bwd_wmma``, which no path reaches) are the CUDA kernels,
+behind:
 
 * wrappers (``detector_fused_fwd``, ``detector_fused_bwd``) that check
   their operands, allocate outputs and scratch, launch on the current
@@ -32,12 +35,22 @@ their products are that mean, and neither is built here.
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
 
-from aware_tpu_torch.ops.kernels.roundtrip import _bf16, _check, _run
+from aware_tpu_torch.ops.kernels.roundtrip import (
+    StepGemm,
+    _bf16,
+    _check,
+    _run,
+    _sms,
+    check_weights_aligned,
+    plan_gemms,
+    tile_array,
+)
 
 _BF16 = torch.bfloat16
 IN_EPS = 1e-5  # nn.InstanceNorm1d eps (inside the rsqrt)
@@ -47,6 +60,9 @@ GS_EPS = 1e-8  # GlobalStandardize eps (added to the std)
 P_BAND = 256                      # in-band bins 225 -> 256
 CH = (128, 512, 1024, 1024, 128)  # mel, conv0..conv3 out (40 -> 128)
 N_BITS = 20                       # BRH outputs: conv3's 40 channels in pairs
+MIN_FRAMES = 8  # the sm90 chains' fewest frames (distinct reflect-pad boundary rows)
+PART_LD = 4096  # floats of one clip's partial sums (csrc/detector_sm90.cuh kPartLd)
+MEL_CHUNKS = 15  # row chunks of the chunked mel stages at most (kMelChunks)
 
 
 class DetConsts(NamedTuple):
@@ -311,28 +327,112 @@ def detector_fused_fwd(cs: torch.Tensor, c: DetConsts):
     return res.pred, res
 
 
-def detector_fused_bwd(g: torch.Tensor, res: DetResiduals, c: DetConsts):
-    """g (B, 128) -> dcs (B, T, 2P).  Replaces the TPU kernel
-    ``_bwd_kernel`` (aware_tpu/ops/pallas/detector.py:401)."""
-    if g.device.type == "cpu":
-        return detector_fused_bwd_plain(g, res, c)
+def mel_chunks(t: int) -> tuple:
+    """(rows per chunk, chunks) of the sm90 chains' chunked mel stages
+    over T frames (csrc/detector_sm90.cuh ``mel_chunks``): rows per chunk
+    even, so that a pool row's two frames share a chunk, and at most
+    MEL_CHUNKS chunks."""
+    rc = -(-t // MEL_CHUNKS)
+    rc += rc % 2
+    return rc, -(-t // rc)
+
+
+def _check_mel_chunks(t: int) -> None:
+    """The chunked mel stages' partial sums of T frames in a clip's
+    PART_LD floats (per chunk 2 x 128 channel sums and 2 clip sums), as
+    the C entries require (``mel_fits``); raise otherwise."""
+    _, nch = mel_chunks(t)
+    if nch > MEL_CHUNKS or 2 * nch * (CH[0] + 1) > PART_LD:
+        raise ValueError(f"the chunked mel stages' partial sums need {2 * nch * (CH[0] + 1)} "
+                         f"floats a clip, {nch} chunks, over the {PART_LD} of the partial sums "
+                         f"(T={t})")
+
+
+def det_gemms_fwd(b: int, t: int, p: int) -> list:
+    """The detector forward's dense GEMMs in the sm90 chains' order (mel,
+    conv 0..3; csrc/detector_sm90.cuh ``FwdGemm`` from gMel)."""
+    t2 = t // 2
+    return [StepGemm("mel", "dense", b * t, p, CH[0]),
+            *(StepGemm(f"conv {i}", "dense", b * t2, CH[i], CH[i + 1]) for i in range(4))]
+
+
+def det_gemms_bwd(b: int, t: int, p: int) -> list:
+    """The detector VJP's dense GEMMs in the sm90 chains' order (conv 3..0
+    VJP, mel VJP; ``BwdGemm``'s first five)."""
+    t2 = t // 2
+    return [*(StepGemm(f"conv {i} VJP", "dense", b * t2, CH[i + 1], CH[i])
+              for i in range(3, -1, -1)),
+            StepGemm("mel VJP", "dense", b * t, CH[0], p)]
+
+
+def det_bwd_weights(c: DetConsts) -> list:
+    """The weights of ``det_gemms_bwd``, in order."""
+    return [c.w3, c.w2, c.w1, c.w0, c.melbt]
+
+
+@functools.lru_cache(maxsize=64)
+def det_bwd_tiles(b: int, t: int, p: int, sms: int):
+    """The planned tiles of ``det_gemms_bwd`` as the host array of (bm, bn)
+    pairs aw_detector_bwd takes (the sm90 step's own tiles for them)."""
+    return tile_array(plan_gemms(det_gemms_bwd(b, t, p), b, sms))
+
+
+def check_detector_bwd(g: torch.Tensor, res: DetResiduals, c: DetConsts) -> tuple:
+    """What the sm90 VJP chain cannot take: raise, before any launch.  g,
+    the residuals and the constants; T >= MIN_FRAMES and the chunked mel
+    stages' room for their partial sums; the GEMMs' weights as their
+    tensor maps take them.  Returns (B, T, P)."""
     b, t, p2 = res.nph.shape
     dev = g.device
+    if t < MIN_FRAMES:
+        raise ValueError(f"the sm90 detector VJP needs T >= {MIN_FRAMES} frames (got {t})")
     _check("g", g, (b, CH[4]), torch.float32, dev)
     for name, (shape, dtype) in _residual_shapes(b, t, p2).items():
         _check(name, getattr(res, name), shape, dtype, dev)
     _check_consts(c, p2 // 2, dev)
+    _check_mel_chunks(t)
+    check_weights_aligned(det_gemms_bwd(b, t, p2 // 2), det_bwd_weights(c))
+    return b, t, p2 // 2
+
+
+def detector_fused_bwd(g: torch.Tensor, res: DetResiduals, c: DetConsts):
+    """g (B, 128) -> dcs (B, T, 2P): the sm90 step's detector VJP from g
+    (csrc/detector_sm90.cu ``aw_detector_bwd``, 13 launches, its 5 GEMMs'
+    tiles planned here).  Replaces the TPU kernel ``_bwd_kernel``
+    (aware_tpu/ops/pallas/detector.py:401)."""
+    if g.device.type == "cpu":
+        return detector_fused_bwd_plain(g, res, c)
+    b, t, p = check_detector_bwd(g, res, c)
+    dev = g.device
     t2 = t // 2
-    dcs = torch.empty(b, t, p2, device=dev)
+    dcs = torch.empty(b, t, 2 * p, device=dev)
     dxa = torch.empty(b, t2, CH[2], device=dev)
     dxb = torch.empty(b, t2, CH[2], device=dev)
     m1 = torch.empty(b, CH[2], device=dev)
     m2 = torch.empty(b, CH[2], device=dev)
     dx4 = torch.empty(b, CH[4], device=dev)
-    clip2 = torch.empty(b, 2, device=dev)
+    a16 = torch.empty(b, max(t2 * CH[2], t * CH[0]), dtype=_BF16, device=dev)
+    part = torch.empty(b, PART_LD, device=dev)
+    tiles = det_bwd_tiles(b, t, p, _sms(dev.index or 0))
     _run("aw_detector_bwd", dev, g, *res, c.w0, c.w1, c.w2, c.w3, c.eot, c.melbt, dcs,
-         dxa, dxb, m1, m2, dx4, clip2, b, t, p2 // 2)
+         dxa, dxb, m1, m2, dx4, a16, part, tiles, len(tiles), b, t, p)
     detector_fused_bwd.launches += 1
+    return dcs
+
+
+def _detector_fused_bwd_wmma(g: torch.Tensor, res: DetResiduals, c: DetConsts):
+    """The VJP's first chain, ``aw_detector_bwd_wmma`` (the WMMA
+    template), on the CUDA tensors ``detector_fused_bwd`` takes: no path
+    reaches it; the chip check times it beside the sm90 chain.  Not
+    counted in ``detector_fused_bwd.launches``."""
+    b, t, p = check_detector_bwd(g, res, c)
+    dev = g.device
+    t2 = t // 2
+    dcs = torch.empty(b, t, 2 * p, device=dev)
+    scratch = [torch.empty(shape, device=dev) for shape in
+               ((b, t2, CH[2]), (b, t2, CH[2]), (b, CH[2]), (b, CH[2]), (b, CH[4]), (b, 2))]
+    _run("aw_detector_bwd_wmma", dev, g, *res, c.w0, c.w1, c.w2, c.w3, c.eot, c.melbt, dcs,
+         *scratch, b, t, p)
     return dcs
 
 

@@ -18,12 +18,18 @@ the sources):
 * ``iteration_forward_fwd`` replaces ``_iter_fwd_kernel``
   (aware_tpu/ops/pallas/iteration.py:72, pallas_call :173): ct (B, T, P)
   f32 -> pred (B, 128) f32 and ``IterResiduals`` (the detector's 16, u and
-  m1); the WMMA chain of ``csrc/iteration.cu`` (13 launches);
+  m1); the WMMA chain of ``csrc/iteration.cu`` (13 launches).  The forward
+  half of the TMA + wgmma step chain computes the same
+  (``_iteration_forward_fwd_sm90``, 20 launches, its 7 GEMMs' tiles
+  planned here: ``fwd_tiles``, the step's own tiles for them), 6x faster
+  on the card, but no path runs it yet: on the weight-decay path it moves
+  the 8-frame solve's trajectory, and chip_smoke.py's phase 3s, whose
+  per-lane BER comparison with the CPU is chance at 8-9 frames, then
+  reads a lane worse on the card (PERF.md, section 6);
 * ``iteration_forward_bwd`` replaces ``_iter_bwd_kernel`` (:193,
   pallas_call :285): g (B, 128) -> dct (B, T, P) f32; the backward half of
-  the TMA + wgmma step chain of ``csrc/iteration_sm90.cu`` from g, then the
-  phase fold (19 launches), its 7 GEMMs' tiles planned here
-  (``bwd_tiles``: the step's own tiles for them);
+  the step chain from g, then the phase fold (19 launches), its 7 GEMMs'
+  tiles planned here (``bwd_tiles``);
 * ``iteration_step`` replaces ``_step_kernel`` (:341, pallas_call :513):
   ct, m, v, best (B, T, P) and best_loss (B,) updated in place, loss (B,)
   out; the step chain of ``csrc/iteration_sm90.cu`` (40 launches: its
@@ -32,7 +38,8 @@ the sources):
 
 The first WMMA chains of the VJP and the step stay in the library as
 ``aw_iteration_bwd_wmma`` and ``aw_iteration_step_wmma``, which no path
-reaches (``chip_smoke.py`` times each beside its sm90 chain in turns).
+reaches (``chip_smoke.py`` times each beside its sm90 chain in turns, and
+the forward's two chains likewise).
 
 Each wrapper checks its operands, counts its own launches in
 ``launches``, and on CUDA tensors launches its kernel or raises; on CPU
@@ -63,31 +70,38 @@ from aware_tpu_torch.ops.kernels.analysis_detector import (
     AnalysisDetConsts,
     analysis_detector_bwd_plain,
     analysis_detector_fwd_plain,
+    reflect_gemm_bwd,
 )
 from aware_tpu_torch.ops.kernels.detector import (
     CH,
     N_BITS,
     P_BAND,
+    PART_LD,
     DetConsts,
     DetResiduals,
     _check_consts,
     _residual_shapes,
+    det_bwd_weights,
+    det_gemms_bwd,
+    det_gemms_fwd,
 )
 from aware_tpu_torch.ops.kernels.roundtrip import (
     PAD,
     R,
+    StepGemm,
     _check,
     _check_geometry,
     _run,
     _sms,
     check_dense_gemm,
     check_slab_gemm,
+    check_weights_aligned,
     peak_den,
     phase_fold_plain,
-    plan_dense_gemm,
-    plan_slab_gemm,
+    plan_gemms,
     synth_norm_bwd_plain,
     synth_u_plain,
+    tile_array,
 )
 
 _BF16 = torch.bfloat16
@@ -194,7 +208,6 @@ def _residuals(b: int, t: int, p2: int, hop: int, dev) -> IterResiduals:
     return IterResiduals(det, torch.empty(b, t - 1, hop, device=dev), torch.empty(b, device=dev))
 
 
-PART_LD = 4096  # floats of one clip's partial sums (csrc/iteration_sm90.cu kPartLd)
 FOLD_CHUNK = 4096  # samples of one block of the fold and scalar stages (kFoldChunk)
 
 
@@ -209,40 +222,22 @@ def step_buffers(b: int, t: int, p2: int, hop: int, device) -> StepBuffers:
                        torch.empty(b, device=device), step_ops(b, t, p2, hop, device))
 
 
-class StepGemm(NamedTuple):
-    """One of the step's 14 GEMMs, in launch order: a slab GEMM over B
-    clips (``rows`` output rows per clip, depth ``k`` per slab) or a dense
-    one (``rows`` = the B clips' rows stacked, depth ``k``); ``n`` output
-    columns."""
-
-    name: str
-    kind: str  # "slab" or "dense"
-    rows: int
-    k: int
-    n: int
-
-
 def step_gemms_fwd(b: int, t: int, p: int, hop: int) -> list:
-    """The forward half's GEMMs in the order of csrc/iteration_sm90.cu's
-    ``FwdGemm``."""
-    lr, t2, p2 = t - 1, t // 2, 2 * p
-    conv = [StepGemm(f"conv {i}", "dense", b * t2, CH[i], CH[i + 1]) for i in range(4)]
+    """The forward half's GEMMs (the iteration_forward forward's) in the
+    order of csrc/detector_sm90.cuh's ``FwdGemm``: the round trip's two,
+    then the detector's five."""
+    lr, p2 = t - 1, 2 * p
     return [StepGemm("synthesis", "slab", lr, p2, hop),
             StepGemm("reflect analysis", "slab", t, hop, p2),
-            StepGemm("mel", "dense", b * t, p, CH[0]),
-            *conv]
+            *det_gemms_fwd(b, t, p)]
 
 
 def step_gemms_bwd(b: int, t: int, p: int, hop: int) -> list:
     """The backward half's GEMMs (the iteration_forward VJP's) in the order
-    of csrc/iteration_sm90.cu's ``BwdGemm``."""
-    lr, t2, p2 = t - 1, t // 2, 2 * p
-    conv_vjp = [StepGemm(f"conv {i} VJP", "dense", b * t2, CH[i + 1], CH[i])
-                for i in range(3, -1, -1)]
-    return [*conv_vjp,
-            StepGemm("mel VJP", "dense", b * t, CH[0], p),
-            StepGemm("reflect analysis VJP", "slab", lr + 2 * PAD, p2, hop),
-            StepGemm("synthesis VJP", "slab", t, hop, p2)]
+    of csrc/detector_sm90.cuh's ``BwdGemm``: the detector's five (the
+    detector_fused VJP's), then the round trip's two."""
+    return [*det_gemms_bwd(b, t, p), reflect_gemm_bwd(t, 2 * p, hop),
+            StepGemm("synthesis VJP", "slab", t, hop, 2 * p)]
 
 
 def step_gemms(b: int, t: int, p: int, hop: int) -> list:
@@ -250,37 +245,39 @@ def step_gemms(b: int, t: int, p: int, hop: int) -> list:
     return step_gemms_fwd(b, t, p, hop) + step_gemms_bwd(b, t, p, hop)
 
 
-def _plan(gemms: list, b: int, sms: int) -> list:
-    return [plan_slab_gemm(b, g.rows, g.n, sms) if g.kind == "slab"
-            else plan_dense_gemm(g.rows, g.n, sms) for g in gemms]
-
-
 def plan_step(b: int, t: int, p: int, hop: int, sms: int) -> list:
     """The planned tile of each of the step's GEMMs (``step_gemms``)."""
-    return _plan(step_gemms(b, t, p, hop), b, sms)
+    return plan_gemms(step_gemms(b, t, p, hop), b, sms)
+
+
+def plan_fwd(b: int, t: int, p: int, hop: int, sms: int) -> list:
+    """The planned tile of each of the forward half's GEMMs
+    (``step_gemms_fwd``): the step's own tiles for them."""
+    return plan_gemms(step_gemms_fwd(b, t, p, hop), b, sms)
 
 
 def plan_bwd(b: int, t: int, p: int, hop: int, sms: int) -> list:
     """The planned tile of each of the backward half's GEMMs
     (``step_gemms_bwd``): the step's own tiles for them."""
-    return _plan(step_gemms_bwd(b, t, p, hop), b, sms)
-
-
-def _tile_array(plans: list):
-    pairs = [x for pl in plans for x in (pl.bm, pl.bn)]
-    return (ctypes.c_int * len(pairs))(*pairs)
+    return plan_gemms(step_gemms_bwd(b, t, p, hop), b, sms)
 
 
 @functools.lru_cache(maxsize=64)
 def step_tiles(b: int, t: int, p: int, hop: int, sms: int):
     """``plan_step`` as the host array of (bm, bn) pairs the C entry takes."""
-    return _tile_array(plan_step(b, t, p, hop, sms))
+    return tile_array(plan_step(b, t, p, hop, sms))
+
+
+@functools.lru_cache(maxsize=64)
+def fwd_tiles(b: int, t: int, p: int, hop: int, sms: int):
+    """``plan_fwd`` as the host array of (bm, bn) pairs aw_iteration_fwd takes."""
+    return tile_array(plan_fwd(b, t, p, hop, sms))
 
 
 @functools.lru_cache(maxsize=64)
 def bwd_tiles(b: int, t: int, p: int, hop: int, sms: int):
     """``plan_bwd`` as the host array of (bm, bn) pairs aw_iteration_bwd takes."""
-    return _tile_array(plan_bwd(b, t, p, hop, sms))
+    return tile_array(plan_bwd(b, t, p, hop, sms))
 
 
 # ---------------------------------------------------------- plain versions ---
@@ -392,6 +389,25 @@ def _check_scratch(ws: Scratch, b: int, t: int, p2: int, hop: int, dev) -> None:
         _check(name, x, shape, _F32, dev)
 
 
+def check_iteration_fwd(ct: torch.Tensor, c: IterConsts) -> tuple:
+    """What the sm90 forward's chain cannot take: raise, before any launch.  The
+    constants and ct; T >= 8 (``_check_iter``); the forward GEMMs' weights
+    as their tensor maps take them.  Returns (B, T, P, hop)."""
+    b, t, p = ct.shape
+    dev = ct.device
+    hop = _check_iter(c, b, t, p, dev)
+    _check("ct", ct, (b, t, p), _F32, dev)
+    check_weights_aligned(step_gemms_fwd(b, t, p, hop), _fwd_weights(c))
+    return b, t, p, hop
+
+
+def _fwd_tensors(ct, c: IterConsts, res: IterResiduals, ws: Scratch) -> list:
+    """The forward's pointer table (csrc/iteration.cuh ``FwdArgs``), as
+    both forward entries take it."""
+    return [ct, c.csin, c.y_const, c.env, c.ab, c.csw,
+            *(getattr(c.det, k) for k in _DET_FWD), *res.det, res.u, res.m1, *ws]
+
+
 def iteration_forward_fwd(ct: torch.Tensor, c: IterConsts):
     """ct (B, T, P) -> (pred (B, 128), IterResiduals).  Replaces the TPU
     kernel ``_iter_fwd_kernel`` (aware_tpu/ops/pallas/iteration.py:173)."""
@@ -402,12 +418,26 @@ def iteration_forward_fwd(ct: torch.Tensor, c: IterConsts):
     hop = _check_iter(c, b, t, p, dev)
     _check("ct", ct, (b, t, p), _F32, dev)
     res = _residuals(b, t, 2 * p, hop, dev)
-    ws = _scratch(b, t, 2 * p, hop, dev)
     _run_table("aw_iteration_fwd", dev,
-               [ct, c.csin, c.y_const, c.env, c.ab, c.csw,
-                *(getattr(c.det, k) for k in _DET_FWD), *res.det, res.u, res.m1, *ws],
-               b, t, p, hop)
+               _fwd_tensors(ct, c, res, _scratch(b, t, 2 * p, hop, dev)), b, t, p, hop)
     iteration_forward_fwd.launches += 1
+    return res.det.pred, res
+
+
+def _iteration_forward_fwd_sm90(ct: torch.Tensor, c: IterConsts):
+    """The forward on the sm90 step's forward half,
+    ``aw_iteration_fwd_sm90`` (20 launches), on the CUDA tensors
+    ``iteration_forward_fwd`` takes: no path reaches it yet (the module
+    docstring says why); the chip check holds it and times it beside the
+    path's WMMA chain.  Not counted in ``iteration_forward_fwd.launches``."""
+    b, t, p, hop = check_iteration_fwd(ct, c)
+    dev = ct.device
+    res = _residuals(b, t, 2 * p, hop, dev)
+    ws = _scratch(b, t, 2 * p, hop, dev)
+    ops = step_ops(b, t, 2 * p, hop, dev)
+    tiles = fwd_tiles(b, t, p, hop, _sms(dev.index or 0))
+    _run_table("aw_iteration_fwd_sm90", dev, [*_fwd_tensors(ct, c, res, ws), *ops],
+               tiles, len(tiles), b, t, p, hop)
     return res.det.pred, res
 
 
@@ -438,10 +468,7 @@ def check_iteration_bwd(g, res: IterResiduals, c: IterConsts) -> tuple:
     _check("g", g, (b, CH[4]), _F32, dev)
     _check_residuals(res, b, t, p2, hop, dev)
     _check_fold(t, hop)
-    for gm, w in zip(step_gemms_bwd(b, t, p, hop), _bwd_weights(c)):
-        if w.data_ptr() % 16:  # TMA's 16-byte address alignment
-            raise ValueError(f"the {gm.name} GEMM needs its weight 16-byte aligned "
-                             f"(at {w.data_ptr():#x})")
+    check_weights_aligned(step_gemms_bwd(b, t, p, hop), _bwd_weights(c))
     return b, t, p, hop
 
 
@@ -496,8 +523,7 @@ def _fwd_weights(c: IterConsts) -> list:
 
 def _bwd_weights(c: IterConsts) -> list:
     """The weights of ``step_gemms_bwd``, in order."""
-    d = c.det
-    return [d.w3, d.w2, d.w1, d.w0, d.melbt, c.cswt, c.abt]
+    return [*det_bwd_weights(c.det), c.cswt, c.abt]
 
 
 def _check_step_ops(bufs: StepBuffers, c: IterConsts, b: int, t: int, p: int, hop: int,

@@ -28,8 +28,10 @@ dimension B is the clip.  Shapes (T frames, P padded band bins, hop):
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
+import typing
 
 import torch
 import torch.nn.functional as F
@@ -240,6 +242,40 @@ def check_dense_gemm(a: torch.Tensor, b: torch.Tensor, m: int, k: int, n: int) -
         if x.data_ptr() % 16:
             raise ValueError(f"the dense GEMM needs {name} 16-byte aligned "
                              f"(at {x.data_ptr():#x})")
+
+
+class StepGemm(typing.NamedTuple):
+    """One GEMM of the sm90 chains (the whole step's 14, and its parts'):
+    a slab GEMM over B clips (``rows`` output rows per clip, depth ``k``
+    per slab) or a dense one (``rows`` = the B clips' rows stacked, depth
+    ``k``); ``n`` output columns."""
+
+    name: str
+    kind: str  # "slab" or "dense"
+    rows: int
+    k: int
+    n: int
+
+
+def plan_gemms(gemms: list, b: int, sms: int) -> list:
+    """The planned tile of each of ``gemms`` on a card of ``sms`` SMs."""
+    return [plan_slab_gemm(b, g.rows, g.n, sms) if g.kind == "slab"
+            else plan_dense_gemm(g.rows, g.n, sms) for g in gemms]
+
+
+def tile_array(plans: list):
+    """Planned tiles as the host array of (bm, bn) pairs the C entries take."""
+    pairs = [x for pl in plans for x in (pl.bm, pl.bn)]
+    return (ctypes.c_int * len(pairs))(*pairs)
+
+
+def check_weights_aligned(gemms: list, weights: list) -> None:
+    """Each GEMM's weight as its tensor map takes it: TMA's 16-byte
+    address alignment; raise otherwise."""
+    for g, w in zip(gemms, weights):
+        if w.data_ptr() % 16:
+            raise ValueError(f"the {g.name} GEMM needs its weight 16-byte aligned "
+                             f"(at {w.data_ptr():#x})")
 
 
 def _run(entry: str, device: torch.device, *args) -> None:

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # all phases, the default card's 400 iterations
     python3 chip_smoke.py --quick    # phases 0-2 only, each kernel checked, none timed
-    python3 chip_smoke.py --reference-lib LIB  # also: aw_iteration_step gives LIB's bits
+    python3 chip_smoke.py --reference-lib LIB  # also: rows 10-11 give LIB's bits
 
 Phases, each printing one progress line (plus details) and failing the run
 with a non-zero exit on any error:
@@ -55,11 +55,20 @@ with a non-zero exit on any error:
    chain (aw_iteration_step_wmma) is timed beside its bound, and the two
    chains and the plain version in turns; with --reference-lib, it must
    give the bits of another build's aw_iteration_step from the same state.
-   iteration_forward_bwd (the sm90 step's backward half from g, then the
-   phase fold) must give the same bits on two launches and, like its
-   first WMMA chain (aw_iteration_bwd_wmma), meet agreement.VJP_TOL
-   against the plain VJP; each of its launches is timed beside its bound,
-   and the two chains and the plain version in turns.  The tiled
+   The kernels redesigned as parts of that chain (redesign_checks) must
+   give the same bits on two launches and, like their first WMMA chains
+   (aw_*_wmma), meet the agreement bounds against their plain versions;
+   each of their launches is timed beside its bound, and each with its
+   WMMA chain and its plain version in turns: iteration_forward_bwd (the
+   step's backward half from g, then the phase fold; with
+   --reference-lib also the bits of that build's aw_iteration_bwd),
+   iteration_forward_fwd (the path's WMMA chain beside the step's forward
+   half, aw_iteration_fwd_sm90, which no path runs yet; pred and every
+   residual to ITER_FWD_TOL, y2 and m1 to Y2_TOL; the sm90 VJP on the
+   sm90 forward's residuals as a chain), detector_fused_bwd
+   (the backward half's detector VJP from g) and analysis_detector_bwd
+   (that VJP, then the backward half's reflect analysis VJP and the
+   fold; VJP_TOL both).  The tiled
    synthesis (a reim pass, then the slab GEMM) must give the same bits on
    two launches and from its two launches alone, its pass exactly ct
    csinp, its GEMM's sums an rms error against float64 within SUM_TOL of
@@ -76,9 +85,9 @@ with a non-zero exit on any error:
    decay (the iteration_forward kernels and their VJP); every lane must
    read back at 0 % BER, and each kernel of a path must have been launched
    once per iteration by its solve, every other kernel never.  Then the
-   first two paths timed again in turns (default, two-kernel, two-kernel,
-   default); per path, a small reference (a short solve on the card against the same
-   solve through the plain versions on the CPU), a torch.profiler
+   default, two-kernel and weight-decay paths timed again in turns (then
+   reversed); per path, a small reference (a short solve on the card
+   against the same solve through the plain versions on the CPU), a torch.profiler
    breakdown of a 20-iteration solve, and, on the default path, a
    20-iteration loop under torch.cuda.set_sync_debug_mode("error") (no
    host sync);
@@ -153,11 +162,19 @@ def speechlike(rng: np.random.Generator, seconds: float, sr: int, samples: int =
     return (x / np.max(np.abs(x))).astype(np.float32)
 
 
+_SIDE = []  # the one warm-up stream of time_ms
+
+
 def time_ms(torch, fn, reps: int) -> tuple[float, float]:
     """(device ms, call ms) per call of ``fn``.  Device time replays ``fn``
     captured in a CUDA graph, so the host's launch overhead is out of it;
-    call time is back-to-back calls from Python, overhead included."""
-    side = torch.cuda.Stream()
+    call time is back-to-back calls from Python, overhead included.  The
+    warm-up runs on one side stream for the whole run: each stream that
+    runs a cuBLAS product keeps a workspace allocated, which would count in
+    the later phases' peak memory."""
+    if not _SIDE:
+        _SIDE.append(torch.cuda.Stream())
+    side = _SIDE[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -590,25 +607,53 @@ def bwd_work(bsz, t, p, hop) -> list:
             + [("fold_phase", 0, bsz * t * 2 * p * (F32 + BF16) + state)])
 
 
+def fwd_work(bsz, t, p, hop) -> list:
+    """Each launch of one iteration_forward_fwd call (aw_iteration_fwd: the
+    sm90 step's forward half), in launch order, as step_work gives them."""
+    sm90 = step_work(bsz, t, p, hop, "sm90")
+    return sm90[: next(i for i, w in enumerate(sm90) if w[0].startswith("brh_bwd"))]
+
+
+def det_bwd_work(bsz, t, p, hop) -> list:
+    """Each launch of one detector_fused_bwd call (aw_detector_bwd: the
+    sm90 step's detector VJP from g), as bwd_work gives them."""
+    work = bwd_work(bsz, t, p, hop)
+    return work[: next(i for i, w in enumerate(work) if w[0].startswith("mel VJP:")) + 1]
+
+
+def ad_bwd_work(bsz, t, p, hop) -> list:
+    """Each launch of one analysis_detector_bwd call: det_bwd_work, then
+    aw_reflect_analysis_bwd (the step's reflect analysis VJP, then the fold
+    of the pad rows: each pad row's sample read, its target read and
+    written)."""
+    work = bwd_work(bsz, t, p, hop)
+    vjp = next(w for w in work if w[0].startswith("reflect analysis VJP"))
+    return det_bwd_work(bsz, t, p, hop) + [vjp, ("reflect_fold", 0, 3 * bsz * 4 * hop * F32)]
+
+
 def launch_table(torch, label, call, work, reps=5) -> list:
     """Each launch of one call of a chain of kernels: device us (the
     torch.profiler rows of ``reps`` calls, in launch order, each
     position's mean) beside its bound from ``work`` (step_work's list).
-    Prints the table; returns [(what, kernel, us, bound us)]."""
+    A profile missing a row is taken again, three times at most.  Prints
+    the table; returns [(what, kernel, us, bound us)]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    evs = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
-                  and ev.time_range.end > ev.time_range.start),
-                 key=lambda ev: ev.time_range.start)
     n = len(work)
-    if len(evs) != reps * n:
+    for _ in range(3):  # the profiler now and then drops a row: take the profile again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+                      and ev.time_range.end > ev.time_range.start),
+                     key=lambda ev: ev.time_range.start)
+        if len(evs) == reps * n:
+            break
+    else:
         raise RuntimeError(f"{label}: {len(evs)} device rows for {reps} calls of {n} launches")
     rows = []
     for i, (what, flops, nbytes) in enumerate(work):
@@ -687,27 +732,45 @@ def step_gemm_checks(torch, it, c, bsz, t, p, hop, rng) -> None:
                                f"the plain product's {rms['plain']:.3e}")
 
 
-def reference_step(torch, it, lib_path, state, step_args, bsz, t, p, hop) -> list:
-    """aw_iteration_step of another build of the kernel library (the
-    shared library at ``lib_path``, whose entry takes the same pointer
-    table and tiles) from ``state``: its state, loss and dreim."""
+def reference_entry(torch, lib_path, entry, tensors, tiles, *args) -> None:
+    """Run ``entry`` of another build of the kernel library (the shared
+    library at ``lib_path``, whose entry takes the same pointer table and
+    tiles) on ``tensors``, and wait for it."""
     import ctypes
 
     from aware_tpu_torch.ops.kernels.build import SIGNATURES
 
-    fn = ctypes.CDLL(lib_path).aw_iteration_step
-    fn.argtypes, fn.restype = SIGNATURES["aw_iteration_step"], ctypes.c_int
-    state = [x.clone() for x in state]
-    bufs = it.step_buffers(bsz, t, 2 * p, hop, state[0].device)
-    tensors = [*it._step_tensors(*state, *step_args[:7], bufs), *bufs.ops]
+    fn = getattr(ctypes.CDLL(lib_path), entry)
+    fn.argtypes, fn.restype = SIGNATURES[entry], ctypes.c_int
     table = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
-    tiles = it.step_tiles(bsz, t, p, hop, torch.cuda.get_device_properties(0).multi_processor_count)
-    err = fn(table, len(tensors), tiles, len(tiles), bsz, t, p, hop, *step_args[7],
+    err = fn(table, len(tensors), tiles, len(tiles), *args,
              torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     if err != 0:
-        raise RuntimeError(f"{lib_path}: aw_iteration_step: CUDA error {err}")
+        raise RuntimeError(f"{lib_path}: {entry}: CUDA error {err}")
+
+
+def reference_step(torch, it, lib_path, state, step_args, bsz, t, p, hop) -> list:
+    """aw_iteration_step of another build from ``state``: its state, loss
+    and dreim."""
+    state = [x.clone() for x in state]
+    bufs = it.step_buffers(bsz, t, 2 * p, hop, state[0].device)
+    tiles = it.step_tiles(bsz, t, p, hop, torch.cuda.get_device_properties(0).multi_processor_count)
+    reference_entry(torch, lib_path, "aw_iteration_step",
+                    [*it._step_tensors(*state, *step_args[:7], bufs), *bufs.ops], tiles,
+                    bsz, t, p, hop, *step_args[7])
     return [*state, bufs.loss, bufs.scratch.big]
+
+
+def reference_bwd(torch, it, lib_path, g, res, c, bsz, t, p, hop):
+    """aw_iteration_bwd of another build from g and the residuals: its dct."""
+    dev = g.device
+    dct = torch.empty(bsz, t, p, device=dev)
+    tensors = [*it._bwd_tensors(g, res, c, dct, it._scratch(bsz, t, 2 * p, hop, dev)),
+               *it.step_ops(bsz, t, 2 * p, hop, dev)]
+    tiles = it.bwd_tiles(bsz, t, p, hop, torch.cuda.get_device_properties(0).multi_processor_count)
+    reference_entry(torch, lib_path, "aw_iteration_bwd", tensors, tiles, bsz, t, p, hop)
+    return dct
 
 
 def step_checks(torch, it, states, step_args, bufs, bsz, t, p, hop, rng, quick,
@@ -757,35 +820,90 @@ def step_checks(torch, it, states, step_args, bufs, bsz, t, p, hop, rng, quick,
     return {k: sum(v) / len(v) for k, v in turns.items()}
 
 
-def bwd_checks(torch, it, g, res, c, out_p, bsz, t, p, hop, quick) -> dict:
-    """Row 10 beyond agreement.check_iteration: the sm90 VJP
-    (aw_iteration_bwd) against the plain VJP from the plain residuals
-    (_close_vjp), the same bits on two launches; its first WMMA chain
-    (aw_iteration_bwd_wmma, reached by no path) held to the same bound;
-    each launch of both timed beside its bound (launch_table); then (not
-    ``quick``) the two chains and the plain version timed in turns (new,
-    WMMA, plain, then reversed).  Returns the record's ms, wmma_ms and
-    plain_ms, each the mean of two readings."""
+def _flat(out) -> list:
+    """The tensors of a kernel's output (a tensor or nested tuples of them)."""
+    if isinstance(out, tuple):
+        return [x for o in out for x in _flat(o)]
+    return [out]
+
+
+def redesign_checks(torch, name, label, fns, hold, work, quick, new="ms", old="wmma_ms") -> dict:
+    """A kernel redesigned on the sm90 templates (rows 6, 8, 9 and 10),
+    beyond its phase 2 case: the same bits on two launches of the new
+    chain (``fns[new]``); the new chain and the other (``fns[old]``: its
+    first WMMA version, reached by no path, or, for row 9, the WMMA chain
+    the path runs) each held to the plain version by ``hold``; each launch
+    of the new chain timed beside its bound (launch_table over ``work``);
+    then (not ``quick``) the two chains and the plain version
+    (``fns["plain_ms"]``) timed in turns (new, old, plain, then reversed).
+    Returns the record's timings under the keys of ``fns``, each the mean
+    of two readings."""
+    a, b = fns[new](), fns[new]()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(_flat(a), _flat(b))):
+        raise RuntimeError(f"{name}: two launches gave different bits")
+    hold(f"{name} (sm90 chain)", a)
+    hold(f"{name} (WMMA chain)", fns[old]())
+    say(f"  {name}: the same bits on two launches")
+    launch_table(torch, f"{name} per launch ({label})", fns[new], work)
+    if quick:
+        return {k: None for k in fns if k != "ms"}
+    turns = in_turns(torch, fns)
+    say(f"  {name} in turns (sm90 chain, WMMA chain, plain, then reversed), device ms: "
+        + "; ".join(f"{k} {v[0]:.5f} {v[1]:.5f}" for k, v in turns.items())
+        + f"; per call from Python (checks, allocations and launches included): sm90 chain "
+        f"{time_ms(torch, fns[new], REPS)[1]:.5f} ms")
+    return {k: sum(v) / len(v) for k, v in turns.items()}
+
+
+def bwd_checks(torch, it, g, res, c, out_p, bsz, t, p, hop, quick, reference_lib=None) -> dict:
+    """Row 10: the sm90 VJP (aw_iteration_bwd) and its first WMMA chain
+    (aw_iteration_bwd_wmma) against the plain VJP from the plain residuals
+    (agreement.VJP_TOL), by redesign_checks; given ``reference_lib``, the
+    bits of that build's aw_iteration_bwd from the same g and residuals."""
     fns = {"ms": lambda: it.iteration_forward_bwd(g, res, c),
            "wmma_ms": lambda: it._iteration_forward_bwd_wmma(g, res, c),
            "plain_ms": lambda: it.iteration_forward_bwd_plain(g, res, c)}
-    a, b = fns["ms"](), fns["ms"]()
-    torch.cuda.synchronize()
-    if not torch.equal(a, b):
-        raise RuntimeError("iteration_forward_bwd: two launches gave different bits")
-    _close_vjp("iteration_forward_bwd (sm90 chain)", a, out_p)
-    _close_vjp("iteration_forward_bwd (WMMA chain)", fns["wmma_ms"](), out_p)
-    say("  iteration_forward_bwd: the same bits on two launches")
-    launch_table(torch, "iteration_forward_bwd per launch (sm90 chain, aw_iteration_bwd)",
-                 fns["ms"], bwd_work(bsz, t, p, hop))
-    if quick:
-        return {"wmma_ms": None}
-    turns = in_turns(torch, fns)
-    say("  iteration_forward_bwd in turns (sm90 chain, WMMA chain, plain, then reversed), "
-        "device ms: " + "; ".join(f"{k} {v[0]:.5f} {v[1]:.5f}" for k, v in turns.items())
-        + f"; per call from Python (checks, allocations and launches included): sm90 chain "
-        f"{time_ms(torch, fns['ms'], REPS)[1]:.5f} ms")
-    return {k: sum(v) / len(v) for k, v in turns.items()}
+    if reference_lib:
+        if not torch.equal(fns["ms"](), reference_bwd(torch, it, reference_lib, g, res, c, bsz, t,
+                                                      p, hop)):
+            raise RuntimeError(f"iteration_forward_bwd: not the bits of {reference_lib}'s")
+        say(f"  iteration_forward_bwd: the same bits as {reference_lib}'s aw_iteration_bwd "
+            "from the same g and residuals (dct)")
+    return redesign_checks(torch, "iteration_forward_bwd", "sm90 chain, aw_iteration_bwd", fns,
+                           lambda label, out: _close_vjp(label, out, out_p),
+                           bwd_work(bsz, t, p, hop), quick)
+
+
+def fwd_checks(torch, it, ct, c, g, out_p, bsz, t, p, hop, quick) -> dict:
+    """Row 9: the forward on the sm90 step's forward half
+    (aw_iteration_fwd_sm90, reached by no path yet) and the WMMA chain the
+    path runs (aw_iteration_fwd) against the plain forward on pred and
+    every residual (agreement.ITER_FWD_TOL, ITER_SHARE_TOL) and on y2 and
+    m1 (Y2_TOL), by redesign_checks; and the sm90 VJP on the sm90
+    forward's residuals against the plain chain (ITER_CHAIN_TOL), the
+    other pairing than the path's.  The record's ms is the path's chain,
+    sm90_ms the sm90 forward."""
+    from aware_tpu_torch.ops.kernels import agreement as ag
+
+    def hold(label, out):
+        rep = ag.check_forward(out[1].det, out_p[1].det, t, ag.ITER_FWD_TOL, ag.ITER_SHARE_TOL)
+        sig = {"y2": ag._rel(out[1].y2, out_p[1].y2), "m1": ag._rel(out[1].m1, out_p[1].m1)}
+        if not all(v <= ag.Y2_TOL for v in sig.values()):
+            raise RuntimeError(f"{label}: y2, m1 past {ag.Y2_TOL}: {ag.fmt(sig)}")
+        say(f"  {label} vs plain, max error / max|plain|: {ag.fmt(rep)}, {ag.fmt(sig)}")
+
+    fns = {"sm90_ms": lambda: it._iteration_forward_fwd_sm90(ct, c),
+           "ms": lambda: it.iteration_forward_fwd(ct, c),
+           "plain_ms": lambda: it.iteration_forward_fwd_plain(ct, c)}
+    rec = redesign_checks(torch, "iteration_forward_fwd",
+                          "sm90 chain, aw_iteration_fwd_sm90, reached by no path", fns, hold,
+                          fwd_work(bsz, t, p, hop), quick, new="sm90_ms", old="ms")
+    rep = ag.check_vjp(it.iteration_forward_bwd(g, fns["sm90_ms"]()[1], c),
+                       it.iteration_forward_bwd_plain(g, out_p[1], c), chain=True, t=t,
+                       chain_tol=ag.ITER_CHAIN_TOL)
+    say(f"  iteration_forward_bwd on the sm90 forward's residuals, chain vs plain: {ag.fmt(rep)}")
+    return rec
 
 
 def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None) -> dict:
@@ -859,11 +977,12 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
     # the detector's weights both ways
     it_step_bytes = (10 * state + bsz * td.CH[4] * F32 + 6 * bsz * F32 + F32 + csin_env
                      + y2_bytes + 4 * basis + 2 * det_weights)
-    it_src = "aware_tpu_torch/csrc/iteration.cu"
     rt_src = "aware_tpu_torch/csrc/roundtrip.cu"
     slab_src = "aware_tpu_torch/csrc/slab_gemm_sm90.cu"
     det_src = "aware_tpu_torch/csrc/detector.cu"
     ad_src = "aware_tpu_torch/csrc/analysis_detector.cu"  # then detector.cu's chain
+    sm90_src = "aware_tpu_torch/csrc/iteration_sm90.cu"
+    det_sm90_src = "aware_tpu_torch/csrc/detector_sm90.cu"  # rows 6 and 8
     cases = {  # name: (kernel, plain, compare, source, replaces, FLOP, bytes in + out)
         "synth_norm_fwd": (
             lambda: rt.synth_norm_fwd(ct, pb.csin, pb.y_const, pb.env, pb.ab),
@@ -902,7 +1021,7 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
         "detector_fused_bwd": (
             lambda: td.detector_fused_bwd(g_det, res_det, ac.det),
             lambda: td.detector_fused_bwd_plain(g_det, res_det, ac.det),
-            _close_vjp, det_src, "aware_tpu/ops/pallas/detector.py:401",
+            _close_vjp, det_sm90_src, "aware_tpu/ops/pallas/detector.py:401",
             det_flops, det_bwd_bytes,
         ),
         "analysis_detector_fwd": (
@@ -914,25 +1033,25 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
         "analysis_detector_bwd": (
             lambda: tad.analysis_detector_bwd(g_det, res_ad, ac),
             lambda: tad.analysis_detector_bwd_plain(g_det, res_ad, ac),
-            _close_vjp, ad_src, "aware_tpu/ops/pallas/analysis_detector.py:251",
+            _close_vjp, det_sm90_src, "aware_tpu/ops/pallas/analysis_detector.py:251",
             ana_bwd_flops + det_flops, det_bwd_bytes - cs_bytes + basis + y2_bytes,
         ),
         "iteration_forward_fwd": (
             lambda: it.iteration_forward_fwd(ct, c),
             lambda: it.iteration_forward_fwd_plain(ct, c),
-            None, it_src, "aware_tpu/ops/pallas/iteration.py:173",
+            None, "aware_tpu_torch/csrc/iteration.cu", "aware_tpu/ops/pallas/iteration.py:173",
             it_fwd_flops, it_fwd_bytes,
         ),
         "iteration_forward_bwd": (
             lambda: it.iteration_forward_bwd(g_det, res_it, c),
             lambda: it.iteration_forward_bwd_plain(g_det, res_it, c),
-            None, "aware_tpu_torch/csrc/iteration_sm90.cu", "aware_tpu/ops/pallas/iteration.py:285",
+            None, sm90_src, "aware_tpu/ops/pallas/iteration.py:285",
             it_bwd_flops, it_bwd_bytes,
         ),
         "iteration_step": (
             lambda: it.iteration_step(*st_k, *step_args, bufs),
             lambda: it.iteration_step_plain(*st_p, *step_args),
-            None, "aware_tpu_torch/csrc/iteration_sm90.cu", "aware_tpu/ops/pallas/iteration.py:513",
+            None, sm90_src, "aware_tpu/ops/pallas/iteration.py:513",
             it_fwd_flops + it_bwd_flops, it_step_bytes,
         ),
     }
@@ -972,6 +1091,16 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
                    for k in range(rt.R))[:, rt.PAD : rt.PAD + lr]
 
     wmma = {"band_analysis_fwd": (fwd_wmma, fwd_exact), "band_analysis_bwd": (vjp_wmma, vjp_exact)}
+    # the detector VJPs redesigned on the sm90 chain's detector half, beside
+    # their first WMMA versions (reached by no path) and their launches' bounds
+    redesigned = {
+        "detector_fused_bwd": ("sm90 chain, aw_detector_bwd",
+                               lambda: td._detector_fused_bwd_wmma(g_det, res_det, ac.det),
+                               det_bwd_work(bsz, t, p, hop)),
+        "analysis_detector_bwd": ("sm90 chains, aw_detector_bwd then aw_reflect_analysis_bwd",
+                                  lambda: tad._analysis_detector_bwd_wmma(g_det, res_ad, ac),
+                                  ad_bwd_work(bsz, t, p, hop)),
+    }
     records = {}
     for name, (kern, plain, close, source, replaces, flops, nbytes) in cases.items():
         out_k = kern()
@@ -999,13 +1128,23 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
             rec.update(step_checks(torch, it, (st_k, st_p), step_args, bufs, bsz, t, p, hop,
                                    gemm_rng, quick, reference_lib))
         elif name == "iteration_forward_bwd":
-            rec.update(bwd_checks(torch, it, g_det, res_it, c, out_p, bsz, t, p, hop, quick))
+            rec.update(bwd_checks(torch, it, g_det, res_it, c, out_p, bsz, t, p, hop, quick,
+                                  reference_lib))
+        elif name == "iteration_forward_fwd":
+            rec.update(fwd_checks(torch, it, ct, c, g_det, out_p, bsz, t, p, hop, quick))
+        elif name in redesigned:
+            label, wmma_call, work = redesigned[name]
+            rec.update(redesign_checks(
+                torch, name, label, {"ms": kern, "wmma_ms": wmma_call, "plain_ms": plain},
+                lambda label, out, ref=out_p: _close_vjp(label, out, ref), work, quick))
         elif not quick and name not in wmma:
             rec["ms"], call_k = time_ms(torch, kern, REPS)
             rec["plain_ms"], call_p = time_ms(torch, plain, REPS)
             call = (call_k, call_p)
         records[name] = rec
         wmma_ms = f" WMMA version device ms {rec['wmma_ms']}" if "wmma_ms" in rec else ""
+        if "sm90_ms" in rec:
+            wmma_ms = f" sm90 forward (no path runs it) device ms {rec['sm90_ms']}"
         say(
             f"phase 2 kernel {name}: max_abs_err {err:.3e} device ms {rec['ms']}{wmma_ms} "
             f"plain device ms {rec['plain_ms']} library device ms {rec['library_ms']} "
@@ -1448,7 +1587,7 @@ def main() -> int:
                     help="a directory for the Chrome traces of the phase 3 profiles")
     ap.add_argument("--reference-lib", default=None,
                     help="another build of the kernel library (a shared library path), whose "
-                    "aw_iteration_step must give the same bits in phase 2")
+                    "aw_iteration_step and aw_iteration_bwd must give the same bits in phase 2")
     args = ap.parse_args()
 
     import torch
@@ -1550,13 +1689,14 @@ def main() -> int:
         for label, e, d, names in paths:
             solve_path(torch, kernels, label, e, d, clips, bits, dict.fromkeys(names, 1),
                        records)
-        # the first two paths again, in turns (a later solve finds the
-        # process warm): the default, the two-kernel path, then both reversed
+        # the default, two-kernel and weight-decay paths again, in turns (a
+        # later solve finds the process warm), then reversed
         turns = []
-        for label, e, _, _ in (paths[0], paths[1], paths[1], paths[0]):
+        for label, e, _, _ in (paths[0], paths[1], paths[3], paths[3], paths[1], paths[0]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             embed_watermark_batch(clips, sr, bits, e)
+            torch.cuda.synchronize()
             turns.append(f"{label} {time.perf_counter() - t0:.3f} s")
         say("phase 3 in turns, embed of B=8 x 10 s x 400 iterations: " + "; ".join(turns))
 

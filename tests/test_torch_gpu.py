@@ -19,8 +19,11 @@ VJP) on each tile it can take, to 1e-3 * max|plain|, bit for bit over two
 launches, and its wrapper checks; the sm90 dense GEMM of the whole step on
 each tile, to the same bound against the float32 product of its bf16
 operands, and the whole step bit for bit over two launches from one state;
-the redesigned tiled synthesis and iteration_forward VJP beside their
-first WMMA versions and their plain versions, and their wrappers' checks.
+the redesigned tiled synthesis, iteration_forward VJP and
+detector_fused and analysis_detector VJPs beside their first WMMA
+versions and their plain versions, the iteration_forward forward's sm90
+chain (reached by no path yet) beside the path's WMMA chain, and their
+wrappers' checks.
 """
 
 import numpy as np
@@ -409,6 +412,62 @@ def test_iteration_bwd_against_its_wmma_version_and_plain(cuda, t):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [40, 626])
+def test_iteration_fwd_sm90_against_the_paths_wmma_chain_and_plain(cuda, t):
+    """The forward on the sm90 step's forward half (aw_iteration_fwd_sm90,
+    reached by no wrapper yet) and the WMMA chain the path runs against
+    the plain forward on pred and every residual (agreement.ITER_FWD_TOL
+    and ITER_SHARE_TOL), y2 and m1 to Y2_TOL; the sm90 one bit for bit
+    over two launches, and its residuals carried by the sm90 VJP to
+    ITER_CHAIN_TOL of the plain chain."""
+    ct, c, _, g = _iter_inputs(t, cuda)
+    before = [k.launches for k in it.KERNELS]
+    new, again = it._iteration_forward_fwd_sm90(ct, c), it._iteration_forward_fwd_sm90(ct, c)
+    old = it.iteration_forward_fwd(ct, c)
+    _, ref = it.iteration_forward_fwd_plain(ct, c)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((*new[1].det, new[1].u, new[1].m1),
+                                                 (*again[1].det, again[1].u, again[1].m1)))
+    for _, ours in (new, old):
+        ag.check_forward(ours.det, ref.det, t, ag.ITER_FWD_TOL, ag.ITER_SHARE_TOL)
+        assert ag._rel(ours.y2, ref.y2) <= ag.Y2_TOL and ag._rel(ours.m1, ref.m1) <= ag.Y2_TOL
+    ag.check_vjp(it.iteration_forward_bwd(g, new[1], c), it.iteration_forward_bwd_plain(g, ref, c),
+                 chain=True, t=t, chain_tol=ag.ITER_CHAIN_TOL)
+    # the path's forward once and the VJP once; the sm90 forward counts nowhere
+    assert [k.launches - n for k, n in zip(it.KERNELS, before)] == [1, 1, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [40, 626])
+def test_detector_vjps_against_their_wmma_versions_and_plain(cuda, t):
+    """The sm90 detector_fused VJP (the step's detector VJP from g) and
+    the analysis_detector VJP (it, then the step's reflect analysis VJP and
+    the fold), each beside its first WMMA version (aw_detector_bwd_wmma,
+    then aw_reflect_analysis_bwd_wmma; reached by no wrapper), against the
+    plain VJP from the plain residuals to agreement.VJP_TOL; the new ones
+    bit for bit over two launches."""
+    ac, nb = _det_consts(cuda)
+    cs, y2, g = _det_inputs(t, cuda, nb)
+    before = [k.launches for k in td.KERNELS + tad.KERNELS]
+    for x, fwd_plain, bwd, bwd_wmma, bwd_plain, c in (
+        (cs, td.detector_fused_fwd_plain, td.detector_fused_bwd, td._detector_fused_bwd_wmma,
+         td.detector_fused_bwd_plain, ac.det),
+        (y2, tad.analysis_detector_fwd_plain, tad.analysis_detector_bwd,
+         tad._analysis_detector_bwd_wmma, tad.analysis_detector_bwd_plain, ac),
+    ):
+        _, res = fwd_plain(x, c)
+        new, again = bwd(g, res, c), bwd(g, res, c)
+        old = bwd_wmma(g, res, c)
+        ref = bwd_plain(g, res, c)
+        torch.cuda.synchronize()
+        assert torch.equal(new, again)
+        ag.check_vjp(new, ref)
+        ag.check_vjp(old, ref)
+    # the merged wrapper launches the detector VJP too; the WMMA versions count nowhere
+    assert [k.launches - n for k, n in zip(td.KERNELS + tad.KERNELS, before)] == [0, 4, 0, 2]
+
+
+@pytest.mark.gpu
 def test_redesigned_wrappers_refuse_before_any_launch(cuda):
     def moved(x):  # a copy 4 (bf16: 2) bytes past a 16-byte boundary
         out = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
@@ -434,6 +493,24 @@ def test_redesigned_wrappers_refuse_before_any_launch(cuda):
         short = res._replace(det=res.det._replace(nph=res.det.nph[:, :7].contiguous()))
         it.iteration_forward_bwd(g, short, c)
     assert it.iteration_forward_bwd.launches == before
+    for case in ("ab", "csw"):  # the sm90 forward's tensor maps
+        with pytest.raises(ValueError):
+            it._iteration_forward_fwd_sm90(ct, c._replace(**{case: moved(getattr(c, case))}))
+    with pytest.raises(ValueError):
+        it._iteration_forward_fwd_sm90(ct, c._replace(det=c.det._replace(w1t=moved(c.det.w1t))))
+    ac, nb = _det_consts(cuda)
+    cs, y2, g = _det_inputs(8, cuda, nb)
+    _, res = td.detector_fused_fwd_plain(cs, ac.det)
+    before = [k.launches for k in td.KERNELS + tad.KERNELS]
+    with pytest.raises(ValueError):
+        td.detector_fused_bwd(g, res, ac.det._replace(melbt=moved(ac.det.melbt)))
+    with pytest.raises(ValueError):  # T = 7 < 8
+        td.detector_fused_bwd(g, td.detector_fused_fwd_plain(cs[:, :7].contiguous(), ac.det)[1],
+                              ac.det)
+    with pytest.raises(ValueError):
+        tad.analysis_detector_bwd(g, tad.analysis_detector_fwd_plain(y2, ac)[1],
+                                  ac._replace(cswt=moved(ac.cswt)))
+    assert [k.launches for k in td.KERNELS + tad.KERNELS] == before
 
 
 def _slab_uses(d, t):

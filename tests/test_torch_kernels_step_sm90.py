@@ -34,6 +34,7 @@ import torch
 import jax.numpy as jnp
 
 from aware_tpu_torch.ops.kernels import agreement as ag
+from aware_tpu_torch.ops.kernels import detector as td
 from aware_tpu_torch.ops.kernels import iteration as it
 from aware_tpu_torch.ops.kernels.detector import DetResiduals
 from aware_tpu_torch.ops.kernels import roundtrip as rt
@@ -148,8 +149,7 @@ def fwd_walk(ct, c, plans):
     nph = _bf16(torch.cat([re * inv, im * inv], dim=-1))
     mel = dense_walk(_bf16(sq * inv).reshape(b * t, p), d.melb.float(), plans["mel"])
     mel = mel.reshape(b, t, CH[0])
-    rc = -(-t // 15)
-    rc += rc % 2
+    rc, _ = td.mel_chunks(t)
     mu1 = chunk_sum(mel, 1, rc) / t
     r1 = 1.0 / torch.sqrt(chunk_sum((mel - mu1[:, None]) ** 2, 1, rc) / t + IN_EPS)
     a = (mel - mu1[:, None]) * r1[:, None]
@@ -176,15 +176,11 @@ def fwd_walk(ct, c, plans):
     return pred, it.IterResiduals(det, u, m1)
 
 
-def bwd_walk(dpred, res, c, plans):
-    """The chain's backward half from dpred (B, 128) and the forward's
-    residuals alone -> the gradient on ct (B, T, P): the phase fold of the
-    dreim it leaves."""
-    det = res.det
+def det_bwd_walk(dpred, det, d, plans):
+    """The chain's detector VJP (det_bwd_sm90) from dpred (B, 128) and the
+    detector's residuals alone -> dcs (B, T, 2P)."""
     b, t, p2 = det.nph.shape
-    p, hop = p2 // 2, c.env.shape[-1]
-    lr, t2 = t - 1, t // 2
-    d = c.det
+    p, t2 = p2 // 2, t // 2
     pred = det.pred
     dx = ((dpred * (1 - pred * pred)) @ d.eot / t2)[:, None, :].expand(b, t2, CH[4])
     for i in range(3, -1, -1):
@@ -194,8 +190,7 @@ def bwd_walk(dpred, res, c, plans):
         dh = _bf16(getattr(det, f"rin{i}")[:, None] * (du - g1 - y * g2))
         dx = dense_walk(dh.reshape(b * t2, CH[i + 1]), getattr(d, f"w{i}").float(),
                         plans[f"conv {i} VJP"]).reshape(b, t2, CH[i])
-    rc = -(-t // 15)
-    rc += rc % 2
+    rc, _ = td.mel_chunks(t)
     n_el = t * CH[0]
     mu1, r1, gmu, gr, sd = det.mu1, det.r1, det.gmu, det.gr, det.s
     db = torch.zeros(b, t, CH[0])
@@ -209,17 +204,38 @@ def bwd_walk(dpred, res, c, plans):
     g2 = chunk_sum(da * a, 1, rc) / t
     dmel = _bf16(r1[:, None] * (da - g1[:, None] - a * g2[:, None]))
     dm = dense_walk(dmel.reshape(b * t, CH[0]), d.melbt.float(), plans["mel VJP"])
-    dcs = dm.reshape(b, t, p).repeat(1, 1, 2) * det.nph.float()
-    # the round trip backward: the analysis VJP, the reflect fold, gcrop,
-    # the synthesis VJP
-    gp = slab_walk(dcs, c.cswt.float(), t + 3, hop, 0, hop, -1, 0,
-                   plans["reflect analysis VJP"])
+    return dm.reshape(b, t, p).repeat(1, 1, 2) * det.nph.float()
+
+
+def reflect_bwd_walk(dcs, cswt, plan):
+    """The reflect analysis VJP (the slab GEMM over the lr + 4 padded rows,
+    the pad rows' cotangents rounded to bf16) and the fold of the pad rows
+    into the samples they reflect: dcs (B, T, 2P) -> gy2 (B, T-1, hop)."""
+    b, t, _ = dcs.shape
+    hop = cswt.shape[1] // SLABS
+    lr = t - 1
+    gp = slab_walk(dcs, cswt.float(), t + 3, hop, 0, hop, -1, 0, plan)
     gy2 = gp[:, 2 : 2 + lr].reshape(b, -1).clone()
     gpad = _bf16(torch.cat([gp[:, :2], gp[:, lr + 2 :]], dim=1)).reshape(b, -1)
     half = 2 * hop
     e = torch.arange(2 * half)
     n = lr * hop
     gy2[:, torch.where(e < half, half - e, n - 2 - (e - half))] += gpad
+    return gy2.reshape(b, lr, hop)
+
+
+def bwd_walk(dpred, res, c, plans):
+    """The chain's backward half from dpred (B, 128) and the forward's
+    residuals alone -> the gradient on ct (B, T, P): the phase fold of the
+    dreim it leaves."""
+    det = res.det
+    b, t, p2 = det.nph.shape
+    hop = c.env.shape[-1]
+    lr = t - 1
+    dcs = det_bwd_walk(dpred, det, c.det, plans)
+    # the round trip backward: the analysis VJP and the reflect fold, gcrop,
+    # the synthesis VJP
+    gy2 = reflect_bwd_walk(dcs, c.cswt, plans["reflect analysis VJP"]).reshape(b, -1)
     m1 = res.m1
     cden = rt.peak_den(m1)[:, 0, 0]
     yv = (res.u / rt.peak_den(m1)).reshape(b, -1)
