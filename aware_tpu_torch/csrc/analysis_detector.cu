@@ -3,17 +3,18 @@
 //
 // They replace the analysis halves of the two Pallas TPU kernels of
 // aware_tpu/ops/pallas/analysis_detector.py; the detector halves are
-// aw_detector_fwd (detector.cu) and aw_detector_bwd (detector_sm90.cu),
-// which the wrappers launch right after and right before:
+// aw_detector_fwd and aw_detector_bwd, which the wrappers launch right
+// after and right before:
 //
 //   aw_reflect_analysis_fwd <- analysis_detector forward (_ad_fwd_kernel:
 //                              reflect-pad framing + slab DFT)
 //   aw_reflect_analysis_bwd <- analysis_detector VJP (_ad_bwd_kernel:
-//                              transposed slabs + reflect-pad routing): in
-//                              detector_sm90.cu, on the sm90 slab GEMM; its
-//                              first version stays here as
-//                              aw_reflect_analysis_bwd_wmma, and the
-//                              detector half of the VJP is aw_detector_bwd
+//                              transposed slabs + reflect-pad routing)
+//
+// All four are in detector_sm90.cu, on the sm90 slab and dense GEMMs; the
+// first versions of the analysis halves stay here as
+// aw_reflect_analysis_fwd_wmma and aw_reflect_analysis_bwd_wmma, which no
+// wrapper reaches (chip_smoke.py times each beside its sm90 version).
 //
 // Per clip (T frames, lr = T - 1 signal rows of hop samples, y the
 // flattened rows, L = lr * hop, R = 4 slabs, 2 rows of centre padding):
@@ -39,8 +40,10 @@
 
 extern "C" {
 
-// y2 (B, T-1, hop) f32, csw (4 hop, 2P) bf16 -> cs2 (B, T, 2P) f32.
-int aw_reflect_analysis_fwd(const float* y2, const __nv_bfloat16* csw, float* cs2,
+// y2 (B, T-1, hop) f32, csw (4 hop, 2P) bf16 -> cs2 (B, T, 2P) f32.  The
+// first WMMA version, which aw_reflect_analysis_fwd (detector_sm90.cu)
+// replaced.
+int aw_reflect_analysis_fwd_wmma(const float* y2, const __nv_bfloat16* csw, float* cs2,
                             int batch, int t, int p2, int hop, void* stream) {
   launch_reflect_analysis(y2, nullptr, csw, cs2, batch, t, p2, hop, (cudaStream_t)stream);
   return (int)cudaGetLastError();

@@ -1,7 +1,14 @@
-// The detector_fused VJP and the analysis half of the analysis_detector
-// VJP for Hopper (sm_90a), as the sm90 step's backward half computes them
+// The detector_fused and analysis_detector kernels for Hopper (sm_90a),
+// both directions, as the sm90 step's two halves compute them
 // (detector_sm90.cuh: one definition of each stage):
 //
+//   aw_detector_fwd          <- aware_tpu/ops/pallas/detector.py detector_fused
+//                               forward (pallas_call :310, _fwd_kernel):
+//                               det_fwd_sm90 from cs, 16 launches
+//   aw_reflect_analysis_fwd  <- the analysis half of
+//                               aware_tpu/ops/pallas/analysis_detector.py's
+//                               forward (pallas_call :177, _ad_fwd_kernel):
+//                               reflect_pad, then the slab GEMM, 2 launches
 //   aw_detector_bwd          <- aware_tpu/ops/pallas/detector.py detector_fused
 //                               VJP (pallas_call :401, _bwd_kernel): det_bwd_sm90
 //                               from g, 13 launches
@@ -12,19 +19,22 @@
 //                               then reflect_fold (analysis_detector.cuh), 2
 //                               launches
 //
-// The analysis_detector VJP (row 8 of PERF.md) is the two in turn, from
-// the wrapper (ops/kernels/analysis_detector.py).  Their first WMMA
-// versions stay as aw_detector_bwd_wmma (detector.cu) and
-// aw_reflect_analysis_bwd_wmma (analysis_detector.cu), which no wrapper
-// reaches: chip_smoke.py times each pair in turns.  At B = 8, T = 626 the
-// detector VJP's five GEMMs take 9.2 GFLOP, 9.3 us at the bf16 peak, and
-// the WMMA chain measured 0.72 ms (PERF.md): its A loaders built every
-// operand element by element and its mel statistics ran one block per
-// clip.  Here every product only loads its A, written in bf16 by the
-// pass before it, and the mel statistics run over (row chunk, clip)
-// blocks whose partial sums the next stage finishes in one fixed order,
-// so that a repeated launch gives the same bits.  The fold adds 1024
-// rounded samples a clip, one block per clip.
+// The analysis_detector forward (row 7 of PERF.md) is aw_reflect_analysis_fwd
+// then aw_detector_fwd (18 launches), its VJP (row 8) aw_detector_bwd then
+// aw_reflect_analysis_bwd, each pair from its wrapper
+// (ops/kernels/analysis_detector.py).  Their first WMMA versions stay as
+// aw_detector_fwd_wmma, aw_detector_bwd_wmma (detector.cu),
+// aw_reflect_analysis_fwd_wmma and aw_reflect_analysis_bwd_wmma
+// (analysis_detector.cu), which no wrapper reaches: chip_smoke.py times
+// each beside its sm90 chain in turns.  At B = 8, T = 626 the detector's
+// five GEMMs take 9.2 GFLOP each way, 9.3 us at the bf16 peak; the WMMA
+// chains measured 0.70 ms (forward) and 0.72 ms (VJP) (PERF.md): their A
+// loaders built every operand element by element and their mel
+// statistics ran one block per clip.  Here every product only loads its
+// A, written in bf16 by the pass before it, and the mel statistics run
+// over (row chunk, clip) blocks whose partial sums the next stage
+// finishes in one fixed order, so that a repeated launch gives the same
+// bits.  The fold adds 1024 rounded samples a clip, one block per clip.
 //
 // Each entry refuses, before any launch, what its chain cannot take, runs
 // on the caller's stream, allocates nothing and returns the first CUDA
@@ -33,6 +43,46 @@
 #include "detector_sm90.cuh"
 
 extern "C" {
+
+// cs (B, T, 2P) f32; melb (P, 128), w0t..w3t (C_in, C_out) bf16; biases
+// (4, 1024), eo (128, 128) f32 -> pred (B, 128) f32 and the residuals nph
+// (B, T, 2P), mel (B, T, 128), y0..y3 (B, T2, C_i) bf16; mu1, r1 (B, 128),
+// rin0..rin3 (B, C_i), gmu, gr, s (B,) f32.  Scratch: mel32 (B, T, 128),
+// ha, hb (B, T2, 1024), mu (B, 1024), pool4 (B, 128) f32; a16 (B, max(T2
+// 1024, T P)) bf16; part (B, 4096) f32.  tiles: (bm, bn) of the 5 GEMMs
+// (mel, conv 0..3), as the wrapper planned them.  Refuses T < 8, mel
+// stages whose partial sums do not fit part and a wrong length of the
+// tile array.
+int aw_detector_fwd(const float* cs, const bf16* melb, const bf16* w0t, const bf16* w1t,
+                    const bf16* w2t, const bf16* w3t, const float* biases, const float* eo,
+                    float* pred, bf16* nph, bf16* mel_bf, bf16* y0, bf16* y1, bf16* y2,
+                    bf16* y3, float* mu1, float* r1, float* rin0, float* rin1, float* rin2,
+                    float* rin3, float* gmu, float* gr, float* s, float* mel32, float* ha,
+                    float* hb, float* mu, float* pool4, bf16* a16, float* part,
+                    const int* tiles, int n_tiles, int batch, int t, int p, void* stream) {
+  if (n_tiles != 2 * gDetFwdGemms || t < kMinFrames || !mel_fits(t))
+    return (int)cudaErrorInvalidValue;
+  IterScratch w{};
+  w.mel32 = mel32;
+  w.ha = ha;
+  w.hb = hb;
+  w.mu = mu;
+  w.small = pool4;
+  return det_fwd_sm90(cs, DetFwdConsts{melb, w0t, w1t, w2t, w3t, biases, eo},
+                      DetRes{pred, nph, mel_bf, y0, y1, y2, y3, mu1, r1, rin0, rin1, rin2, rin3,
+                             gmu, gr, s},
+                      w, a16, part, Tiles{tiles}, batch, t, p, (cudaStream_t)stream);
+}
+
+// y2 (B, T-1, hop) f32, csw (4 hop, 2P) bf16 -> cs2 (B, T, 2P) f32;
+// scratch ypad (B, T+3, hop) f32, the reflect-padded rows: the pass, then
+// the slab GEMM on the planned tile (bm, bn).  Refuses T < 8.
+int aw_reflect_analysis_fwd(const float* y2, const bf16* csw, float* cs2, float* ypad,
+                            int batch, int t, int p2, int hop, int bm, int bn, void* stream) {
+  if (t < kMinFrames) return (int)cudaErrorInvalidValue;
+  return reflect_analysis_fwd_sm90(y2, nullptr, csw, ypad, cs2, bm, bn, batch, t, p2, hop,
+                                   (cudaStream_t)stream);
+}
 
 // g (B, 128) f32 and the forward's 16 residuals (aw_detector_fwd's); w0..w3
 // (C_out, C_in) bf16, eot (128, 128) f32, melbt (128, P) bf16 -> dcs

@@ -3,10 +3,10 @@
 // They replace the three Pallas TPU kernels of aware_tpu/ops/pallas/iteration.py:
 //
 //   aw_iteration_fwd  <- iteration_forward forward (_iter_fwd_impl :173,
-//                        _iter_fwd_kernel :72); the forward half of the
-//                        sm90 step computes it too, as
-//                        aw_iteration_fwd_sm90 (iteration_sm90.cu), which
-//                        no path reaches yet
+//                        _iter_fwd_kernel :72): in iteration_sm90.cu, the
+//                        forward half of the sm90 step,
+//                        aw_iteration_fwd_sm90; its first chain stays here
+//                        as aw_iteration_fwd_wmma
 //   aw_iteration_bwd  <- iteration_forward VJP (_iter_bwd_impl :285,
 //                        _iter_bwd_kernel :193): in iteration_sm90.cu, the
 //                        backward half of the sm90 step; its first chain
@@ -43,7 +43,7 @@
 // shared memory, so here each direction stays a chain of launches through
 // device memory, on the caller's stream, with nothing allocated:
 //
-//   fwd  (13 launches + 1 memset, aw_iteration_fwd): memset m1; the
+//   fwd  (13 launches + 1 memset, aw_iteration_fwd_wmma): memset m1; the
 //        synthesis GEMM with the per-clip atomicMax of |u| into m1's bits;
 //        the reflect-pad analysis GEMM, whose loader forms y2 = u / cden
 //        as it stages it (no peak_scale pass, no y2 in memory); the 11
@@ -129,9 +129,10 @@ void iteration_bwd_chain(const float* g, const float* wm, float* loss, const Det
 
 extern "C" {
 
-// ptrs (42, FwdArgs).  The forward the weight-decay path runs;
-// chip_smoke.py times it in turns with aw_iteration_fwd_sm90.
-int aw_iteration_fwd(void* const* ptrs, int n, int batch, int t, int p, int hop,
+// ptrs (42, FwdArgs).  The first chain of the forward, which
+// aw_iteration_fwd_sm90 (iteration_sm90.cu) replaced; no wrapper reaches
+// it: chip_smoke.py times the two in turns.
+int aw_iteration_fwd_wmma(void* const* ptrs, int n, int batch, int t, int p, int hop,
                      void* stream) {
   Ptrs a{ptrs, n, 0};
   const FwdArgs s = take_fwd(a);

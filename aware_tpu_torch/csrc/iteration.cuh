@@ -1,4 +1,4 @@
-// What iteration.cu (the WMMA chains: aw_iteration_fwd,
+// What iteration.cu (the WMMA chains: aw_iteration_fwd_wmma,
 // aw_iteration_bwd_wmma, aw_iteration_step_wmma) and iteration_sm90.cu (the
 // TMA + wgmma chains: aw_iteration_step, aw_iteration_fwd_sm90,
 // aw_iteration_bwd) share: the reading of the pointer table their C
@@ -101,7 +101,7 @@ IterScratch take_scratch(Ptrs& a) {
   return w;
 }
 
-// The forward's pointer table (42), as aw_iteration_fwd and
+// The forward's pointer table (42), as aw_iteration_fwd_wmma and
 // aw_iteration_fwd_sm90 take it: ct (B, T, P) f32; csin, y_const, env, ab,
 // csw (RoundConsts); melb, w0t..w3t, biases, eo (the detector's forward
 // constants) -> the 16 residuals (DetResiduals' order: pred first), u

@@ -5,9 +5,7 @@
 //   aw_iteration_step     <- aware_tpu/ops/pallas/iteration.py iteration_step
 //                            (pallas_call :513, _step_kernel :341)
 //   aw_iteration_fwd_sm90 <- the iteration_forward forward (pallas_call :173,
-//                            _iter_fwd_kernel :72): the step's forward half,
-//                            reached by no path yet (ops/kernels/iteration.py
-//                            says why)
+//                            _iter_fwd_kernel :72): the step's forward half
 //   aw_iteration_bwd      <- the iteration_forward VJP (pallas_call :285,
 //                            _iter_bwd_kernel :193): the step's backward half
 //                            from a given g, then the phase fold
@@ -54,15 +52,15 @@
 // VJP statistics stages; mel VJP; analysis VJP; 2 fold and scalar stages;
 // gcrop; synthesis VJP; nadam_fold; best_loss_update: 40.  The chain is
 // two halves (step_fwd: 20 launches, step_bwd: 18) and the epilogue.
-// aw_iteration_fwd_sm90 is step_fwd: 20 launches; the forward the
-// weight-decay path runs, aw_iteration_fwd (iteration.cu, 13 launches on
-// the WMMA template), measured 1.33 ms at B = 8, T = 626 (PERF.md), 67x
-// its 0.020 ms bound.
+// aw_iteration_fwd_sm90 is step_fwd: 20 launches; its first chain,
+// aw_iteration_fwd_wmma (iteration.cu, 13 launches on the WMMA template),
+// measured 1.34 ms at B = 8, T = 626 (PERF.md), 67x its 0.020 ms bound.
 // aw_iteration_bwd is step_bwd from g, reading only the residuals, then
 // fold_phase: 19 launches; its first chain, aw_iteration_bwd_wmma
 // (iteration.cu, 15 launches), measured 1.62 ms, 81x its 0.020 ms bound.
-// The backward half's detector part and its analysis VJP are shared with
-// the detector_fused and analysis_detector VJPs (detector_sm90.cuh).
+// Both halves' detector parts and reflect analyses are shared with the
+// detector_fused and analysis_detector forwards and VJPs
+// (detector_sm90.cuh).
 
 #include "detector_sm90.cuh"
 
@@ -93,163 +91,6 @@ __global__ void reim_pass(const float* ct, const bf16* csin, float* reim, float*
     const int cc = c < p ? c : c - p;
     reim[i] = ct[row * p + cc] * __bfloat162float(csin[i]);
     if (i < batch) m1[i] = 0.f;
-  }
-}
-
-// The reflect-padded y2 (B, lr + 4, hop): padded row j holds ReflectA's
-// row j - 2, u / peak_den(m1) at the reflected sample.
-__global__ void reflect_pad(const float* u, const float* m1, float* ypad, int batch, int lr,
-                            int hop) {
-  const ReflectA ra{u, m1, lr, hop};
-  const long long per_clip = (long long)(lr + 2 * kPad) * hop;
-  const long long total = per_clip * batch;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int b = (int)(i / per_clip);
-    const long long f = i % per_clip;
-    ypad[i] = ra(b, (int)(f / hop) - kPad, (int)(f % hop));
-  }
-}
-
-// nph = bf16(cs / |cs|) (B, T, 2P) and the mel GEMM's A bf16(|cs|) (B, T, P)
-// from cs2 (B, T, 2P): MagA's values.
-__global__ void mag_pass(const float* cs, bf16* nph, bf16* mag, long long rows, int p) {
-  const long long total = rows * p;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long row = (i / p) * 2 * p;
-    const int c = (int)(i % p);
-    const float re = cs[row + c], im = cs[row + p + c];
-    const float sq = re * re + im * im;
-    const float inv = sq == 0.f ? 0.f : 1.f / sqrtf(sq);
-    nph[row + c] = __float2bfloat16(re * inv);
-    nph[row + p + c] = __float2bfloat16(im * inv);
-    mag[i] = __float2bfloat16(sq * inv);
-  }
-}
-
-// ------------------------------------------- the mel norm, in chunks ---
-//
-// mel_norm_fwd's reductions (detector.cuh) over (row chunk, clip) blocks,
-// on the chunks of detector_sm90.cuh (MelChunks).
-
-// The offsets of the stages' partials in a clip's kPartLd floats.
-struct MelParts {
-  int nch;
-  __device__ int sum() const { return 0; }              // nch x 128
-  __device__ int sq() const { return nch * kMel; }      // nch x 128
-  __device__ int a() const { return 2 * nch * kMel; }   // nch
-  __device__ int a2() const { return 2 * nch * kMel + nch; }  // nch
-};
-
-struct MelStats {  // channel c's mean and 1 / sqrt(var + eps)
-  float mu, r;
-};
-
-__device__ MelStats mel_channel(const float* part, MelParts o, int t, int c) {
-  const float mu = channel_total(part, o.sum(), o.nch, c) / t;
-  const float r = 1.f / sqrtf(channel_total(part, o.sq(), o.nch, c) / t + kInEps);
-  return {mu, r};
-}
-
-// stage 1: the bf16 mel residual, and each channel's sum
-__global__ void __launch_bounds__(kRedBlock)
-mel_norm1(const float* mel, bf16* mel_bf, float* part_all, MelChunks ch) {
-  __shared__ float sh[kRedBlock];
-  const int b = blockIdx.y, c = threadIdx.x % kMel, lane = threadIdx.x / kMel;
-  const long long base = (long long)b * ch.t * kMel + c;
-  float acc = 0.f;
-  for (int i = ch.lo() + lane; i < ch.hi(); i += kMelBlockLanes) {
-    const float v = mel[base + (long long)i * kMel];
-    mel_bf[base + (long long)i * kMel] = __float2bfloat16(v);
-    acc += v;
-  }
-  put_channel(acc, sh, part_all + (long long)b * kPartLd, MelParts{ch.nch}.sum());
-}
-
-// stage 2: each channel's sum of (mel - mu)^2
-__global__ void __launch_bounds__(kRedBlock)
-mel_norm2(const float* mel, float* part_all, MelChunks ch) {
-  __shared__ float sh[kRedBlock];
-  const int b = blockIdx.y, c = threadIdx.x % kMel, lane = threadIdx.x / kMel;
-  float* part = part_all + (long long)b * kPartLd;
-  const MelParts o{ch.nch};
-  const float mu = channel_total(part, o.sum(), ch.nch, c) / ch.t;
-  const long long base = (long long)b * ch.t * kMel + c;
-  float acc = 0.f;
-  for (int i = ch.lo() + lane; i < ch.hi(); i += kMelBlockLanes) {
-    const float d = mel[base + (long long)i * kMel] - mu;
-    acc += d * d;
-  }
-  put_channel(acc, sh, part, o.sq());
-}
-
-// stage 3: the chunk's sum of a = (mel - mu) r
-__global__ void __launch_bounds__(kRedBlock)
-mel_norm3(const float* mel, float* part_all, MelChunks ch) {
-  __shared__ float sh[kRedBlock / 32];
-  const int b = blockIdx.y, c = threadIdx.x % kMel, lane = threadIdx.x / kMel;
-  float* part = part_all + (long long)b * kPartLd;
-  const MelParts o{ch.nch};
-  const MelStats s = mel_channel(part, o, ch.t, c);
-  const long long base = (long long)b * ch.t * kMel + c;
-  float acc = 0.f;
-  for (int i = ch.lo() + lane; i < ch.hi(); i += kMelBlockLanes)
-    acc += (mel[base + (long long)i * kMel] - s.mu) * s.r;
-  acc = block_reduce<false>(acc, sh);
-  if (threadIdx.x == 0) part[o.a() + blockIdx.x] = acc;
-}
-
-// stage 4: the chunk's sum of (a - gmu)^2
-__global__ void __launch_bounds__(kRedBlock)
-mel_norm4(const float* mel, float* part_all, MelChunks ch) {
-  __shared__ float sh[kRedBlock / 32];
-  const int b = blockIdx.y, c = threadIdx.x % kMel, lane = threadIdx.x / kMel;
-  float* part = part_all + (long long)b * kPartLd;
-  const MelParts o{ch.nch};
-  const MelStats s = mel_channel(part, o, ch.t, c);
-  const float g_mu = chunk_total(part, o.a(), ch.nch) / ((float)ch.t * kMel);
-  const long long base = (long long)b * ch.t * kMel + c;
-  float acc = 0.f;
-  for (int i = ch.lo() + lane; i < ch.hi(); i += kMelBlockLanes) {
-    const float d = (mel[base + (long long)i * kMel] - s.mu) * s.r - g_mu;
-    acc += d * d;
-  }
-  acc = block_reduce<false>(acc, sh);
-  if (threadIdx.x == 0) part[o.a2() + blockIdx.x] = acc;
-}
-
-// stage 5: the pool GEMM's bf16 A x = 0.5 b[2i] + 0.5 b[2i+1] (PoolA's
-// value) for the chunk's pool rows; block 0 of the clip writes mu1, r1,
-// gmu, s and gr.
-__global__ void __launch_bounds__(kRedBlock)
-mel_norm5(const float* mel, float* part_all, MelChunks ch, bf16* pool_a, float* mu1, float* r1,
-          float* gmu, float* gr_out, float* s_out) {
-  const int b = blockIdx.y, c = threadIdx.x % kMel, lane = threadIdx.x / kMel;
-  const float* part = part_all + (long long)b * kPartLd;
-  const MelParts o{ch.nch};
-  const MelStats s = mel_channel(part, o, ch.t, c);
-  const float n_el = (float)ch.t * kMel;
-  const float g_mu = chunk_total(part, o.a(), ch.nch) / n_el;
-  const float sd = sqrtf(chunk_total(part, o.a2(), ch.nch) / (n_el - 1.f));
-  const float g_r = 1.f / (sd + kGsEps);
-  const int t2 = ch.t / 2;
-  for (int i = ch.lo() / 2 + lane; i < min(ch.hi() / 2, t2); i += kMelBlockLanes) {
-    const float* m0 = mel + ((long long)b * ch.t + 2 * i) * kMel + c;
-    const float b0 = ((m0[0] - s.mu) * s.r - g_mu) * g_r;
-    const float b1 = ((m0[kMel] - s.mu) * s.r - g_mu) * g_r;
-    pool_a[((long long)b * t2 + i) * kMel + c] = __float2bfloat16(0.5f * b0 + 0.5f * b1);
-  }
-  if (blockIdx.x == 0) {
-    if (lane == 0) {
-      mu1[b * kMel + c] = s.mu;
-      r1[b * kMel + c] = s.r;
-    }
-    if (threadIdx.x == 0) {
-      gmu[b] = g_mu;
-      s_out[b] = sd;
-      gr_out[b] = g_r;
-    }
   }
 }
 
@@ -364,7 +205,7 @@ bool fold_fits(int t, int hop) {
 int step_fwd(const float* ct, const RoundConsts& c, const DetFwdConsts& dfc, const DetRes& r,
              float* u, float* m1, const IterScratch& w, const StepOps& o, const Tiles& tl,
              int batch, int t, int p, int hop, cudaStream_t st) {
-  const int lr = t - 1, t2 = t / 2, p2 = 2 * p;
+  const int lr = t - 1, p2 = 2 * p;
   int err;
 
   // ---- the round trip forward
@@ -377,46 +218,12 @@ int step_fwd(const float* ct, const RoundConsts& c, const DetFwdConsts& dfc, con
                     sm90::Params{lr, hop, p2, /*k_row=*/0, /*k_col=*/hop, /*dir=*/-1, /*pad=*/kPad}},
       sm90::SlabSynthEpi{u, c.env, c.y_const, (unsigned int*)m1, lr, hop}, tl.bm(gSynth),
       tl.bn(gSynth), st));
-  reflect_pad<<<elementwise_blocks((long long)batch * (lr + 2 * kPad) * hop), 256, 0, st>>>(
-      u, m1, o.rows, batch, lr, hop);
-  AW_LAUNCHED();
-  AW_TRY(sm90::launch_slab_gemm(
-      sm90::Problem{o.rows, batch, lr + 2 * kPad, c.csw, 4 * hop, p2,
-                    sm90::Params{t, p2, hop, /*k_row=*/hop, /*k_col=*/0, /*dir=*/+1, /*pad=*/0}},
-      w.big, tl.bm(gAnalysis), tl.bn(gAnalysis), st));
+  AW_TRY(reflect_analysis_fwd_sm90(u, m1, c.csw, o.rows, w.big, tl.bm(gAnalysis),
+                                   tl.bn(gAnalysis), batch, t, p2, hop, st));
 
-  // ---- the detector forward
-  mag_pass<<<elementwise_blocks(rows_t * p), 256, 0, st>>>(w.big, r.nph, o.a16, rows_t, p);
-  AW_LAUNCHED();
-  AW_TRY(sm90::launch_dense_gemm(o.a16, dfc.melb, (int)rows_t, p, kMel,
-                                 sm90::DenseStore{w.mel32, kMel}, tl.bm(gMel), tl.bn(gMel), st));
-  const MelChunks mc = mel_chunks(t);
-  const dim3 mel_grid(mc.nch, batch);
-  mel_norm1<<<mel_grid, kRedBlock, 0, st>>>(w.mel32, r.mel, o.part, mc);
-  mel_norm2<<<mel_grid, kRedBlock, 0, st>>>(w.mel32, o.part, mc);
-  mel_norm3<<<mel_grid, kRedBlock, 0, st>>>(w.mel32, o.part, mc);
-  mel_norm4<<<mel_grid, kRedBlock, 0, st>>>(w.mel32, o.part, mc);
-  mel_norm5<<<mel_grid, kRedBlock, 0, st>>>(w.mel32, o.part, mc, o.a16, r.mu1, r.r1, r.gmu,
-                                            r.gr, r.s);
-  AW_LAUNCHED();
-  const bf16* wt[4] = {dfc.w0t, dfc.w1t, dfc.w2t, dfc.w3t};
-  bf16* ys[4] = {r.y0, r.y1, r.y2, r.y3};
-  float* rins[4] = {r.rin0, r.rin1, r.rin2, r.rin3};
-  float* hs[2] = {w.ha, w.hb};
-  const int rows_t2 = batch * t2;
-  for (int i = 0; i < 4; ++i) {
-    const int g = gConv0 + i;
-    AW_TRY(sm90::launch_dense_gemm(o.a16, wt[i], rows_t2, kCh[i], kCh[i + 1],
-                                   sm90::DenseBias{hs[i % 2], dfc.biases + i * kBiasLd,
-                                                   kCh[i + 1]},
-                                   tl.bm(g), tl.bn(g), st));
-    in_norm_fwd<<<norm_grid(kCh[i + 1], batch), kNormCh * kNormLanes, 0, st>>>(
-        hs[i % 2], t2, kCh[i + 1], w.mu, rins[i], ys[i], i == 3 ? w.small : nullptr,
-        i < 3 ? o.a16 : nullptr);
-    AW_LAUNCHED();
-  }
-  brh_fwd<<<batch, kMel, 0, st>>>(w.small, dfc.eo, r.pred);
-  return (int)cudaGetLastError();
+  // ---- the detector forward, from cs2 in big
+  return det_fwd_sm90(w.big, dfc, r, w, o.a16, o.part, Tiles{tl.bmbn + 2 * gMel}, batch, t, p,
+                      st);
 }
 
 // The backward half: g (B, 128), or given wm the push_extremes gradient

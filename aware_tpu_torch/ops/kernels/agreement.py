@@ -42,6 +42,7 @@ and best_loss exactly).
 from __future__ import annotations
 
 import argparse
+import math
 
 import torch
 
@@ -103,6 +104,40 @@ SCALAR_TOL = 1e-5
 Y2_TOL = 1e-5
 # the step's epilogue given the same dreim: ct, m, v, max error / max|plain|
 EPILOGUE_TOL = 1e-6
+
+
+# Short clips (8 and 9 frames) on the card against the CPU plain solve, by
+# outcome: a 400-iteration solve's BER on one lane is a draw there, for
+# the reference too (moving its clips by 1e-6 of themselves reads a lane
+# worse on 11 and 5 of 32 lanes), so no rule per lane separates a worse
+# card from chance.  Over many lanes, a card as good as the reference
+# makes "card worse" and "card better" equally likely on a lane where
+# they differ: a one-sided sign test refuses the card when so many lanes
+# read worse that chance would give as many less often than SHORT_ALPHA.
+SHORT_ALPHA = 1e-3
+
+
+def short_outcome(ber_card, ber_ref, alpha: float = SHORT_ALPHA) -> tuple:
+    """The one-sided sign test of per-lane BERs, card against reference:
+    (W, L, p, ok), W the lanes whose card BER is higher, L those whose
+    card BER is lower (ties drop out), p = P(Binomial(W + L, 1/2) >= W)
+    summed exactly, and ok = p >= alpha."""
+    pairs = list(zip(ber_card, ber_ref, strict=True))
+    worse = sum(float(k) > float(r) for k, r in pairs)
+    better = sum(float(k) < float(r) for k, r in pairs)
+    n = worse + better
+    p = sum(math.comb(n, i) for i in range(worse, n + 1)) / 2**n
+    return worse, better, p, p >= alpha
+
+
+def lane_ber(net, audio: torch.Tensor, bits):
+    """BER % per lane of embedded audio (B, L) against the bits (B, 20),
+    read back by the plain detector ``net`` on the audio's device."""
+    import numpy as np
+
+    from aware_tpu_torch.models.detector import detect_values_batch
+
+    return np.mean((detect_values_batch(net, audio).cpu().numpy() > 0) != bits, axis=1) * 100.0
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -464,59 +499,65 @@ def _iteration_readings(seeds: int, frames: tuple[int, ...], batch: int, dev) ->
 
 def _short_solve_readings(seeds: int, frames: tuple[int, ...], dev) -> None:
     """The weight-decay path's outcome below 32 frames, where chip_smoke.py
-    phase 3s holds only the outcome (no lane with a higher BER on the card
-    than the CPU plain solve's on the same lane): per pair of speech-like
-    clips of T frames (from the seed), the 400-iteration BER % per lane of
-    the solve on the card with the iteration_forward forward's sm90 chain
-    (``_iteration_forward_fwd_sm90``) in the place of the WMMA chain the
-    path runs, on the card as the path runs, and of the plain solve on the
-    CPU from the clips and from the clips moved by 1e-6 of themselves;
-    then, per variant, the lanes that read worse than the CPU plain
-    solve's."""
+    phase 3s holds only the outcome: per pair of speech-like clips of T
+    frames (from the seed, as phase 3s draws them), the 400-iteration BER %
+    per lane of the solve on the card as the path runs it (the
+    iteration_forward forward's sm90 chain), on the card with its first
+    WMMA chain (``_iteration_forward_fwd_wmma``) in its place, and of the
+    plain solve on the CPU from the clips and from the clips moved by 1e-6
+    of themselves; then, per variant, the lanes that read worse than the
+    CPU plain solve's and the sign test of phase 3s (``short_outcome``)."""
     import numpy as np
 
     from aware_tpu_torch import load
     from aware_tpu_torch.embed.solver import embed_batch
-    from aware_tpu_torch.models.detector import detect_values_batch
     from aware_tpu_torch.ops.kernels import iteration as it
 
     opt = {"optimizer_params": {"lr": 0.1, "weight_decay": 1e-4}}
     emb, det = load(device=dev, **opt)
     _, det_cpu = load(device="cpu", **opt)
-    wmma_fwd = it.iteration_forward_fwd
-
-    def ber(net, audio, bits):
-        return np.mean((detect_values_batch(net, audio).cpu().numpy() > 0) != bits, axis=1) * 100
-
-    worse = {}
+    sm90_fwd = it.iteration_forward_fwd
+    lanes: dict = {}
     for t in frames:
         for seed in range(seeds):
-            rng = np.random.default_rng([seed, t, 3])
-            clips = _speech_clips(rng, 2, (t - 1) * emb.cfg.hop_length)
-            bits = rng.integers(0, 2, (2, 20))
-            moved = clips * (1 + 1e-6 * rng.standard_normal(clips.shape))
+            clips, bits, moved = short_lanes(seed, t, emb.cfg.hop_length)
             wm = torch.as_tensor(2.0 * bits - 1.0, dtype=torch.float32)
             row = {}
-            for name, fwd in (("card sm90", it._iteration_forward_fwd_sm90),
-                              ("card WMMA fwd", wmma_fwd)):
+            for name, fwd in (("card sm90", sm90_fwd),
+                              ("card WMMA fwd", it._iteration_forward_fwd_wmma)):
                 it.iteration_forward_fwd = fwd  # _IterationForward looks it up per call
                 try:
                     x = torch.as_tensor(clips, dtype=torch.float32, device=dev)
                     res = embed_batch(det.net, x, wm.to(dev), emb.cfg)
                 finally:
-                    it.iteration_forward_fwd = wmma_fwd
-                row[name] = ber(det.net, res.audio, bits)
+                    it.iteration_forward_fwd = sm90_fwd
+                row[name] = lane_ber(det.net, res.audio, bits)
             for name, x in (("cpu", clips), ("cpu moved", moved)):
                 res = embed_batch(det_cpu.net, torch.as_tensor(x, dtype=torch.float32), wm,
                                   emb.cfg)
-                row[name] = ber(det_cpu.net, res.audio, bits)
+                row[name] = lane_ber(det_cpu.net, res.audio, bits)
             print(f"short solve T={t} seed {seed}: BER % per lane "
                   + "; ".join(f"{k} {v.tolist()}" for k, v in row.items()), flush=True)
-            for k in ("card sm90", "card WMMA fwd", "cpu moved"):
-                worse[(t, k)] = worse.get((t, k), 0) + int(np.sum(row[k] > row["cpu"]))
-    print(f"short solve: lanes reading worse than the CPU plain solve's, of {2 * seeds} a T:")
-    for (t, k), v in sorted(worse.items()):
-        print(f"  T={t} {k}: {v}")
+            for k, v in row.items():
+                lanes.setdefault((t, k), []).extend(v.tolist())
+    print(f"short solve: against the CPU plain solve, {2 * seeds} lanes a T (W worse, L better):")
+    for t in frames:
+        for k in ("card sm90", "card WMMA fwd", "cpu moved"):
+            worse, better, p, ok = short_outcome(lanes[(t, k)], lanes[(t, "cpu")])
+            print(f"  T={t} {k}: W {worse}, L {better}, p {p:.3e}{'' if ok else ', refused'}")
+
+
+def short_lanes(seed: int, t: int, hop: int = 256):
+    """The clip pair of phase 3s's sign test for ``seed`` at T frames, from
+    a generator of its own: (clips (2, (T-1) hop) float64, bits (2, 20),
+    the clips moved by 1e-6 of themselves)."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, t, 3])
+    clips = _speech_clips(rng, 2, (t - 1) * hop)
+    bits = rng.integers(0, 2, (2, 20))
+    moved = clips * (1 + 1e-6 * rng.standard_normal(clips.shape))
+    return clips, bits, moved
 
 
 def main() -> int:

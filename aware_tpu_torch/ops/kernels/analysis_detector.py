@@ -9,15 +9,16 @@ bit values, with the exact reflect-pad framing of the STFT
 
 and its VJP, the detector's VJP followed by the transposed slabs and the
 reflect-pad routing back into the boundary signal rows.  On the card each
-direction is two C entries: ``aw_reflect_analysis_fwd`` then
-``aw_detector_fwd`` (``csrc/analysis_detector.cu``, ``csrc/detector.cu``:
-the WMMA template), and ``aw_detector_bwd`` then
-``aw_reflect_analysis_bwd`` (``csrc/detector_sm90.cu``: the sm90 step's
-detector VJP and its reflect analysis VJP, TMA + wgmma; their first WMMA
-versions stay as ``*_wmma``, which no path reaches).  The wrappers
-``analysis_detector_fwd`` / ``analysis_detector_bwd`` count their own
-launch in ``launches``, and the detector wrappers they call count theirs;
-given tensors on the CPU they run the plain versions.
+direction is two C entries of ``csrc/detector_sm90.cu``, the sm90 step's
+halves (TMA + wgmma): ``aw_reflect_analysis_fwd`` (the reflect pad, then
+the step's analysis slab GEMM) then ``aw_detector_fwd``, and
+``aw_detector_bwd`` then ``aw_reflect_analysis_bwd``; their first WMMA
+versions stay as ``*_wmma`` (``csrc/analysis_detector.cu``,
+``csrc/detector.cu``), which no path reaches.  The wrappers
+``analysis_detector_fwd`` / ``analysis_detector_bwd`` check both halves
+before the first launch, count their own launch in ``launches``, and the
+detector wrappers they call count theirs; given tensors on the CPU they
+run the plain versions.
 
 The JAX kernel builds the four pad rows as products with 0/1 flip matrices
 (``reflect_pad_matrices``, ``_pad_rows``); the plain version here does the
@@ -41,7 +42,9 @@ from aware_tpu_torch.ops.kernels.detector import (
     DetConsts,
     DetResiduals,
     _detector_fused_bwd_wmma,
+    _detector_fused_fwd_wmma,
     check_detector_bwd,
+    check_detector_fwd_consts,
     detector_fused_bwd,
     detector_fused_bwd_plain,
     detector_fused_fwd,
@@ -169,14 +172,41 @@ def _check_analysis(ac: AnalysisDetConsts, t: int, hop: int, device) -> int:
     return p2
 
 
-def _reflect_analysis_fwd(y2: torch.Tensor, ac: AnalysisDetConsts) -> torch.Tensor:
-    """The CUDA counterpart of :func:`reflect_analysis_fwd_plain`."""
+def reflect_gemm_fwd(t: int, p2: int, hop: int) -> StepGemm:
+    """The reflect analysis's slab GEMM (the sm90 step's, and
+    aw_reflect_analysis_fwd's): T rows of 2P from the lr + 4 padded rows'
+    hop columns."""
+    return StepGemm("reflect analysis", "slab", t, hop, p2)
+
+
+def check_reflect_analysis_fwd(y2: torch.Tensor, ac: AnalysisDetConsts) -> tuple:
+    """What the reflect analysis's sm90 chain cannot take: raise, before
+    any launch.  y2 and the analysis constants; T >= MIN_FRAMES; the slab
+    GEMM's weight as its tensor map takes it.  Returns (B, T, 2P, hop)."""
     b, lr, hop = y2.shape
     dev = y2.device
     p2 = _check_analysis(ac, lr + 1, hop, dev)
     _check("y2", y2, (b, lr, hop), torch.float32, dev)
-    cs2 = torch.empty(b, lr + 1, p2, device=dev)
-    _run("aw_reflect_analysis_fwd", dev, y2, ac.csw, cs2, b, lr + 1, p2, hop)
+    check_weights_aligned([reflect_gemm_fwd(lr + 1, p2, hop)], [ac.csw])
+    return b, lr + 1, p2, hop
+
+
+def _reflect_analysis_fwd(y2: torch.Tensor, ac: AnalysisDetConsts,
+                          wmma: bool = False) -> torch.Tensor:
+    """The CUDA counterpart of :func:`reflect_analysis_fwd_plain`: the
+    reflect-padded rows, then the slab GEMM on its planned tile; with
+    ``wmma``, its first WMMA version (no path reaches it)."""
+    b, t, p2, hop = check_reflect_analysis_fwd(y2, ac)
+    dev = y2.device
+    cs2 = torch.empty(b, t, p2, device=dev)
+    if wmma:
+        _run("aw_reflect_analysis_fwd_wmma", dev, y2, ac.csw, cs2, b, t, p2, hop)
+        return cs2
+    gm = reflect_gemm_fwd(t, p2, hop)
+    ypad = torch.empty(b, t - 1 + 2 * PAD, hop, device=dev)
+    check_slab_gemm(ypad, ac.csw, gm.n, gm.rows)
+    plan = slab_plan_for(ypad, gm.rows, gm.n)
+    _run("aw_reflect_analysis_fwd", dev, y2, ac.csw, cs2, ypad, b, t, p2, hop, plan.bm, plan.bn)
     return cs2
 
 
@@ -224,14 +254,36 @@ def check_analysis_detector_bwd(g: torch.Tensor, res: DetResiduals,
     return b, t, p2, hop
 
 
+def check_analysis_detector_fwd(y2: torch.Tensor, ac: AnalysisDetConsts) -> tuple:
+    """What the forward's two sm90 chains cannot take: raise, before
+    either launches.  The analysis half's (``check_reflect_analysis_fwd``),
+    then the detector half's for the cs2 it writes
+    (``check_detector_fwd_consts``).  Returns (B, T, 2P, hop)."""
+    b, t, p2, hop = check_reflect_analysis_fwd(y2, ac)
+    check_detector_fwd_consts(ac.det, b, t, p2 // 2, y2.device)
+    return b, t, p2, hop
+
+
 def analysis_detector_fwd(y2: torch.Tensor, ac: AnalysisDetConsts):
-    """y2 (B, T-1, hop) -> (pred (B, 128), DetResiduals).  Replaces the TPU
-    kernel ``_ad_fwd_kernel`` (aware_tpu/ops/pallas/analysis_detector.py:177)."""
+    """y2 (B, T-1, hop) -> (pred (B, 128), DetResiduals): the sm90
+    reflect analysis (``aw_reflect_analysis_fwd``), then the sm90 detector
+    forward (``detector_fused_fwd``), 18 launches.  Replaces the TPU kernel
+    ``_ad_fwd_kernel`` (aware_tpu/ops/pallas/analysis_detector.py:177)."""
     if y2.device.type == "cpu":
         return analysis_detector_fwd_plain(y2, ac)
+    check_analysis_detector_fwd(y2, ac)
     cs2 = _reflect_analysis_fwd(y2, ac)
     analysis_detector_fwd.launches += 1
     return detector_fused_fwd(cs2, ac.det)
+
+
+def _analysis_detector_fwd_wmma(y2: torch.Tensor, ac: AnalysisDetConsts):
+    """The forward's first versions, ``aw_reflect_analysis_fwd_wmma`` then
+    ``aw_detector_fwd_wmma`` (the WMMA template), on the CUDA tensors
+    ``analysis_detector_fwd`` takes: no path reaches them; the chip check
+    times them beside the sm90 pair.  Counted nowhere."""
+    check_analysis_detector_fwd(y2, ac)
+    return _detector_fused_fwd_wmma(_reflect_analysis_fwd(y2, ac, wmma=True), ac.det)
 
 
 def analysis_detector_bwd(g: torch.Tensor, res: DetResiduals, ac: AnalysisDetConsts):

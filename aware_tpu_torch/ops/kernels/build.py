@@ -41,15 +41,17 @@ SIGNATURES = {
     "aw_band_analysis_fwd_wmma": [_P] * 3 + [_I] * 4 + [_P],
     "aw_band_analysis_bwd": [_P] * 3 + [_I] * 6 + [_P],
     "aw_band_analysis_bwd_wmma": [_P] * 3 + [_I] * 4 + [_P],
-    "aw_detector_fwd": [_P] * 29 + [_I] * 3 + [_P],
-    # the sm90 detector VJP takes a host array of the planned tiles and its length
+    # the sm90 detector chains take a host array of the planned tiles and its length
+    "aw_detector_fwd": [_P] * 32 + [_I] * 4 + [_P],
+    "aw_detector_fwd_wmma": [_P] * 29 + [_I] * 3 + [_P],
     "aw_detector_bwd": [_P] * 32 + [_I] * 4 + [_P],
     "aw_detector_bwd_wmma": [_P] * 30 + [_I] * 3 + [_P],
-    "aw_reflect_analysis_fwd": [_P] * 3 + [_I] * 4 + [_P],
+    "aw_reflect_analysis_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    "aw_reflect_analysis_fwd_wmma": [_P] * 3 + [_I] * 4 + [_P],
     "aw_reflect_analysis_bwd": [_P] * 4 + [_I] * 6 + [_P],
     "aw_reflect_analysis_bwd_wmma": [_P] * 4 + [_I] * 4 + [_P],
     # a host array of device pointers and its length, then the sizes
-    "aw_iteration_fwd": [_P] + [_I] * 5 + [_P],
+    "aw_iteration_fwd_wmma": [_P] + [_I] * 5 + [_P],
     "aw_iteration_bwd_wmma": [_P] + [_I] * 5 + [_P],
     # the sm90 chains also take a host array of the planned tiles and its length
     "aw_iteration_fwd_sm90": [_P, _I, _P, _I] + [_I] * 4 + [_P],

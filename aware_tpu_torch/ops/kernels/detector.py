@@ -11,9 +11,10 @@ kernels:
 
 with bf16 matmul operands, float32 accumulation and bf16 residuals, and a
 closed-form VJP for the input cotangent only (the detector is frozen key
-material).  ``aw_detector_fwd`` of ``csrc/detector.cu`` (the WMMA
-template) and ``aw_detector_bwd`` of ``csrc/detector_sm90.cu`` (the sm90
-step's detector VJP: TMA + wgmma, its first WMMA chain kept as
+material).  ``aw_detector_fwd`` and ``aw_detector_bwd`` of
+``csrc/detector_sm90.cu`` (the sm90 step's detector halves: TMA + wgmma,
+their tiles planned here; their first WMMA chains kept in
+``csrc/detector.cu`` as ``aw_detector_fwd_wmma`` and
 ``aw_detector_bwd_wmma``, which no path reaches) are the CUDA kernels,
 behind:
 
@@ -300,33 +301,6 @@ def _residual_shapes(b: int, t: int, p2: int) -> dict:
     }
 
 
-def detector_fused_fwd(cs: torch.Tensor, c: DetConsts):
-    """cs (B, T, 2P) -> (pred (B, 128), DetResiduals).  Replaces the TPU
-    kernel ``_fwd_kernel`` (aware_tpu/ops/pallas/detector.py:310)."""
-    if cs.device.type == "cpu":
-        return detector_fused_fwd_plain(cs, c)
-    b, t, p2 = cs.shape
-    dev = cs.device
-    if t < 2:
-        raise ValueError(f"the fused detector needs T >= 2 frames (got {t})")
-    _check("cs", cs, (b, t, p2), torch.float32, dev)
-    _check_consts(c, p2 // 2, dev)
-    res = DetResiduals(**{
-        k: torch.empty(shape, dtype=dtype, device=dev)
-        for k, (shape, dtype) in _residual_shapes(b, t, p2).items()
-    })
-    t2 = t // 2
-    mel32 = torch.empty(b, t, CH[0], device=dev)
-    ha = torch.empty(b, t2, CH[2], device=dev)
-    hb = torch.empty(b, t2, CH[2], device=dev)
-    mu = torch.empty(b, CH[2], device=dev)
-    pool4 = torch.empty(b, CH[4], device=dev)
-    _run("aw_detector_fwd", dev, cs, c.melb, c.w0t, c.w1t, c.w2t, c.w3t, c.biases, c.eo,
-         *res, mel32, ha, hb, mu, pool4, b, t, p2 // 2)
-    detector_fused_fwd.launches += 1
-    return res.pred, res
-
-
 def mel_chunks(t: int) -> tuple:
     """(rows per chunk, chunks) of the sm90 chains' chunked mel stages
     over T frames (csrc/detector_sm90.cuh ``mel_chunks``): rows per chunk
@@ -354,6 +328,83 @@ def det_gemms_fwd(b: int, t: int, p: int) -> list:
     t2 = t // 2
     return [StepGemm("mel", "dense", b * t, p, CH[0]),
             *(StepGemm(f"conv {i}", "dense", b * t2, CH[i], CH[i + 1]) for i in range(4))]
+
+
+def det_fwd_weights(c: DetConsts) -> list:
+    """The weights of ``det_gemms_fwd``, in order."""
+    return [c.melb, c.w0t, c.w1t, c.w2t, c.w3t]
+
+
+@functools.lru_cache(maxsize=64)
+def det_fwd_tiles(b: int, t: int, p: int, sms: int):
+    """The planned tiles of ``det_gemms_fwd`` as the host array of (bm, bn)
+    pairs aw_detector_fwd takes (the sm90 step's own tiles for them)."""
+    return tile_array(plan_gemms(det_gemms_fwd(b, t, p), b, sms))
+
+
+def check_detector_fwd_consts(c: DetConsts, b: int, t: int, p: int, device) -> None:
+    """What the sm90 forward chain cannot take for B clips of T frames
+    whatever its input: raise.  T >= MIN_FRAMES, the constants, the
+    chunked mel stages' room for their partial sums, and the GEMMs'
+    weights as their tensor maps take them."""
+    if t < MIN_FRAMES:
+        raise ValueError(f"the sm90 detector forward needs T >= {MIN_FRAMES} frames (got {t})")
+    _check_consts(c, p, device)
+    _check_mel_chunks(t)
+    check_weights_aligned(det_gemms_fwd(b, t, p), det_fwd_weights(c))
+
+
+def check_detector_fwd(cs: torch.Tensor, c: DetConsts) -> tuple:
+    """What the sm90 forward chain cannot take: raise, before any launch
+    (``check_detector_fwd_consts``, then cs).  Returns (B, T, P)."""
+    b, t, p2 = cs.shape
+    check_detector_fwd_consts(c, b, t, p2 // 2, cs.device)
+    _check("cs", cs, (b, t, p2), torch.float32, cs.device)
+    return b, t, p2 // 2
+
+
+def _fwd_outputs(b: int, t: int, p2: int, dev) -> tuple:
+    """The forward's residuals and the scratch both forward chains share
+    (mel32, ha, hb, mu, pool4)."""
+    res = DetResiduals(**{
+        k: torch.empty(shape, dtype=dtype, device=dev)
+        for k, (shape, dtype) in _residual_shapes(b, t, p2).items()
+    })
+    t2 = t // 2
+    scratch = [torch.empty(shape, device=dev) for shape in
+               ((b, t, CH[0]), (b, t2, CH[2]), (b, t2, CH[2]), (b, CH[2]), (b, CH[4]))]
+    return res, scratch
+
+
+def detector_fused_fwd(cs: torch.Tensor, c: DetConsts):
+    """cs (B, T, 2P) -> (pred (B, 128), DetResiduals): the sm90 step's
+    detector forward from cs (csrc/detector_sm90.cu ``aw_detector_fwd``, 16
+    launches, its 5 GEMMs' tiles planned here).  Replaces the TPU kernel
+    ``_fwd_kernel`` (aware_tpu/ops/pallas/detector.py:310)."""
+    if cs.device.type == "cpu":
+        return detector_fused_fwd_plain(cs, c)
+    b, t, p = check_detector_fwd(cs, c)
+    dev = cs.device
+    res, scratch = _fwd_outputs(b, t, 2 * p, dev)
+    a16 = torch.empty(b, max((t // 2) * CH[2], t * p), dtype=_BF16, device=dev)
+    part = torch.empty(b, PART_LD, device=dev)
+    tiles = det_fwd_tiles(b, t, p, _sms(dev.index or 0))
+    _run("aw_detector_fwd", dev, cs, c.melb, c.w0t, c.w1t, c.w2t, c.w3t, c.biases, c.eo,
+         *res, *scratch, a16, part, tiles, len(tiles), b, t, p)
+    detector_fused_fwd.launches += 1
+    return res.pred, res
+
+
+def _detector_fused_fwd_wmma(cs: torch.Tensor, c: DetConsts):
+    """The forward's first chain, ``aw_detector_fwd_wmma`` (the WMMA
+    template), on the CUDA tensors ``detector_fused_fwd`` takes: no path
+    reaches it; the chip check times it beside the sm90 chain.  Not
+    counted in ``detector_fused_fwd.launches``."""
+    b, t, p = check_detector_fwd(cs, c)
+    res, scratch = _fwd_outputs(b, t, 2 * p, cs.device)
+    _run("aw_detector_fwd_wmma", cs.device, cs, c.melb, c.w0t, c.w1t, c.w2t, c.w3t, c.biases,
+         c.eo, *res, *scratch, b, t, p)
+    return res.pred, res
 
 
 def det_gemms_bwd(b: int, t: int, p: int) -> list:

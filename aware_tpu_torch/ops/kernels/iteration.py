@@ -18,14 +18,9 @@ the sources):
 * ``iteration_forward_fwd`` replaces ``_iter_fwd_kernel``
   (aware_tpu/ops/pallas/iteration.py:72, pallas_call :173): ct (B, T, P)
   f32 -> pred (B, 128) f32 and ``IterResiduals`` (the detector's 16, u and
-  m1); the WMMA chain of ``csrc/iteration.cu`` (13 launches).  The forward
-  half of the TMA + wgmma step chain computes the same
-  (``_iteration_forward_fwd_sm90``, 20 launches, its 7 GEMMs' tiles
-  planned here: ``fwd_tiles``, the step's own tiles for them), 6x faster
-  on the card, but no path runs it yet: on the weight-decay path it moves
-  the 8-frame solve's trajectory, and chip_smoke.py's phase 3s, whose
-  per-lane BER comparison with the CPU is chance at 8-9 frames, then
-  reads a lane worse on the card (PERF.md, section 6);
+  m1); the forward half of the step chain (``aw_iteration_fwd_sm90``, 20
+  launches), its 7 GEMMs' tiles planned here (``fwd_tiles``, the step's
+  own tiles for them);
 * ``iteration_forward_bwd`` replaces ``_iter_bwd_kernel`` (:193,
   pallas_call :285): g (B, 128) -> dct (B, T, P) f32; the backward half of
   the step chain from g, then the phase fold (19 launches), its 7 GEMMs'
@@ -36,10 +31,10 @@ the sources):
   forward half, its backward half, the NAdam epilogue), its 14 GEMMs'
   tiles planned here (``step_tiles``).
 
-The first WMMA chains of the VJP and the step stay in the library as
+The first WMMA chains of the three stay in the library as
+``aw_iteration_fwd_wmma`` (``csrc/iteration.cu``, 13 launches),
 ``aw_iteration_bwd_wmma`` and ``aw_iteration_step_wmma``, which no path
-reaches (``chip_smoke.py`` times each beside its sm90 chain in turns, and
-the forward's two chains likewise).
+reaches (``chip_smoke.py`` times each beside its sm90 chain in turns).
 
 Each wrapper checks its operands, counts its own launches in
 ``launches``, and on CUDA tensors launches its kernel or raises; on CPU
@@ -71,6 +66,7 @@ from aware_tpu_torch.ops.kernels.analysis_detector import (
     analysis_detector_bwd_plain,
     analysis_detector_fwd_plain,
     reflect_gemm_bwd,
+    reflect_gemm_fwd,
 )
 from aware_tpu_torch.ops.kernels.detector import (
     CH,
@@ -227,8 +223,7 @@ def step_gemms_fwd(b: int, t: int, p: int, hop: int) -> list:
     order of csrc/detector_sm90.cuh's ``FwdGemm``: the round trip's two,
     then the detector's five."""
     lr, p2 = t - 1, 2 * p
-    return [StepGemm("synthesis", "slab", lr, p2, hop),
-            StepGemm("reflect analysis", "slab", t, hop, p2),
+    return [StepGemm("synthesis", "slab", lr, p2, hop), reflect_gemm_fwd(t, p2, hop),
             *det_gemms_fwd(b, t, p)]
 
 
@@ -270,7 +265,7 @@ def step_tiles(b: int, t: int, p: int, hop: int, sms: int):
 
 @functools.lru_cache(maxsize=64)
 def fwd_tiles(b: int, t: int, p: int, hop: int, sms: int):
-    """``plan_fwd`` as the host array of (bm, bn) pairs aw_iteration_fwd takes."""
+    """``plan_fwd`` as the host array of (bm, bn) pairs aw_iteration_fwd_sm90 takes."""
     return tile_array(plan_fwd(b, t, p, hop, sms))
 
 
@@ -409,27 +404,12 @@ def _fwd_tensors(ct, c: IterConsts, res: IterResiduals, ws: Scratch) -> list:
 
 
 def iteration_forward_fwd(ct: torch.Tensor, c: IterConsts):
-    """ct (B, T, P) -> (pred (B, 128), IterResiduals).  Replaces the TPU
-    kernel ``_iter_fwd_kernel`` (aware_tpu/ops/pallas/iteration.py:173)."""
+    """ct (B, T, P) -> (pred (B, 128), IterResiduals): the sm90 step's
+    forward half (csrc/iteration_sm90.cu ``aw_iteration_fwd_sm90``, 20
+    launches).  Replaces the TPU kernel ``_iter_fwd_kernel``
+    (aware_tpu/ops/pallas/iteration.py:173)."""
     if ct.device.type == "cpu":
         return iteration_forward_fwd_plain(ct, c)
-    b, t, p = ct.shape
-    dev = ct.device
-    hop = _check_iter(c, b, t, p, dev)
-    _check("ct", ct, (b, t, p), _F32, dev)
-    res = _residuals(b, t, 2 * p, hop, dev)
-    _run_table("aw_iteration_fwd", dev,
-               _fwd_tensors(ct, c, res, _scratch(b, t, 2 * p, hop, dev)), b, t, p, hop)
-    iteration_forward_fwd.launches += 1
-    return res.det.pred, res
-
-
-def _iteration_forward_fwd_sm90(ct: torch.Tensor, c: IterConsts):
-    """The forward on the sm90 step's forward half,
-    ``aw_iteration_fwd_sm90`` (20 launches), on the CUDA tensors
-    ``iteration_forward_fwd`` takes: no path reaches it yet (the module
-    docstring says why); the chip check holds it and times it beside the
-    path's WMMA chain.  Not counted in ``iteration_forward_fwd.launches``."""
     b, t, p, hop = check_iteration_fwd(ct, c)
     dev = ct.device
     res = _residuals(b, t, 2 * p, hop, dev)
@@ -438,6 +418,20 @@ def _iteration_forward_fwd_sm90(ct: torch.Tensor, c: IterConsts):
     tiles = fwd_tiles(b, t, p, hop, _sms(dev.index or 0))
     _run_table("aw_iteration_fwd_sm90", dev, [*_fwd_tensors(ct, c, res, ws), *ops],
                tiles, len(tiles), b, t, p, hop)
+    iteration_forward_fwd.launches += 1
+    return res.det.pred, res
+
+
+def _iteration_forward_fwd_wmma(ct: torch.Tensor, c: IterConsts):
+    """The forward's first chain, ``aw_iteration_fwd_wmma`` (the WMMA template,
+    13 launches), on the CUDA tensors ``iteration_forward_fwd`` takes: no
+    path reaches it; the chip check times it beside the sm90 chain.  Not
+    counted in ``iteration_forward_fwd.launches``."""
+    b, t, p, hop = check_iteration_fwd(ct, c)
+    dev = ct.device
+    res = _residuals(b, t, 2 * p, hop, dev)
+    _run_table("aw_iteration_fwd_wmma", dev,
+               _fwd_tensors(ct, c, res, _scratch(b, t, 2 * p, hop, dev)), b, t, p, hop)
     return res.det.pred, res
 
 

@@ -62,10 +62,11 @@ with a non-zero exit on any error:
    WMMA chain and its plain version in turns: iteration_forward_bwd (the
    step's backward half from g, then the phase fold; with
    --reference-lib also the bits of that build's aw_iteration_bwd),
-   iteration_forward_fwd (the path's WMMA chain beside the step's forward
-   half, aw_iteration_fwd_sm90, which no path runs yet; pred and every
+   iteration_forward_fwd (the step's forward half; pred and every
    residual to ITER_FWD_TOL, y2 and m1 to Y2_TOL; the sm90 VJP on the
-   sm90 forward's residuals as a chain), detector_fused_bwd
+   WMMA forward's residuals as a chain), detector_fused_fwd (the forward
+   half's detector part from cs) and analysis_detector_fwd (its reflect
+   analysis, then that; FWD_TOL and SHARE_TOL both), detector_fused_bwd
    (the backward half's detector VJP from g) and analysis_detector_bwd
    (that VJP, then the backward half's reflect analysis VJP and the
    fold; VJP_TOL both).  The tiled
@@ -93,8 +94,15 @@ with a non-zero exit on any error:
    host sync);
 3s. short clips: on each of the four paths, 2 clips each of T = 8, 9, 16
    and 31 frames through the solver: the 10-iteration best loss within
-   SHORT_LOSS_TOL of the CPU plain solve's, and after 400 iterations no
-   lane with a higher BER than the CPU plain solve's on the same lane;
+   SHORT_LOSS_TOL of the CPU plain solve's, and at 16 and 31 frames after
+   400 iterations no lane with a higher BER than the CPU plain solve's on
+   the same lane; at 8 and 9 frames, where one solve's BER on a lane is a
+   draw (for the CPU reference too), a one-sided sign test over 64 lanes
+   a path (16 clip pairs a length from fixed seeds): the card is refused
+   when it reads worse than the CPU plain solve on so many more lanes
+   than better that chance gives as many less than once in 1000
+   (agreement.short_outcome); the CPU plain solve from the clips moved by
+   1e-6 of themselves is printed beside it;
 4. single clip: embed_watermark / detect_watermark of a 2 s clip given at
    44.1 kHz (the resample path), on the default path;
 5. long clips: load() -> embed_watermark_batch of 8 speech-like 60 s
@@ -608,10 +616,27 @@ def bwd_work(bsz, t, p, hop) -> list:
 
 
 def fwd_work(bsz, t, p, hop) -> list:
-    """Each launch of one iteration_forward_fwd call (aw_iteration_fwd: the
-    sm90 step's forward half), in launch order, as step_work gives them."""
+    """Each launch of one iteration_forward_fwd call (aw_iteration_fwd_sm90:
+    the sm90 step's forward half), in launch order, as step_work gives them."""
     sm90 = step_work(bsz, t, p, hop, "sm90")
     return sm90[: next(i for i, w in enumerate(sm90) if w[0].startswith("brh_bwd"))]
+
+
+def det_fwd_work(bsz, t, p, hop) -> list:
+    """Each launch of one detector_fused_fwd call (aw_detector_fwd: the
+    sm90 step's detector forward from cs), as fwd_work gives them."""
+    work = fwd_work(bsz, t, p, hop)
+    return work[next(i for i, w in enumerate(work) if w[0].startswith("bf16 |cs|")):]
+
+
+def ad_fwd_work(bsz, t, p, hop) -> list:
+    """Each launch of one analysis_detector_fwd call: aw_reflect_analysis_fwd
+    (the reflect pad of y2 itself, no scale read, then the step's reflect
+    analysis slab), then det_fwd_work."""
+    work = fwd_work(bsz, t, p, hop)
+    i = next(i for i, w in enumerate(work) if w[0].startswith("reflect-padded"))
+    rows, padded = bsz * (t - 1) * hop * F32, bsz * (t + 3) * hop * F32
+    return [("reflect-padded y2", 0, rows + padded), work[i + 1]] + det_fwd_work(bsz, t, p, hop)
 
 
 def det_bwd_work(bsz, t, p, hop) -> list:
@@ -877,13 +902,12 @@ def bwd_checks(torch, it, g, res, c, out_p, bsz, t, p, hop, quick, reference_lib
 
 def fwd_checks(torch, it, ct, c, g, out_p, bsz, t, p, hop, quick) -> dict:
     """Row 9: the forward on the sm90 step's forward half
-    (aw_iteration_fwd_sm90, reached by no path yet) and the WMMA chain the
-    path runs (aw_iteration_fwd) against the plain forward on pred and
-    every residual (agreement.ITER_FWD_TOL, ITER_SHARE_TOL) and on y2 and
-    m1 (Y2_TOL), by redesign_checks; and the sm90 VJP on the sm90
-    forward's residuals against the plain chain (ITER_CHAIN_TOL), the
-    other pairing than the path's.  The record's ms is the path's chain,
-    sm90_ms the sm90 forward."""
+    (aw_iteration_fwd_sm90) and its first WMMA chain (aw_iteration_fwd_wmma,
+    reached by no path) against the plain forward on pred and every
+    residual (agreement.ITER_FWD_TOL, ITER_SHARE_TOL) and on y2 and m1
+    (Y2_TOL), by redesign_checks; and the sm90 VJP on the WMMA forward's
+    residuals against the plain chain (ITER_CHAIN_TOL), the other pairing
+    than the path's."""
     from aware_tpu_torch.ops.kernels import agreement as ag
 
     def hold(label, out):
@@ -893,16 +917,15 @@ def fwd_checks(torch, it, ct, c, g, out_p, bsz, t, p, hop, quick) -> dict:
             raise RuntimeError(f"{label}: y2, m1 past {ag.Y2_TOL}: {ag.fmt(sig)}")
         say(f"  {label} vs plain, max error / max|plain|: {ag.fmt(rep)}, {ag.fmt(sig)}")
 
-    fns = {"sm90_ms": lambda: it._iteration_forward_fwd_sm90(ct, c),
-           "ms": lambda: it.iteration_forward_fwd(ct, c),
+    fns = {"ms": lambda: it.iteration_forward_fwd(ct, c),
+           "wmma_ms": lambda: it._iteration_forward_fwd_wmma(ct, c),
            "plain_ms": lambda: it.iteration_forward_fwd_plain(ct, c)}
-    rec = redesign_checks(torch, "iteration_forward_fwd",
-                          "sm90 chain, aw_iteration_fwd_sm90, reached by no path", fns, hold,
-                          fwd_work(bsz, t, p, hop), quick, new="sm90_ms", old="ms")
-    rep = ag.check_vjp(it.iteration_forward_bwd(g, fns["sm90_ms"]()[1], c),
+    rec = redesign_checks(torch, "iteration_forward_fwd", "sm90 chain, aw_iteration_fwd_sm90",
+                          fns, hold, fwd_work(bsz, t, p, hop), quick)
+    rep = ag.check_vjp(it.iteration_forward_bwd(g, fns["wmma_ms"]()[1], c),
                        it.iteration_forward_bwd_plain(g, out_p[1], c), chain=True, t=t,
                        chain_tol=ag.ITER_CHAIN_TOL)
-    say(f"  iteration_forward_bwd on the sm90 forward's residuals, chain vs plain: {ag.fmt(rep)}")
+    say(f"  iteration_forward_bwd on the WMMA forward's residuals, chain vs plain: {ag.fmt(rep)}")
     return rec
 
 
@@ -979,10 +1002,8 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
                      + y2_bytes + 4 * basis + 2 * det_weights)
     rt_src = "aware_tpu_torch/csrc/roundtrip.cu"
     slab_src = "aware_tpu_torch/csrc/slab_gemm_sm90.cu"
-    det_src = "aware_tpu_torch/csrc/detector.cu"
-    ad_src = "aware_tpu_torch/csrc/analysis_detector.cu"  # then detector.cu's chain
     sm90_src = "aware_tpu_torch/csrc/iteration_sm90.cu"
-    det_sm90_src = "aware_tpu_torch/csrc/detector_sm90.cu"  # rows 6 and 8
+    det_sm90_src = "aware_tpu_torch/csrc/detector_sm90.cu"  # rows 5-8
     cases = {  # name: (kernel, plain, compare, source, replaces, FLOP, bytes in + out)
         "synth_norm_fwd": (
             lambda: rt.synth_norm_fwd(ct, pb.csin, pb.y_const, pb.env, pb.ab),
@@ -1015,7 +1036,7 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
         "detector_fused_fwd": (
             lambda: td.detector_fused_fwd(cs, ac.det),
             lambda: td.detector_fused_fwd_plain(cs, ac.det),
-            _close_det, det_src, "aware_tpu/ops/pallas/detector.py:310",
+            _close_det, det_sm90_src, "aware_tpu/ops/pallas/detector.py:310",
             det_flops, det_fwd_bytes,
         ),
         "detector_fused_bwd": (
@@ -1027,7 +1048,7 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
         "analysis_detector_fwd": (
             lambda: tad.analysis_detector_fwd(y2, ac),
             lambda: tad.analysis_detector_fwd_plain(y2, ac),
-            _close_det, ad_src, "aware_tpu/ops/pallas/analysis_detector.py:177",
+            _close_det, det_sm90_src, "aware_tpu/ops/pallas/analysis_detector.py:177",
             ana_flops + det_flops, y2_bytes + basis + det_fwd_bytes - cs_bytes,
         ),
         "analysis_detector_bwd": (
@@ -1039,7 +1060,7 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
         "iteration_forward_fwd": (
             lambda: it.iteration_forward_fwd(ct, c),
             lambda: it.iteration_forward_fwd_plain(ct, c),
-            None, "aware_tpu_torch/csrc/iteration.cu", "aware_tpu/ops/pallas/iteration.py:173",
+            None, sm90_src, "aware_tpu/ops/pallas/iteration.py:173",
             it_fwd_flops, it_fwd_bytes,
         ),
         "iteration_forward_bwd": (
@@ -1091,15 +1112,22 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
                    for k in range(rt.R))[:, rt.PAD : rt.PAD + lr]
 
     wmma = {"band_analysis_fwd": (fwd_wmma, fwd_exact), "band_analysis_bwd": (vjp_wmma, vjp_exact)}
-    # the detector VJPs redesigned on the sm90 chain's detector half, beside
-    # their first WMMA versions (reached by no path) and their launches' bounds
+    # the detector kernels redesigned on the sm90 chain's halves, beside
+    # their first WMMA versions (reached by no path) and their launches'
+    # bounds: (label, WMMA version, launches' work, the plain output's check)
     redesigned = {
+        "detector_fused_fwd": ("sm90 chain, aw_detector_fwd",
+                               lambda: td._detector_fused_fwd_wmma(cs, ac.det),
+                               det_fwd_work(bsz, t, p, hop), _close_det),
         "detector_fused_bwd": ("sm90 chain, aw_detector_bwd",
                                lambda: td._detector_fused_bwd_wmma(g_det, res_det, ac.det),
-                               det_bwd_work(bsz, t, p, hop)),
+                               det_bwd_work(bsz, t, p, hop), _close_vjp),
+        "analysis_detector_fwd": ("sm90 chains, aw_reflect_analysis_fwd then aw_detector_fwd",
+                                  lambda: tad._analysis_detector_fwd_wmma(y2, ac),
+                                  ad_fwd_work(bsz, t, p, hop), _close_det),
         "analysis_detector_bwd": ("sm90 chains, aw_detector_bwd then aw_reflect_analysis_bwd",
                                   lambda: tad._analysis_detector_bwd_wmma(g_det, res_ad, ac),
-                                  ad_bwd_work(bsz, t, p, hop)),
+                                  ad_bwd_work(bsz, t, p, hop), _close_vjp),
     }
     records = {}
     for name, (kern, plain, close, source, replaces, flops, nbytes) in cases.items():
@@ -1133,18 +1161,16 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
         elif name == "iteration_forward_fwd":
             rec.update(fwd_checks(torch, it, ct, c, g_det, out_p, bsz, t, p, hop, quick))
         elif name in redesigned:
-            label, wmma_call, work = redesigned[name]
+            label, wmma_call, work, hold = redesigned[name]
             rec.update(redesign_checks(
                 torch, name, label, {"ms": kern, "wmma_ms": wmma_call, "plain_ms": plain},
-                lambda label, out, ref=out_p: _close_vjp(label, out, ref), work, quick))
+                lambda label, out, ref=out_p, hold=hold: hold(label, out, ref), work, quick))
         elif not quick and name not in wmma:
             rec["ms"], call_k = time_ms(torch, kern, REPS)
             rec["plain_ms"], call_p = time_ms(torch, plain, REPS)
             call = (call_k, call_p)
         records[name] = rec
         wmma_ms = f" WMMA version device ms {rec['wmma_ms']}" if "wmma_ms" in rec else ""
-        if "sm90_ms" in rec:
-            wmma_ms = f" sm90 forward (no path runs it) device ms {rec['sm90_ms']}"
         say(
             f"phase 2 kernel {name}: max_abs_err {err:.3e} device ms {rec['ms']}{wmma_ms} "
             f"plain device ms {rec['plain_ms']} library device ms {rec['library_ms']} "
@@ -1531,13 +1557,17 @@ def solve_path(torch, kernels, label, emb, det, clips, bits, per_iteration, reco
 
 
 SHORT_LOSS_TOL = 0.1  # 10-iteration best loss, card vs CPU, below 32 frames
+SIGN_FRAMES = (8, 9)   # the lengths held by the sign test
+SIGN_SEEDS = 16        # its clip pairs a length: seeds 0-15
 
 
 def short_clips(torch, paths, det_cpu, rng) -> None:
     """Phase 3s: clips of 8, 9, 16 and 31 frames through the solver on each
-    path, held at the outcome level against the CPU plain solve: the
-    10-iteration best loss within SHORT_LOSS_TOL, and after 400 iterations
-    no lane with a higher BER than the CPU's on the same lane.
+    path, held at the outcome level against the CPU plain solve: on 2
+    clips a length, the 10-iteration best loss within SHORT_LOSS_TOL, and
+    at 16 and 31 frames after 400 iterations no lane with a higher BER than
+    the CPU's on the same lane; at 8 and 9 frames, the sign test of
+    ``short_sign_test`` instead of that per-lane rule.
 
     SHORT_LOSS_TOL is twice the plain solve's own spread: moving the clips
     by 1e-6 of themselves moves the CPU plain solve's 10-iteration best
@@ -1546,7 +1576,7 @@ def short_clips(torch, paths, det_cpu, rng) -> None:
     norms run over 4 to 15 pooled frames; 0.02, the bound at 626 frames,
     is below that spread."""
     from aware_tpu_torch.embed.solver import build_problem, embed_batch
-    from aware_tpu_torch.models.detector import detect_values_batch
+    from aware_tpu_torch.ops.kernels.agreement import lane_ber
 
     for frames in (8, 9, 16, 31):
         n = (frames - 1) * 256
@@ -1559,24 +1589,67 @@ def short_clips(torch, paths, det_cpu, rng) -> None:
             if pb.ct0.shape[1] != frames:
                 raise RuntimeError(f"{frames} frames expected, got {pb.ct0.shape[1]}")
             out = {}
-            for iters in (10, e.cfg.num_iterations):
+            for iters in (10,) if frames in SIGN_FRAMES else (10, e.cfg.num_iterations):
                 cfg = e.cfg.replace(num_iterations=iters)
                 res_k = embed_batch(d.net, x.to(e.device), wm.to(e.device), cfg)
                 res_p = embed_batch(det_cpu.net, x, wm, cfg)
                 out[iters] = (res_k, res_p)
             dloss = float((out[10][0].best_loss.cpu() - out[10][1].best_loss).abs().max())
-            res_k, res_p = out[e.cfg.num_iterations]
-            ber_k = np.mean((detect_values_batch(d.net, res_k.audio).cpu().numpy() > 0)
-                            != bits, axis=1) * 100.0
-            ber_p = np.mean((detect_values_batch(det_cpu.net, res_p.audio).numpy() > 0)
-                            != bits, axis=1) * 100.0
-            say(f"phase 3s {frames} frames, {label} ({pb.path}): 10-iteration best_loss card "
-                f"vs CPU plain |diff| {dloss:.3e}; {e.cfg.num_iterations}-iteration BER % per "
-                f"lane card {ber_k.tolist()} CPU {ber_p.tolist()}")
+            line = (f"phase 3s {frames} frames, {label} ({pb.path}): 10-iteration best_loss "
+                    f"card vs CPU plain |diff| {dloss:.3e}")
+            if frames not in SIGN_FRAMES:
+                res_k, res_p = out[e.cfg.num_iterations]
+                ber_k = lane_ber(d.net, res_k.audio, bits)
+                ber_p = lane_ber(det_cpu.net, res_p.audio, bits)
+                line += (f"; {e.cfg.num_iterations}-iteration BER % per lane card "
+                         f"{ber_k.tolist()} CPU {ber_p.tolist()}")
+            say(line)
             if not dloss < SHORT_LOSS_TOL:
                 raise RuntimeError(f"{frames} frames, {label}: the card departs from the CPU")
-            if np.any(ber_k > ber_p):
+            if frames not in SIGN_FRAMES and np.any(ber_k > ber_p):
                 raise RuntimeError(f"{frames} frames, {label}: a lane reads worse on the card")
+    short_sign_test(torch, paths, det_cpu)
+
+
+def short_sign_test(torch, paths, det_cpu) -> None:
+    """Phase 3s at 8 and 9 frames: on each path, the 400-iteration solve on
+    the card and the CPU plain solve of the same clips, lane by lane, over
+    SIGN_SEEDS clip pairs a length (64 lanes a path),
+    drawn by agreement.short_lanes from generators of their own (no other
+    phase moves them).  The card is refused when the one-sided sign test
+    (agreement.short_outcome) finds W lanes reading worse on the card and
+    L better (ties dropped) with P(Binomial(W + L, 1/2) >= W) under
+    agreement.SHORT_ALPHA.  At these lengths a single solve's BER on a lane
+    is a draw, for the reference too: the CPU plain solve from the clips
+    moved by 1e-6 of themselves, printed beside it and not gated, reads
+    worse than itself on as many lanes."""
+    from aware_tpu_torch.embed.solver import embed_batch
+    from aware_tpu_torch.ops.kernels import agreement as ag
+
+    lanes = {t: [ag.short_lanes(seed, t) for seed in range(SIGN_SEEDS)] for t in SIGN_FRAMES}
+    for label, e, d, _ in paths:
+        ber = {"card": [], "cpu": [], "cpu moved": []}
+        for t in SIGN_FRAMES:
+            clips, bits, moved = (np.concatenate(v) for v in zip(*lanes[t]))
+            wm = torch.as_tensor(2.0 * bits - 1.0, dtype=torch.float32)
+            res = embed_batch(d.net, torch.as_tensor(clips, dtype=torch.float32, device=e.device),
+                              wm.to(e.device), e.cfg)
+            ber["card"].append(ag.lane_ber(d.net, res.audio, bits))
+            for key, x in (("cpu", clips), ("cpu moved", moved)):
+                res = embed_batch(det_cpu.net, torch.as_tensor(x, dtype=torch.float32), wm, e.cfg)
+                ber[key].append(ag.lane_ber(det_cpu.net, res.audio, bits))
+        ber = {k: np.concatenate(v) for k, v in ber.items()}
+        worse, better, p_val, ok = ag.short_outcome(ber["card"], ber["cpu"])
+        m_worse, m_better, m_p, _ = ag.short_outcome(ber["cpu moved"], ber["cpu"])
+        say(f"phase 3s sign test, {label}, {len(ber['card'])} lanes at {SIGN_FRAMES} frames x "
+            f"{e.cfg.num_iterations} iterations: card vs CPU plain W {worse} L {better} p "
+            f"{p_val:.3e}; mean BER % card {ber['card'].mean():.3f} CPU {ber['cpu'].mean():.3f} "
+            f"CPU moved {ber['cpu moved'].mean():.3f}; CPU moved vs CPU (not gated) W {m_worse} "
+            f"L {m_better} p {m_p:.3e}")
+        if not ok:
+            raise RuntimeError(f"{label}: at {SIGN_FRAMES} frames the card reads worse than the "
+                               f"CPU on {worse} lanes, better on {better}: p {p_val:.3e} < "
+                               f"{ag.SHORT_ALPHA}")
 
 
 def main() -> int:

@@ -19,11 +19,9 @@ VJP) on each tile it can take, to 1e-3 * max|plain|, bit for bit over two
 launches, and its wrapper checks; the sm90 dense GEMM of the whole step on
 each tile, to the same bound against the float32 product of its bf16
 operands, and the whole step bit for bit over two launches from one state;
-the redesigned tiled synthesis, iteration_forward VJP and
-detector_fused and analysis_detector VJPs beside their first WMMA
-versions and their plain versions, the iteration_forward forward's sm90
-chain (reached by no path yet) beside the path's WMMA chain, and their
-wrappers' checks.
+the redesigned tiled synthesis, iteration_forward forward and VJP, and
+detector_fused and analysis_detector forwards and VJPs beside their first
+WMMA versions and their plain versions, and their wrappers' checks.
 """
 
 import numpy as np
@@ -415,15 +413,15 @@ def test_iteration_bwd_against_its_wmma_version_and_plain(cuda, t):
 @pytest.mark.parametrize("t", [40, 626])
 def test_iteration_fwd_sm90_against_the_paths_wmma_chain_and_plain(cuda, t):
     """The forward on the sm90 step's forward half (aw_iteration_fwd_sm90,
-    reached by no wrapper yet) and the WMMA chain the path runs against
-    the plain forward on pred and every residual (agreement.ITER_FWD_TOL
-    and ITER_SHARE_TOL), y2 and m1 to Y2_TOL; the sm90 one bit for bit
-    over two launches, and its residuals carried by the sm90 VJP to
-    ITER_CHAIN_TOL of the plain chain."""
+    the path's) and its first WMMA chain (aw_iteration_fwd_wmma, reached by no
+    wrapper) against the plain forward on pred and every residual
+    (agreement.ITER_FWD_TOL and ITER_SHARE_TOL), y2 and m1 to Y2_TOL; the
+    sm90 one bit for bit over two launches, and its residuals carried by
+    the sm90 VJP to ITER_CHAIN_TOL of the plain chain."""
     ct, c, _, g = _iter_inputs(t, cuda)
     before = [k.launches for k in it.KERNELS]
-    new, again = it._iteration_forward_fwd_sm90(ct, c), it._iteration_forward_fwd_sm90(ct, c)
-    old = it.iteration_forward_fwd(ct, c)
+    new, again = it.iteration_forward_fwd(ct, c), it.iteration_forward_fwd(ct, c)
+    old = it._iteration_forward_fwd_wmma(ct, c)
     _, ref = it.iteration_forward_fwd_plain(ct, c)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip((*new[1].det, new[1].u, new[1].m1),
@@ -433,8 +431,40 @@ def test_iteration_fwd_sm90_against_the_paths_wmma_chain_and_plain(cuda, t):
         assert ag._rel(ours.y2, ref.y2) <= ag.Y2_TOL and ag._rel(ours.m1, ref.m1) <= ag.Y2_TOL
     ag.check_vjp(it.iteration_forward_bwd(g, new[1], c), it.iteration_forward_bwd_plain(g, ref, c),
                  chain=True, t=t, chain_tol=ag.ITER_CHAIN_TOL)
-    # the path's forward once and the VJP once; the sm90 forward counts nowhere
-    assert [k.launches - n for k, n in zip(it.KERNELS, before)] == [1, 1, 0]
+    # the path's forward twice and the VJP once; the WMMA forward counts nowhere
+    assert [k.launches - n for k, n in zip(it.KERNELS, before)] == [2, 1, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 40, 626])
+def test_detector_forwards_against_their_wmma_versions_and_plain(cuda, t):
+    """The sm90 detector_fused forward (the step's detector forward from
+    cs) and the analysis_detector forward (the step's reflect analysis,
+    then it), each beside its first WMMA version (aw_detector_fwd_wmma,
+    aw_reflect_analysis_fwd_wmma then it; reached by no wrapper), against
+    the plain forward on pred and every residual (agreement.FWD_TOL and
+    SHARE_TOL); the new ones bit for bit over two launches, and the sm90
+    VJP on the new forward's residuals as a chain."""
+    ac, nb = _det_consts(cuda)
+    cs, y2, g = _det_inputs(t, cuda, nb)
+    before = [k.launches for k in td.KERNELS + tad.KERNELS]
+    for x, fwd, fwd_wmma, fwd_plain, bwd, bwd_plain, c in (
+        (cs, td.detector_fused_fwd, td._detector_fused_fwd_wmma, td.detector_fused_fwd_plain,
+         td.detector_fused_bwd, td.detector_fused_bwd_plain, ac.det),
+        (y2, tad.analysis_detector_fwd, tad._analysis_detector_fwd_wmma,
+         tad.analysis_detector_fwd_plain, tad.analysis_detector_bwd,
+         tad.analysis_detector_bwd_plain, ac),
+    ):
+        (_, new), (_, again) = fwd(x, c), fwd(x, c)
+        _, old = fwd_wmma(x, c)
+        _, ref = fwd_plain(x, c)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(new, again))
+        ag.check_forward(new, ref, t)
+        ag.check_forward(old, ref, t)
+        ag.check_vjp(bwd(g, new, c), bwd_plain(g, ref, c), chain=True, t=t)
+    # the merged wrapper launches the detector forward too; the WMMA versions count nowhere
+    assert [k.launches - n for k, n in zip(td.KERNELS + tad.KERNELS, before)] == [4, 2, 2, 1]
 
 
 @pytest.mark.gpu
@@ -493,15 +523,25 @@ def test_redesigned_wrappers_refuse_before_any_launch(cuda):
         short = res._replace(det=res.det._replace(nph=res.det.nph[:, :7].contiguous()))
         it.iteration_forward_bwd(g, short, c)
     assert it.iteration_forward_bwd.launches == before
+    before = it.iteration_forward_fwd.launches
     for case in ("ab", "csw"):  # the sm90 forward's tensor maps
         with pytest.raises(ValueError):
-            it._iteration_forward_fwd_sm90(ct, c._replace(**{case: moved(getattr(c, case))}))
+            it.iteration_forward_fwd(ct, c._replace(**{case: moved(getattr(c, case))}))
     with pytest.raises(ValueError):
-        it._iteration_forward_fwd_sm90(ct, c._replace(det=c.det._replace(w1t=moved(c.det.w1t))))
+        it.iteration_forward_fwd(ct, c._replace(det=c.det._replace(w1t=moved(c.det.w1t))))
+    assert it.iteration_forward_fwd.launches == before
     ac, nb = _det_consts(cuda)
     cs, y2, g = _det_inputs(8, cuda, nb)
     _, res = td.detector_fused_fwd_plain(cs, ac.det)
     before = [k.launches for k in td.KERNELS + tad.KERNELS]
+    with pytest.raises(ValueError):  # the sm90 forwards' tensor maps and frames
+        td.detector_fused_fwd(cs, ac.det._replace(w2t=moved(ac.det.w2t)))
+    with pytest.raises(ValueError):  # T = 7 < 8
+        td.detector_fused_fwd(cs[:, :7].contiguous(), ac.det)
+    with pytest.raises(ValueError):
+        tad.analysis_detector_fwd(y2, ac._replace(csw=moved(ac.csw)))
+    with pytest.raises(ValueError):  # the detector half's weight, before the analysis launches
+        tad.analysis_detector_fwd(y2, ac._replace(det=ac.det._replace(melb=moved(ac.det.melb))))
     with pytest.raises(ValueError):
         td.detector_fused_bwd(g, res, ac.det._replace(melbt=moved(ac.det.melbt)))
     with pytest.raises(ValueError):  # T = 7 < 8
