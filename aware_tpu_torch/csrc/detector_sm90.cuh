@@ -19,17 +19,19 @@
 //                               mel VJP with the phase epilogue (13 launches)
 //   reflect_analysis_bwd_sm90   dcs -> gy2 and the pad rows' cotangents: the
 //                               slab GEMM with SlabReflectBwdEpi (1 launch)
+//
+// The reductions' primitives (kRedBlock, kPartLd, block_reduce) come from
+// chain_sm90.cuh, which roundtrip_sm90.cuh's synthesis stages share.
 
 #pragma once
 
+#include "chain_sm90.cuh"
 #include "dense_gemm_sm90.cuh"
 #include "iteration.cuh"
 #include "slab_gemm_sm90.cuh"
 
 namespace {
 
-constexpr int kRedBlock = 256;  // threads of the chunked reductions and passes
-constexpr int kPartLd = 4096;   // floats of one clip's partial sums
 constexpr int kMelChunks = 15;  // row chunks of the mel stages: 2 x 15 x 128 + 30 partials
 constexpr int kMinFrames = 8;   // distinct reflect-pad boundary rows
 
@@ -50,22 +52,6 @@ struct Tiles {
   int bm(int g) const { return bmbn[2 * g]; }
   int bn(int g) const { return bmbn[2 * g + 1]; }
 };
-
-// The sum (or max) over a kRedBlock block in a fixed order: every thread
-// gets it.
-template <bool kIsMax>
-__device__ float block_reduce(float v, float* sh) {
-  for (int o = 16; o > 0; o /= 2) {
-    const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = kIsMax ? fmaxf(v, w) : v + w;
-  }
-  __syncthreads();
-  if (threadIdx.x % 32 == 0) sh[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = sh[0];
-  for (int w = 1; w < kRedBlock / 32; ++w) s = kIsMax ? fmaxf(s, sh[w]) : s + sh[w];
-  return s;
-}
 
 // ------------------------------------------------- slab GEMM epilogues ---
 
@@ -387,10 +373,6 @@ mel_bwd3(MelBwdTerms terms, const float* s, const float* part_all, MelChunks ch,
 }
 
 // ---------------------------------------------------------------- chains ---
-
-#define AW_TRY(call)               \
-  if ((err = (call)) != 0) return err
-#define AW_LAUNCHED() AW_TRY((int)cudaGetLastError())
 
 // The reflect analysis: the signal rows y (B, T-1, hop), y2 itself or,
 // given m1, the synthesis u with y2 = u / peak_den(m1) -> the

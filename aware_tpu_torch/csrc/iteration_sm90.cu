@@ -60,13 +60,14 @@
 // (iteration.cu, 15 launches), measured 1.62 ms, 81x its 0.020 ms bound.
 // Both halves' detector parts and reflect analyses are shared with the
 // detector_fused and analysis_detector forwards and VJPs
-// (detector_sm90.cuh).
+// (detector_sm90.cuh), their synthesis stages with the synth_norm forward
+// and VJP (roundtrip_sm90.cuh: reim and the synthesis slab; the fold and
+// scalar stages, gcrop and the synthesis-VJP slab).
 
 #include "detector_sm90.cuh"
+#include "roundtrip_sm90.cuh"
 
 namespace {
-
-constexpr int kFoldChunk = 4096;  // samples of a fold / scalar block
 
 // The step's own buffers: a16 (B, max(T2 1024, T P)) bf16, the detector
 // GEMMs' A operands in turn; rows (B, T+3, hop) f32, the reflect-padded
@@ -77,126 +78,7 @@ struct StepOps {
   float* part;
 };
 
-// ------------------------------------------------------------- passes ---
-
-// reim = ct csin (B T rows of 2P, f32, SynthA's value); m1 = 0 for the
-// synthesis's atomicMax.
-__global__ void reim_pass(const float* ct, const bf16* csin, float* reim, float* m1,
-                          long long rows, int p, int batch) {
-  const long long total = rows * 2 * p;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i / (2 * p);
-    const int c = (int)(i % (2 * p));
-    const int cc = c < p ? c : c - p;
-    reim[i] = ct[row * p + cc] * __bfloat162float(csin[i]);
-    if (i < batch) m1[i] = 0.f;
-  }
-}
-
-// -------------------------- the reflect fold and the peak-norm VJP's scalars ---
-//
-// fold_scalars (iteration.cu) over (sample chunk, clip) blocks: stage 1
-// folds the pad rows' cotangents into gy2 (each sample of a chunk gets at
-// most one, as in reflect_fold_clip) and sums q = gy2 y2 and max |y2| of
-// the chunk; stage 2 counts the chunk's ties at the clip's max; the gcrop
-// pass finishes the scalars (block 0 of a clip writes them to scal) and
-// writes the synthesis VJP's A.  Partials: part[3 k + {q, max, ties}].
-
-struct FoldChunks {
-  long long len;  // samples of a clip: lr hop
-  int nch;
-  __device__ long long lo() const { return blockIdx.x * (long long)kFoldChunk; }
-  __device__ long long hi() const {
-    return min(len, (long long)(blockIdx.x + 1) * kFoldChunk);
-  }
-};
-
-__global__ void __launch_bounds__(kRedBlock)
-fold_partial(const float* gpad, float* gy2, const float* u, const float* m1, float* part_all,
-             FoldChunks ch, int hop) {
-  __shared__ float sh[kRedBlock / 32];
-  const int b = blockIdx.y;
-  const long long half = (long long)kPad * hop;
-  const float* gp = gpad + (long long)b * 2 * half;
-  float* g = gy2 + b * ch.len;
-  const float* y = u + b * ch.len;
-  const float cden = peak_den(m1[b]);
-  float q = 0.f, mx = 0.f;
-  for (long long f = ch.lo() + threadIdx.x; f < ch.hi(); f += kRedBlock) {
-    float gv = g[f];
-    if (f >= 1 && f <= half) {
-      gv += gp[half - f];
-      g[f] = gv;
-    } else if (f >= ch.len - 1 - half && f <= ch.len - 2) {
-      gv += gp[half + (ch.len - 2 - f)];
-      g[f] = gv;
-    }
-    const float yv = y[f] / cden;
-    q += gv * yv;
-    mx = fmaxf(mx, fabsf(yv));
-  }
-  q = block_reduce<false>(q, sh);
-  mx = block_reduce<true>(mx, sh);
-  if (threadIdx.x == 0) {
-    float* part = part_all + (long long)b * kPartLd;
-    part[3 * blockIdx.x] = q;
-    part[3 * blockIdx.x + 1] = mx;
-  }
-}
-
-__device__ float clip_max(const float* part, int nch) {
-  float mx = 0.f;
-  for (int k = 0; k < nch; ++k) mx = fmaxf(mx, part[3 * k + 1]);
-  return mx;
-}
-
-__global__ void __launch_bounds__(kRedBlock)
-ties_partial(const float* u, const float* m1, float* part_all, FoldChunks ch) {
-  __shared__ float sh[kRedBlock / 32];
-  const int b = blockIdx.y;
-  float* part = part_all + (long long)b * kPartLd;
-  const float mx = clip_max(part, ch.nch);
-  const float cden = peak_den(m1[b]);
-  const float* y = u + b * ch.len;
-  float ties = 0.f;
-  for (long long f = ch.lo() + threadIdx.x; f < ch.hi(); f += kRedBlock)
-    ties += fabsf(y[f] / cden) == mx;
-  ties = block_reduce<false>(ties, sh);
-  if (threadIdx.x == 0) part[3 * blockIdx.x + 2] = ties;
-}
-
-// gcrop = g_u / env (B, lr, hop), SynthBwdA's value, from the folded gy2,
-// u and the scalars sc = (cden, q (1+e) / cden, max |y2|, ties).
-__global__ void __launch_bounds__(kRedBlock)
-gcrop_pass(const float* gy2, const float* u, const float* m1, const float* env,
-           const float* part_all, float* scal, float* gcrop, FoldChunks ch) {
-  const int b = blockIdx.y;
-  const float* part = part_all + (long long)b * kPartLd;
-  float q = 0.f, ties = 0.f;
-  for (int k = 0; k < ch.nch; ++k) {
-    q += part[3 * k];
-    ties += part[3 * k + 2];
-  }
-  const float cden = peak_den(m1[b]);
-  const float sc[4] = {cden, q * (1.f + kEps) / cden, clip_max(part, ch.nch), ties};
-  if (blockIdx.x == 0 && threadIdx.x < 4) scal[4 * b + threadIdx.x] = sc[threadIdx.x];
-  const long long off = b * ch.len;
-  for (long long f = ch.lo() + threadIdx.x; f < ch.hi(); f += kRedBlock) {
-    const float yv = u[off + f] / sc[0];
-    const float mask = fabsf(yv) == sc[2] ? 1.f : 0.f;
-    const float sgn = (float)((yv > 0.f) - (yv < 0.f));
-    const float gu = gy2[off + f] / sc[0] - sc[1] * sgn * mask / sc[3];
-    gcrop[off + f] = gu / env[f];
-  }
-}
-
 // ---------------------------------------------------------------- chain ---
-
-// The (T-1) hop samples of a clip fit the fold's partial sums.
-bool fold_fits(int t, int hop) {
-  return (long long)(t - 1) * hop <= (long long)kFoldChunk * (kPartLd / 3);
-}
 
 // The forward half: ct (B, T, P) -> u (B, T-1, hop), m1 (B,), pred and
 // the detector's residuals r, or the first CUDA error of a launch.  w:
@@ -205,21 +87,13 @@ bool fold_fits(int t, int hop) {
 int step_fwd(const float* ct, const RoundConsts& c, const DetFwdConsts& dfc, const DetRes& r,
              float* u, float* m1, const IterScratch& w, const StepOps& o, const Tiles& tl,
              int batch, int t, int p, int hop, cudaStream_t st) {
-  const int lr = t - 1, p2 = 2 * p;
   int err;
 
   // ---- the round trip forward
-  const long long rows_t = (long long)batch * t;
-  reim_pass<<<elementwise_blocks(rows_t * p2), 256, 0, st>>>(ct, c.csin, w.big, m1, rows_t, p,
-                                                             batch);
-  AW_LAUNCHED();
-  AW_TRY(sm90::launch_slab_gemm(
-      sm90::Problem{w.big, batch, t, c.ab, p2, 4 * hop,
-                    sm90::Params{lr, hop, p2, /*k_row=*/0, /*k_col=*/hop, /*dir=*/-1, /*pad=*/kPad}},
-      sm90::SlabSynthEpi{u, c.env, c.y_const, (unsigned int*)m1, lr, hop}, tl.bm(gSynth),
-      tl.bn(gSynth), st));
+  AW_TRY(synth_fwd_sm90(ct, c.csin, c.ab, c.env, c.y_const, w.big, u, m1, tl.bm(gSynth),
+                        tl.bn(gSynth), batch, t, p, hop, st));
   AW_TRY(reflect_analysis_fwd_sm90(u, m1, c.csw, o.rows, w.big, tl.bm(gAnalysis),
-                                   tl.bn(gAnalysis), batch, t, p2, hop, st));
+                                   tl.bn(gAnalysis), batch, t, 2 * p, hop, st));
 
   // ---- the detector forward, from cs2 in big
   return det_fwd_sm90(w.big, dfc, r, w, o.a16, o.part, Tiles{tl.bmbn + 2 * gMel}, batch, t, p,
@@ -238,24 +112,17 @@ int step_bwd(const float* g, const float* wm, float* loss, const DetRes& r, cons
              const float* m1, const RoundConsts& c, const DetBwdConsts& dbc,
              const IterScratch& w, const StepOps& o, const Tiles& tl, int batch, int t, int p,
              int hop, cudaStream_t st) {
-  const int lr = t - 1, p2 = 2 * p;
+  const int p2 = 2 * p;
   int err;
   AW_TRY(det_bwd_sm90(g, wm, loss, r, dbc, w.big, w, o.a16, o.part, tl, batch, t, p, st));
 
-  // ---- the round trip backward
+  // ---- the round trip backward: the reflect analysis VJP, then the
+  // synthesis's from the folded gy2 and u, gcrop in o.rows, dreim in w.big
   AW_TRY(reflect_analysis_bwd_sm90(w.big, c.cswt, w.gy2, w.gpad, tl.bm(gAnalysisVjp),
                                    tl.bn(gAnalysisVjp), batch, t, p2, hop, st));
-  const FoldChunks fc{(long long)lr * hop, (int)(((long long)lr * hop + kFoldChunk - 1) / kFoldChunk)};
-  const dim3 fold_grid(fc.nch, batch);
-  fold_partial<<<fold_grid, kRedBlock, 0, st>>>(w.gpad, w.gy2, u, m1, o.part, fc, hop);
-  ties_partial<<<fold_grid, kRedBlock, 0, st>>>(u, m1, o.part, fc);
-  gcrop_pass<<<fold_grid, kRedBlock, 0, st>>>(w.gy2, u, m1, c.env, o.part, w.scal, o.rows, fc);
-  AW_LAUNCHED();
-  AW_TRY(sm90::launch_slab_gemm(
-      sm90::Problem{o.rows, batch, lr, c.abt, 4 * hop, p2,
-                    sm90::Params{t, p2, hop, /*k_row=*/hop, /*k_col=*/0, /*dir=*/+1, /*pad=*/kPad}},
-      w.big, tl.bm(gSynthVjp), tl.bn(gSynthVjp), st));
-  return (int)cudaGetLastError();
+  return synth_vjp_sm90<StepVjp>(w.gpad, w.gy2, u, m1, c.env, c.abt, o.part, w.scal, o.rows,
+                                 w.big, tl.bm(gSynthVjp), tl.bn(gSynthVjp), batch, t, p2, hop,
+                                 st);
 }
 
 // The step, or the first CUDA error of a launch: the forward half, the

@@ -1,9 +1,10 @@
 // Round-trip kernels of the embed solver, for Hopper (sm_90a).
 //
-// They replace the four Pallas TPU kernels of aware_tpu/ops/pallas/roundtrip.py:
+// They were the first versions of the four Pallas TPU kernels of
+// aware_tpu/ops/pallas/roundtrip.py:
 //
-//   aw_synth_norm_fwd    <- synth_norm forward     (_synth_impl,  _synth_kernel)
-//   aw_synth_norm_bwd    <- synth_norm VJP         (_synth_bwd,   _synth_bwd_kernel)
+//   aw_synth_norm_fwd_wmma    <- synth_norm forward (_synth_impl, _synth_kernel)
+//   aw_synth_norm_bwd_wmma    <- synth_norm VJP (_synth_bwd, _synth_bwd_kernel)
 //   aw_band_analysis_fwd_wmma <- band_analysis forward (_analysis_impl, _analysis_kernel)
 //   aw_band_analysis_bwd_wmma <- band_analysis VJP (_analysis_bwd, _analysis_bwd_kernel)
 //
@@ -36,13 +37,13 @@
 // rows), so no intermediate of the Pallas kernels' scratch (reim, yd, gyd,
 // yp, gyp) goes through device memory.
 //
-// The analysis's entries of the port, aw_band_analysis_fwd and
-// aw_band_analysis_bwd, moved to slab_gemm_sm90.cu: TMA into a ring of
-// stages and wgmma, the design of slab_gemm_sm90.cuh.
-// aw_band_analysis_fwd_wmma and aw_band_analysis_bwd_wmma are their first
-// WMMA versions, kept so that chip_smoke.py can time the two in turns; no
-// wrapper reaches them.  The synthesis pair stays on the WMMA template;
-// wgmma, TMA and a pipelined ring are later work for it.
+// The port's entries moved to TMA into a ring of stages and wgmma, the
+// design of slab_gemm_sm90.cuh: the analysis's, aw_band_analysis_fwd and
+// aw_band_analysis_bwd, to slab_gemm_sm90.cu; the synthesis's,
+// aw_synth_norm_fwd and aw_synth_norm_bwd, to roundtrip_sm90.cu, as the
+// sm90 step's synthesis stages.  The four here are kept so that
+// chip_smoke.py can time each beside its successor in turns; no wrapper
+// reaches them.
 //
 // Every kernel runs on the caller's stream and allocates nothing; each C
 // entry returns cudaGetLastError() so that a refused launch is reported.
@@ -80,7 +81,7 @@ extern "C" {
 // coeffs (B, T, P) f32, csin (B, T, 2P) bf16, y_const (B, T-1, hop) f32,
 // env (T-1, hop) f32, ab (2P, 4 hop) bf16 -> y2 (B, T-1, hop) f32, m1 (B,) f32;
 // max_bits (B,) u32 scratch.
-int aw_synth_norm_fwd(const float* coeffs, const __nv_bfloat16* csin, const float* y_const,
+int aw_synth_norm_fwd_wmma(const float* coeffs, const __nv_bfloat16* csin, const float* y_const,
                       const float* env, const __nv_bfloat16* ab, float* y2, float* m1,
                       unsigned int* max_bits, int batch, int t, int p, int hop,
                       void* stream) {
@@ -100,7 +101,7 @@ int aw_synth_norm_fwd(const float* coeffs, const __nv_bfloat16* csin, const floa
 // g, y2 (B, T-1, hop) f32, m1 (B,) f32, csin (B, T, 2P) bf16, env (T-1, hop) f32,
 // abt (4 hop, 2P) bf16 -> dcoeffs (B, T, P) f32; scratch dreim (B, T, 2P) f32,
 // scal (B, 4) f32.
-int aw_synth_norm_bwd(const float* g, const float* y2, const float* m1,
+int aw_synth_norm_bwd_wmma(const float* g, const float* y2, const float* m1,
                       const __nv_bfloat16* csin, const float* env,
                       const __nv_bfloat16* abt, float* dcoeffs, float* dreim, float* scal,
                       int batch, int t, int p, int hop, void* stream) {

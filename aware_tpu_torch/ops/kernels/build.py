@@ -34,8 +34,12 @@ _F = ctypes.c_float
 # argument types of each C entry (csrc/*.cu); every kernel entry returns
 # its cudaGetLastError()
 SIGNATURES = {
-    "aw_synth_norm_fwd": [_P] * 8 + [_I] * 4 + [_P],
-    "aw_synth_norm_bwd": [_P] * 9 + [_I] * 4 + [_P],
+    # the sm90 synth_norm entries take a host array of the planned tile and its length
+    "aw_synth_norm_fwd": [_P] * 9 + [_I] * 5 + [_P],
+    "aw_synth_u": [_P] * 9 + [_I] * 5 + [_P],
+    "aw_synth_norm_fwd_wmma": [_P] * 8 + [_I] * 4 + [_P],
+    "aw_synth_norm_bwd": [_P] * 12 + [_I] * 5 + [_P],
+    "aw_synth_norm_bwd_wmma": [_P] * 9 + [_I] * 4 + [_P],
     # the sm90 slab and dense GEMM entries take the planned tile (bm, bn) last
     "aw_band_analysis_fwd": [_P] * 3 + [_I] * 6 + [_P],
     "aw_band_analysis_fwd_wmma": [_P] * 3 + [_I] * 4 + [_P],

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from aware_tpu_torch.ops.kernels.roundtrip import (
+    PART_LD,
     StepGemm,
     _bf16,
     _check,
@@ -62,7 +63,6 @@ P_BAND = 256                      # in-band bins 225 -> 256
 CH = (128, 512, 1024, 1024, 128)  # mel, conv0..conv3 out (40 -> 128)
 N_BITS = 20                       # BRH outputs: conv3's 40 channels in pairs
 MIN_FRAMES = 8  # the sm90 chains' fewest frames (distinct reflect-pad boundary rows)
-PART_LD = 4096  # floats of one clip's partial sums (csrc/detector_sm90.cuh kPartLd)
 MEL_CHUNKS = 15  # row chunks of the chunked mel stages at most (kMelChunks)
 
 

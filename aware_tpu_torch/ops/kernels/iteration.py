@@ -72,7 +72,6 @@ from aware_tpu_torch.ops.kernels.detector import (
     CH,
     N_BITS,
     P_BAND,
-    PART_LD,
     DetConsts,
     DetResiduals,
     _check_consts,
@@ -82,10 +81,12 @@ from aware_tpu_torch.ops.kernels.detector import (
     det_gemms_fwd,
 )
 from aware_tpu_torch.ops.kernels.roundtrip import (
+    FOLD_CHUNK,
     PAD,
+    PART_LD,
     R,
-    StepGemm,
     _check,
+    _check_fold,
     _check_geometry,
     _run,
     _sms,
@@ -95,8 +96,10 @@ from aware_tpu_torch.ops.kernels.roundtrip import (
     peak_den,
     phase_fold_plain,
     plan_gemms,
+    synth_gemm,
     synth_norm_bwd_plain,
     synth_u_plain,
+    synth_vjp_gemm,
     tile_array,
 )
 
@@ -204,9 +207,6 @@ def _residuals(b: int, t: int, p2: int, hop: int, dev) -> IterResiduals:
     return IterResiduals(det, torch.empty(b, t - 1, hop, device=dev), torch.empty(b, device=dev))
 
 
-FOLD_CHUNK = 4096  # samples of one block of the fold and scalar stages (kFoldChunk)
-
-
 def _ops_shapes(b: int, t: int, p2: int, hop: int) -> tuple:
     return ((b, max((t // 2) * CH[2], t * (p2 // 2))), (b, t + 2 * PAD - 1, hop), (b, PART_LD))
 
@@ -222,17 +222,14 @@ def step_gemms_fwd(b: int, t: int, p: int, hop: int) -> list:
     """The forward half's GEMMs (the iteration_forward forward's) in the
     order of csrc/detector_sm90.cuh's ``FwdGemm``: the round trip's two,
     then the detector's five."""
-    lr, p2 = t - 1, 2 * p
-    return [StepGemm("synthesis", "slab", lr, p2, hop), reflect_gemm_fwd(t, p2, hop),
-            *det_gemms_fwd(b, t, p)]
+    return [synth_gemm(t, p, hop), reflect_gemm_fwd(t, 2 * p, hop), *det_gemms_fwd(b, t, p)]
 
 
 def step_gemms_bwd(b: int, t: int, p: int, hop: int) -> list:
     """The backward half's GEMMs (the iteration_forward VJP's) in the order
     of csrc/detector_sm90.cuh's ``BwdGemm``: the detector's five (the
     detector_fused VJP's), then the round trip's two."""
-    return [*det_gemms_bwd(b, t, p), reflect_gemm_bwd(t, 2 * p, hop),
-            StepGemm("synthesis VJP", "slab", t, hop, 2 * p)]
+    return [*det_gemms_bwd(b, t, p), reflect_gemm_bwd(t, 2 * p, hop), synth_vjp_gemm(t, p, hop)]
 
 
 def step_gemms(b: int, t: int, p: int, hop: int) -> list:
@@ -501,12 +498,6 @@ def _iteration_forward_bwd_wmma(g: torch.Tensor, res: IterResiduals, c: IterCons
 def _check_state(names, tensors, shape, dev) -> None:
     for name, x in zip(names, tensors):
         _check(name, x, shape, _F32, dev)
-
-
-def _check_fold(t: int, hop: int) -> None:
-    if (t - 1) * hop > FOLD_CHUNK * (PART_LD // 3):
-        raise ValueError(f"the sm90 chains' partial sums need (T-1) hop <= "
-                         f"{FOLD_CHUNK * (PART_LD // 3)} (got T={t}, hop={hop})")
 
 
 def _fwd_weights(c: IterConsts) -> list:

@@ -2,10 +2,14 @@
 
 The port of ``aware_tpu/ops/pallas/roundtrip.py``.  Each of the four TPU
 kernels (synth_norm forward and VJP, band_analysis forward and VJP) is a
-CUDA entry of ``csrc/roundtrip.cu``, the band_analysis pair of
-``csrc/slab_gemm_sm90.cu`` (TMA and wgmma, with ``shift_mm``; its tile is
-planned here, ``plan_slab_gemm``, as is the tile of the whole step's dense
-GEMMs, ``plan_dense_gemm``), each with:
+CUDA entry on TMA and wgmma: the synth_norm pair of
+``csrc/roundtrip_sm90.cu`` (the sm90 step's synthesis stages, on the
+step's own tiles for its two synthesis GEMMs: ``synth_fwd_tiles``,
+``synth_bwd_tiles``), the band_analysis pair of ``csrc/slab_gemm_sm90.cu``
+(with ``shift_mm``; its tile is planned here, ``plan_slab_gemm``, as is
+the tile of the whole step's dense GEMMs, ``plan_dense_gemm``).  Their
+first WMMA versions stay in ``csrc/roundtrip.cu`` (``aw_*_wmma``), which no
+path reaches.  Each kernel has:
 
 * a wrapper (``synth_norm_fwd``, ``synth_norm_bwd``, ``band_analysis_fwd``,
   ``band_analysis_bwd``) that checks its operands, allocates outputs and
@@ -278,6 +282,44 @@ def check_weights_aligned(gemms: list, weights: list) -> None:
                              f"(at {w.data_ptr():#x})")
 
 
+PART_LD = 4096     # floats of one clip's partial sums (csrc/chain_sm90.cuh kPartLd)
+FOLD_CHUNK = 4096  # samples of one block of the fold and scalar stages (kFoldChunk)
+
+
+def _check_fold(t: int, hop: int) -> None:
+    """The synthesis VJP's (T-1) hop samples a clip within its partial
+    sums' room (3 floats per chunk); raise otherwise."""
+    if (t - 1) * hop > FOLD_CHUNK * (PART_LD // 3):
+        raise ValueError(f"the sm90 chains' partial sums need (T-1) hop <= "
+                         f"{FOLD_CHUNK * (PART_LD // 3)} (got T={t}, hop={hop})")
+
+
+def synth_gemm(t: int, p: int, hop: int) -> StepGemm:
+    """The synthesis's slab GEMM (the sm90 step's first): reim (B, T, 2P)
+    -> u (B, T-1, hop)."""
+    return StepGemm("synthesis", "slab", t - 1, 2 * p, hop)
+
+
+def synth_vjp_gemm(t: int, p: int, hop: int) -> StepGemm:
+    """The synthesis VJP's slab GEMM (the sm90 step's last): gcrop (B,
+    T-1, hop) -> dreim (B, T, 2P)."""
+    return StepGemm("synthesis VJP", "slab", t, hop, 2 * p)
+
+
+@functools.lru_cache(maxsize=64)
+def synth_fwd_tiles(b: int, t: int, p: int, hop: int, sms: int):
+    """The synthesis GEMM's planned tile, as the host array of one (bm, bn)
+    pair aw_synth_norm_fwd takes: the step's own."""
+    return tile_array(plan_gemms([synth_gemm(t, p, hop)], b, sms))
+
+
+@functools.lru_cache(maxsize=64)
+def synth_bwd_tiles(b: int, t: int, p: int, hop: int, sms: int):
+    """The synthesis-VJP GEMM's planned tile, as aw_synth_norm_bwd takes it:
+    the step's own."""
+    return tile_array(plan_gemms([synth_vjp_gemm(t, p, hop)], b, sms))
+
+
 def _run(entry: str, device: torch.device, *args) -> None:
     """Launch a C entry on ``device``'s current stream; raise on its error."""
     from aware_tpu_torch.ops.kernels.build import build
@@ -290,51 +332,133 @@ def _run(entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{entry}: CUDA error {err}")
 
 
-def synth_norm_fwd(coeffs, csin, y_const, env, ab):
-    """Synthesis + double peak-norm: (y2, m1).  Replaces the TPU kernel
-    ``_synth_kernel`` (aware_tpu/ops/pallas/roundtrip.py:179)."""
-    if coeffs.device.type == "cpu":
-        return synth_norm_fwd_plain(coeffs, csin, y_const, env, ab)
+def _check_frames(t: int) -> None:
+    if t < 2:
+        raise ValueError(f"synth_norm needs T >= 2 frames (got {t})")
+
+
+def check_synth_norm_fwd(coeffs, csin, y_const, env, ab) -> tuple:
+    """What the sm90 synthesis cannot take: raise, before any launch.  The
+    geometry, T >= 2, every operand's device, dtype, shape and layout, and
+    the weight as its tensor map takes it.  Returns (B, T, P, hop)."""
     b, t, p = coeffs.shape
     hop = env.shape[-1]
     dev = coeffs.device
     _check_geometry(p, hop, ab.shape[-1])
+    _check_frames(t)
     _check("coeffs", coeffs, (b, t, p), torch.float32, dev)
     _check("csin", csin, (b, t, 2 * p), _BF16, dev)
     _check("y_const", y_const, (b, t - 1, hop), torch.float32, dev)
     _check("env", env, (t - 1, hop), torch.float32, dev)
     _check("ab", ab, (2 * p, R * hop), _BF16, dev)
-    y2 = torch.empty(b, t - 1, hop, device=dev)
-    m1 = torch.empty(b, device=dev)
-    max_bits = torch.empty(b, dtype=torch.int32, device=dev)
-    _run("aw_synth_norm_fwd", dev, coeffs, csin, y_const, env, ab, y2, m1, max_bits,
-         b, t, p, hop)
-    synth_norm_fwd.launches += 1
-    return y2, m1
+    check_weights_aligned([synth_gemm(t, p, hop)], [ab])
+    return b, t, p, hop
 
 
-def synth_norm_bwd(g, y2, m1, csin, env, abt):
-    """VJP of the synthesis w.r.t. coeffs.  Replaces ``_synth_bwd_kernel``
-    (aware_tpu/ops/pallas/roundtrip.py:223)."""
-    if g.device.type == "cpu":
-        return synth_norm_bwd_plain(g, y2, m1, csin, env, abt)
+def check_synth_norm_bwd(g, y2, m1, csin, env, abt) -> tuple:
+    """What the sm90 synthesis VJP cannot take: raise, before any launch.
+    As ``check_synth_norm_fwd``, and the partial sums' room for the
+    peak-norm VJP's scalars.  Returns (B, T, P, hop)."""
     b, lr, hop = g.shape
     t = lr + 1
     p = csin.shape[-1] // 2
     dev = g.device
     _check_geometry(p, hop, abt.shape[0])
+    _check_frames(t)
     _check("g", g, (b, lr, hop), torch.float32, dev)
     _check("y2", y2, (b, lr, hop), torch.float32, dev)
     _check("m1", m1, (b,), torch.float32, dev)
     _check("csin", csin, (b, t, 2 * p), _BF16, dev)
     _check("env", env, (lr, hop), torch.float32, dev)
     _check("abt", abt, (R * hop, 2 * p), _BF16, dev)
+    _check_fold(t, hop)
+    check_weights_aligned([synth_vjp_gemm(t, p, hop)], [abt])
+    return b, t, p, hop
+
+
+def _synth_launch(entry: str, coeffs, csin, y_const, env, ab):
+    """Run ``aw_synth_norm_fwd`` or ``aw_synth_u`` (its first two launches)
+    on the planned tile, after every check -> (y2 or u, m1)."""
+    b, t, p, hop = check_synth_norm_fwd(coeffs, csin, y_const, env, ab)
+    dev = coeffs.device
+    reim = torch.empty(b, t, 2 * p, device=dev)
+    check_slab_gemm(reim, ab, hop, t - 1)
+    out = torch.empty(b, t - 1, hop, device=dev)
+    m1 = torch.empty(b, device=dev)
+    tiles = synth_fwd_tiles(b, t, p, hop, _sms(dev.index or 0))
+    _run(entry, dev, coeffs, csin, y_const, env, ab, reim, out, m1, tiles, len(tiles), b, t, p,
+         hop)
+    return out, m1
+
+
+def synth_norm_fwd(coeffs, csin, y_const, env, ab):
+    """Synthesis + double peak-norm: (y2, m1), the sm90 step's synthesis
+    (``aw_synth_norm_fwd``: reim, the slab GEMM, the scale; 3 launches).
+    Replaces the TPU kernel ``_synth_kernel``
+    (aware_tpu/ops/pallas/roundtrip.py:179)."""
+    if coeffs.device.type == "cpu":
+        return synth_norm_fwd_plain(coeffs, csin, y_const, env, ab)
+    out = _synth_launch("aw_synth_norm_fwd", coeffs, csin, y_const, env, ab)
+    synth_norm_fwd.launches += 1
+    return out
+
+
+def _synth_u(coeffs, csin, y_const, env, ab):
+    """The forward's first two launches alone (``aw_synth_u``: the step's
+    synthesis) -> (u, m1), for the chip check against the step's forward
+    half.  Not counted in ``synth_norm_fwd.launches``."""
+    return _synth_launch("aw_synth_u", coeffs, csin, y_const, env, ab)
+
+
+def _synth_norm_fwd_wmma(coeffs, csin, y_const, env, ab):
+    """The forward's first version, ``aw_synth_norm_fwd_wmma`` (the WMMA
+    template), on the CUDA tensors ``synth_norm_fwd`` takes: no path
+    reaches it; the chip check times it beside the sm90 entry.  Not
+    counted in ``synth_norm_fwd.launches``."""
+    b, t, p, hop = check_synth_norm_fwd(coeffs, csin, y_const, env, ab)
+    dev = coeffs.device
+    y2 = torch.empty(b, t - 1, hop, device=dev)
+    m1 = torch.empty(b, device=dev)
+    max_bits = torch.empty(b, dtype=torch.int32, device=dev)
+    _run("aw_synth_norm_fwd_wmma", dev, coeffs, csin, y_const, env, ab, y2, m1, max_bits,
+         b, t, p, hop)
+    return y2, m1
+
+
+def synth_norm_bwd(g, y2, m1, csin, env, abt):
+    """VJP of the synthesis w.r.t. coeffs, the sm90 step's synthesis VJP
+    on y2 itself (``aw_synth_norm_bwd``: the peak-norm VJP's scalars,
+    gcrop, the slab GEMM, the phase fold; 5 launches).  Replaces
+    ``_synth_bwd_kernel`` (aware_tpu/ops/pallas/roundtrip.py:223)."""
+    if g.device.type == "cpu":
+        return synth_norm_bwd_plain(g, y2, m1, csin, env, abt)
+    b, t, p, hop = check_synth_norm_bwd(g, y2, m1, csin, env, abt)
+    dev = g.device
+    gcrop = torch.empty(b, t - 1, hop, device=dev)
+    check_slab_gemm(gcrop, abt, 2 * p, t)
+    dcoeffs = torch.empty(b, t, p, device=dev)
+    dreim = torch.empty(b, t, 2 * p, device=dev)
+    part = torch.empty(b, PART_LD, device=dev)
+    scal = torch.empty(b, 4, device=dev)
+    tiles = synth_bwd_tiles(b, t, p, hop, _sms(dev.index or 0))
+    _run("aw_synth_norm_bwd", dev, g, y2, m1, csin, env, abt, dcoeffs, dreim, gcrop, part, scal,
+         tiles, len(tiles), b, t, p, hop)
+    synth_norm_bwd.launches += 1
+    return dcoeffs
+
+
+def _synth_norm_bwd_wmma(g, y2, m1, csin, env, abt):
+    """The VJP's first version, ``aw_synth_norm_bwd_wmma`` (the WMMA
+    template), on the CUDA tensors ``synth_norm_bwd`` takes: no path
+    reaches it; the chip check times it beside the sm90 entry.  Not
+    counted in ``synth_norm_bwd.launches``."""
+    b, t, p, hop = check_synth_norm_bwd(g, y2, m1, csin, env, abt)
+    dev = g.device
     dcoeffs = torch.empty(b, t, p, device=dev)
     dreim = torch.empty(b, t, 2 * p, device=dev)
     scal = torch.empty(b, 4, device=dev)
-    _run("aw_synth_norm_bwd", dev, g, y2, m1, csin, env, abt, dcoeffs, dreim, scal,
+    _run("aw_synth_norm_bwd_wmma", dev, g, y2, m1, csin, env, abt, dcoeffs, dreim, scal,
          b, t, p, hop)
-    synth_norm_bwd.launches += 1
     return dcoeffs
 
 

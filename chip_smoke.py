@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # all phases, the default card's 400 iterations
     python3 chip_smoke.py --quick    # phases 0-2 only, each kernel checked, none timed
-    python3 chip_smoke.py --reference-lib LIB  # also: rows 10-11 give LIB's bits
+    python3 chip_smoke.py --reference-lib LIB  # also: rows 9-11 give LIB's bits
 
 Phases, each printing one progress line (plus details) and failing the run
 with a non-zero exit on any error:
@@ -12,8 +12,9 @@ with a non-zero exit on any error:
 1. build: nvcc of aware_tpu_torch/csrc into aware_tpu_torch/_build (one
    nvcc per source, started together, then one link), with its seconds and
    the ptxas register / shared-memory / spill lines; for the sm90 GEMMs
-   (the slab GEMM of shift_mm, the band_analysis pair and the step's
-   round trip; the dense GEMM of the step's detector products) the tile,
+   (the slab GEMM of shift_mm, the band_analysis pair, the step's round
+   trip and the synth_norm pair; the dense GEMM of the step's detector
+   products) the tile,
    grid, threads, ring stages and dynamic shared memory of each launch the
    main paths make, each instance's registers at entry, which must be what
    its setmaxnreg split assumes, and the HGMMA and UTMALDG instructions in
@@ -64,12 +65,19 @@ with a non-zero exit on any error:
    --reference-lib also the bits of that build's aw_iteration_bwd),
    iteration_forward_fwd (the step's forward half; pred and every
    residual to ITER_FWD_TOL, y2 and m1 to Y2_TOL; the sm90 VJP on the
-   WMMA forward's residuals as a chain), detector_fused_fwd (the forward
+   WMMA forward's residuals as a chain; with --reference-lib also the
+   bits of that build's aw_iteration_fwd_sm90), detector_fused_fwd (the forward
    half's detector part from cs) and analysis_detector_fwd (its reflect
    analysis, then that; FWD_TOL and SHARE_TOL both), detector_fused_bwd
    (the backward half's detector VJP from g) and analysis_detector_bwd
    (that VJP, then the backward half's reflect analysis VJP and the
-   fold; VJP_TOL both).  The tiled
+   fold; VJP_TOL both), synth_norm_fwd (the forward half's synthesis,
+   then the scale of u into y2; its first two launches alone, aw_synth_u,
+   must give aw_iteration_fwd_sm90's u and m1 bit for bit on the same ct)
+   and synth_norm_bwd (the backward half's synthesis VJP on y2 itself,
+   with no reflect fold, then the phase fold; also on a tie probe: TIES
+   more samples of each clip at its peak, both signs, m1 = 3), both to
+   TOL.  The tiled
    synthesis (a reim pass, then the slab GEMM) must give the same bits on
    two launches and from its two launches alone, its pass exactly ct
    csinp, its GEMM's sums an rms error against float64 within SUM_TOL of
@@ -287,6 +295,11 @@ def _close(name, outs_k, outs_p) -> float:
     return err
 
 
+def _close_flat(name, out_k, out_p) -> float:
+    """_close on a kernel's output (a tensor or a tuple of them)."""
+    return _close(name, _flat(out_k), _flat(out_p))
+
+
 def _close_det(name, outs_k, outs_p) -> float:
     """Detector forwards: pred and every residual within agreement.py's
     bounds; returns the largest error of pred."""
@@ -358,12 +371,15 @@ SM90_EPILOGUES = ("StoreF32", "SlabSynthEpi", "SlabSynthTailEpi", "SlabReflectBw
 
 
 def sm90_instance(name: str):
-    """(family, BM, BN, epilogue) of an sm90 GEMM kernel's mangled name, or None."""
+    """(family, BM, BN, epilogue, source) of an sm90 GEMM kernel's mangled
+    name, or None; the source file is read from the name nvcc gives its
+    anonymous namespace, "?" where the name does not carry it."""
     m = re.search(r"(slab|dense)_gemm_sm90ILi(\d+)ELi(\d+)E", name)
     if not m:
         return None
     epi = next((e for e in SM90_EPILOGUES if e in name), "?")
-    return m.group(1), 64 * int(m.group(2)), int(m.group(3)), epi
+    src = re.search(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]+", name)
+    return m.group(1), 64 * int(m.group(2)), int(m.group(3)), epi, src.group(1) if src else "?"
 
 
 def sm90_report(torch, b) -> None:
@@ -407,6 +423,10 @@ def sm90_report(torch, b) -> None:
     uses += [(f"iteration_step {g.name} ({g.kind}, K {g.k})", g.kind, pl, g.rows, g.n)
              for g, pl in zip(it.step_gemms(BATCH, 626, 256, 256),
                               it.plan_step(BATCH, 626, 256, 256, sms))]
+    uses += [(f"synth_norm {d} ({g.name}, K {g.k})", "slab",
+              rt.plan_gemms([g], BATCH, sms)[0], g.rows, g.n)
+             for d, g in (("forward", rt.synth_gemm(626, 256, 256)),
+                          ("VJP", rt.synth_vjp_gemm(626, 256, 256)))]
     for call, family, plan, rows, e in uses:
         smem, threads, stages, _ = config(family, plan.bm, plan.bn)
         say(f"  sm90 GEMM {call}: rows {rows}, N {e}: tile {plan.bm} x {plan.bn}, grid "
@@ -421,10 +441,10 @@ def sm90_report(torch, b) -> None:
             inst = None
     if not any(k[0] == "dense" for k in used) or not any(k[0] == "slab" for k in used):
         raise RuntimeError(f"ptxas reported no sm90 GEMM of one family: {sorted(used)}")
-    for (family, bm, bn, epi), regs in sorted(used.items()):
+    for (family, bm, bn, epi, src), regs in sorted(used.items()):
         want = config(family, bm, bn)[3]
-        say(f"  {family} GEMM {bm} x {bn} tiles, {epi}: {regs} registers at entry, {want} "
-            f"assumed by its setmaxnreg split")
+        say(f"  {family} GEMM {bm} x {bn} tiles, {epi} ({src}.cu): {regs} registers at entry, "
+            f"{want} assumed by its setmaxnreg split")
         if regs != want:
             raise RuntimeError(f"{family} GEMM {bm} x {bn} {epi}: {regs} registers at entry, "
                                f"not the {want} its setmaxnreg split assumes")
@@ -451,8 +471,8 @@ def sm90_report(torch, b) -> None:
                 counts[fn][op] += op in line
     if {k[0] for k in counts} != {"slab", "dense"}:
         raise RuntimeError(f"the library's SASS lacks an sm90 GEMM family: {sorted(counts)}")
-    for (family, bm, bn, epi), c in sorted(counts.items()):
-        tile = f"{family}_gemm_sm90 {bm} x {bn}, {epi}"
+    for (family, bm, bn, epi, src), c in sorted(counts.items()):
+        tile = f"{family}_gemm_sm90 {bm} x {bn}, {epi} ({src}.cu)"
         say(f"  SASS of {tile}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
         if not all(c.values()):
             raise RuntimeError(f"{tile}: no {[op for op in ops if not c[op]]}")
@@ -620,6 +640,24 @@ def fwd_work(bsz, t, p, hop) -> list:
     the sm90 step's forward half), in launch order, as step_work gives them."""
     sm90 = step_work(bsz, t, p, hop, "sm90")
     return sm90[: next(i for i, w in enumerate(sm90) if w[0].startswith("brh_bwd"))]
+
+
+def synth_fwd_work(bsz, t, p, hop) -> list:
+    """Each launch of one synth_norm_fwd call (aw_synth_norm_fwd: the sm90
+    step's synthesis, then the scale of u into y2 in place), as fwd_work
+    gives them."""
+    rows = bsz * (t - 1) * hop * F32
+    return fwd_work(bsz, t, p, hop)[:2] + [("y2 = u / cden in place", 0, 2 * rows + bsz * F32)]
+
+
+def synth_bwd_work(bsz, t, p, hop) -> list:
+    """Each launch of one synth_norm_bwd call (aw_synth_norm_bwd: the sm90
+    step's synthesis VJP on y2 itself, with no reflect fold, then the
+    phase fold), as bwd_work gives them."""
+    rows = bsz * (t - 1) * hop * F32
+    work = bwd_work(bsz, t, p, hop)
+    i = next(i for i, w in enumerate(work) if w[0].startswith("ties partials"))
+    return [("q and max partials", 0, 2 * rows + bsz * F32)] + work[i:]
 
 
 def det_fwd_work(bsz, t, p, hop) -> list:
@@ -798,6 +836,17 @@ def reference_bwd(torch, it, lib_path, g, res, c, bsz, t, p, hop):
     return dct
 
 
+def reference_fwd(torch, it, lib_path, ct, c, bsz, t, p, hop):
+    """aw_iteration_fwd_sm90 of another build from ct: its IterResiduals."""
+    dev = ct.device
+    res = it._residuals(bsz, t, 2 * p, hop, dev)
+    tensors = [*it._fwd_tensors(ct, c, res, it._scratch(bsz, t, 2 * p, hop, dev)),
+               *it.step_ops(bsz, t, 2 * p, hop, dev)]
+    tiles = it.fwd_tiles(bsz, t, p, hop, torch.cuda.get_device_properties(0).multi_processor_count)
+    reference_entry(torch, lib_path, "aw_iteration_fwd_sm90", tensors, tiles, bsz, t, p, hop)
+    return res
+
+
 def step_checks(torch, it, states, step_args, bufs, bsz, t, p, hop, rng, quick,
                 reference_lib=None) -> dict:
     """Row 11 beyond agreement.check_iteration: the sm90 chain repeats bit
@@ -853,7 +902,7 @@ def _flat(out) -> list:
 
 
 def redesign_checks(torch, name, label, fns, hold, work, quick, new="ms", old="wmma_ms") -> dict:
-    """A kernel redesigned on the sm90 templates (rows 6, 8, 9 and 10),
+    """A kernel redesigned on the sm90 templates (rows 1, 2 and 5-10),
     beyond its phase 2 case: the same bits on two launches of the new
     chain (``fns[new]``); the new chain and the other (``fns[old]``: its
     first WMMA version, reached by no path, or, for row 9, the WMMA chain
@@ -900,15 +949,25 @@ def bwd_checks(torch, it, g, res, c, out_p, bsz, t, p, hop, quick, reference_lib
                            bwd_work(bsz, t, p, hop), quick)
 
 
-def fwd_checks(torch, it, ct, c, g, out_p, bsz, t, p, hop, quick) -> dict:
+def fwd_checks(torch, it, ct, c, g, out_p, bsz, t, p, hop, quick, reference_lib=None) -> dict:
     """Row 9: the forward on the sm90 step's forward half
     (aw_iteration_fwd_sm90) and its first WMMA chain (aw_iteration_fwd_wmma,
     reached by no path) against the plain forward on pred and every
     residual (agreement.ITER_FWD_TOL, ITER_SHARE_TOL) and on y2 and m1
     (Y2_TOL), by redesign_checks; and the sm90 VJP on the WMMA forward's
     residuals against the plain chain (ITER_CHAIN_TOL), the other pairing
-    than the path's."""
+    than the path's; given ``reference_lib``, the bits of that build's
+    aw_iteration_fwd_sm90 from the same ct."""
     from aware_tpu_torch.ops.kernels import agreement as ag
+
+    if reference_lib:
+        ours = it.iteration_forward_fwd(ct, c)[1]
+        ref = reference_fwd(torch, it, reference_lib, ct, c, bsz, t, p, hop)
+        if not all(torch.equal(a, b) for a, b in zip((*ours.det, ours.u, ours.m1),
+                                                     (*ref.det, ref.u, ref.m1))):
+            raise RuntimeError(f"iteration_forward_fwd: not the bits of {reference_lib}'s")
+        say(f"  iteration_forward_fwd: the same bits as {reference_lib}'s aw_iteration_fwd_sm90 "
+            "from the same ct (pred, the 16 residuals, u, m1)")
 
     def hold(label, out):
         rep = ag.check_forward(out[1].det, out_p[1].det, t, ag.ITER_FWD_TOL, ag.ITER_SHARE_TOL)
@@ -927,6 +986,53 @@ def fwd_checks(torch, it, ct, c, g, out_p, bsz, t, p, hop, quick) -> dict:
                        chain_tol=ag.ITER_CHAIN_TOL)
     say(f"  iteration_forward_bwd on the WMMA forward's residuals, chain vs plain: {ag.fmt(rep)}")
     return rec
+
+
+def synth_fwd_checks(torch, rt, it, ct, c) -> None:
+    """Row 1 beyond redesign_checks: its first two launches alone
+    (aw_synth_u) give aw_iteration_fwd_sm90's u and m1 bit for bit on the
+    same ct (the same stages on the same tile), and its y2 is u /
+    peak_den(m1) as torch divides, bit for bit."""
+    u, m1 = rt._synth_u(ct, c.csin, c.y_const, c.env, c.ab)
+    _, res = it.iteration_forward_fwd(ct, c)
+    y2, m1_y2 = rt.synth_norm_fwd(ct, c.csin, c.y_const, c.env, c.ab)
+    torch.cuda.synchronize()
+    if not (torch.equal(u, res.u) and torch.equal(m1, res.m1)):
+        raise RuntimeError("synth_norm_fwd: u and m1 are not aw_iteration_fwd_sm90's bits")
+    if not (torch.equal(m1_y2, m1) and torch.equal(y2, u / rt.peak_den(m1))):
+        raise RuntimeError("synth_norm_fwd: y2 is not u / peak_den(m1) bit for bit")
+    say("  synth_norm_fwd: u and m1 (aw_synth_u, its first two launches) are "
+        "aw_iteration_fwd_sm90's bits on the same ct; y2 = u / peak_den(m1) bit for bit")
+
+
+TIES = 3  # samples of a clip the tie probe sets to its peak
+
+
+def synth_tie_probe(torch, rt, g, y2, pb) -> None:
+    """Row 2 on a tie probe: each clip's y2 with TIES more samples set to
+    its peak, of both signs, in three of its fold chunks, and m1 = 3 (cden
+    far from 1): the sm90 VJP and its WMMA version to TOL of the plain
+    version, which splits the max term K ways among the K maxima."""
+    bsz = y2.shape[0]
+    flat = y2.clone().reshape(bsz, -1)
+    n = flat.shape[1]
+    peak = flat.abs().amax(dim=1)
+    for b in range(bsz):
+        for k, f in enumerate((5 + 13 * b, n // 2 + 7 * b, n - 3 - b)):
+            flat[b, f] = peak[b] if k % 2 == 0 else -peak[b]
+    y2t = flat.reshape(y2.shape)
+    m1t = torch.full((bsz,), 3.0, device=y2.device)
+    ties = (y2t.abs() == peak[:, None, None]).sum(dim=(1, 2))
+    if not bool((ties >= TIES).all()):
+        raise RuntimeError(f"tie probe: {ties.tolist()} maxima a clip, not {TIES}")
+    ref = rt.synth_norm_bwd_plain(g, y2t, m1t, pb.csin, pb.env, pb.abt)
+    err = _close("synth_norm_bwd (tie probe, sm90)",
+                 (rt.synth_norm_bwd(g, y2t, m1t, pb.csin, pb.env, pb.abt),), (ref,))
+    err_w = _close("synth_norm_bwd (tie probe, WMMA)",
+                   (rt._synth_norm_bwd_wmma(g, y2t, m1t, pb.csin, pb.env, pb.abt),), (ref,))
+    say(f"  synth_norm_bwd tie probe ({ties.tolist()} maxima a clip, m1 = 3): max error / "
+        f"max|plain| sm90 {err / float(ref.abs().max()):.3e}, WMMA "
+        f"{err_w / float(ref.abs().max()):.3e}")
 
 
 def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None) -> dict:
@@ -1000,7 +1106,7 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
     # the detector's weights both ways
     it_step_bytes = (10 * state + bsz * td.CH[4] * F32 + 6 * bsz * F32 + F32 + csin_env
                      + y2_bytes + 4 * basis + 2 * det_weights)
-    rt_src = "aware_tpu_torch/csrc/roundtrip.cu"
+    rt_src = "aware_tpu_torch/csrc/roundtrip_sm90.cu"  # rows 1-2
     slab_src = "aware_tpu_torch/csrc/slab_gemm_sm90.cu"
     sm90_src = "aware_tpu_torch/csrc/iteration_sm90.cu"
     det_sm90_src = "aware_tpu_torch/csrc/detector_sm90.cu"  # rows 5-8
@@ -1116,6 +1222,12 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
     # their first WMMA versions (reached by no path) and their launches'
     # bounds: (label, WMMA version, launches' work, the plain output's check)
     redesigned = {
+        "synth_norm_fwd": ("sm90 chain, aw_synth_norm_fwd",
+                           lambda: rt._synth_norm_fwd_wmma(ct, pb.csin, pb.y_const, pb.env, pb.ab),
+                           synth_fwd_work(bsz, t, p, hop), _close_flat),
+        "synth_norm_bwd": ("sm90 chain, aw_synth_norm_bwd",
+                           lambda: rt._synth_norm_bwd_wmma(g_y2, y2, m1, pb.csin, pb.env, pb.abt),
+                           synth_bwd_work(bsz, t, p, hop), _close_flat),
         "detector_fused_fwd": ("sm90 chain, aw_detector_fwd",
                                lambda: td._detector_fused_fwd_wmma(cs, ac.det),
                                det_fwd_work(bsz, t, p, hop), _close_det),
@@ -1159,9 +1271,14 @@ def check_kernels(torch, pb, hop, rng, gemm_rng, quick: bool, reference_lib=None
             rec.update(bwd_checks(torch, it, g_det, res_it, c, out_p, bsz, t, p, hop, quick,
                                   reference_lib))
         elif name == "iteration_forward_fwd":
-            rec.update(fwd_checks(torch, it, ct, c, g_det, out_p, bsz, t, p, hop, quick))
+            rec.update(fwd_checks(torch, it, ct, c, g_det, out_p, bsz, t, p, hop, quick,
+                                  reference_lib))
         elif name in redesigned:
             label, wmma_call, work, hold = redesigned[name]
+            if name == "synth_norm_fwd":
+                synth_fwd_checks(torch, rt, it, ct, c)
+            elif name == "synth_norm_bwd":
+                synth_tie_probe(torch, rt, g_y2, y2, pb)
             rec.update(redesign_checks(
                 torch, name, label, {"ms": kern, "wmma_ms": wmma_call, "plain_ms": plain},
                 lambda label, out, ref=out_p, hold=hold: hold(label, out, ref), work, quick))
@@ -1660,7 +1777,8 @@ def main() -> int:
                     help="a directory for the Chrome traces of the phase 3 profiles")
     ap.add_argument("--reference-lib", default=None,
                     help="another build of the kernel library (a shared library path), whose "
-                    "aw_iteration_step and aw_iteration_bwd must give the same bits in phase 2")
+                    "aw_iteration_step, aw_iteration_fwd_sm90 and aw_iteration_bwd must give the "
+                    "same bits in phase 2")
     args = ap.parse_args()
 
     import torch

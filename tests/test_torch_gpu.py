@@ -19,9 +19,11 @@ VJP) on each tile it can take, to 1e-3 * max|plain|, bit for bit over two
 launches, and its wrapper checks; the sm90 dense GEMM of the whole step on
 each tile, to the same bound against the float32 product of its bf16
 operands, and the whole step bit for bit over two launches from one state;
-the redesigned tiled synthesis, iteration_forward forward and VJP, and
-detector_fused and analysis_detector forwards and VJPs beside their first
-WMMA versions and their plain versions, and their wrappers' checks.
+the redesigned synth_norm pair (the forward's u and m1 bit for bit
+against the step's forward half's, the VJP on clips with tied maxima),
+tiled synthesis, iteration_forward forward and VJP, and detector_fused
+and analysis_detector forwards and VJPs beside their first WMMA versions
+and their plain versions, and their wrappers' checks.
 """
 
 import numpy as np
@@ -119,6 +121,80 @@ def test_autograd_functions_launch_the_backward_kernels(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(ct.grad).all()
     assert [k.launches - n for k, n in zip(rt.KERNELS, before)] == [1, 1, 1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 97, 626])
+def test_synth_norm_wmma_entries_match_plain(cuda, t):
+    """The synth_norm pair's first versions (aw_synth_norm_fwd_wmma,
+    aw_synth_norm_bwd_wmma: the WMMA template, reached by no wrapper)
+    still agree with the plain versions, and count nowhere."""
+    d = _data(t, cuda)
+    before = [k.launches for k in rt.KERNELS]
+    y2, m1 = rt._synth_norm_fwd_wmma(d["ct"], d["csin"], d["yconst"], d["env"], d["ab"])
+    y2p, m1p = rt.synth_norm_fwd_plain(d["ct"], d["csin"], d["yconst"], d["env"], d["ab"])
+    dc = rt._synth_norm_bwd_wmma(d["g_y2"], y2p, m1p, d["csin"], d["env"], d["abt"])
+    torch.cuda.synchronize()
+    _close(y2, y2p)
+    _close(m1, m1p)
+    _close(dc, rt.synth_norm_bwd_plain(d["g_y2"], y2p, m1p, d["csin"], d["env"], d["abt"]))
+    assert [k.launches for k in rt.KERNELS] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 40, 626])
+def test_synth_norm_u_is_the_steps_forward_half(cuda, t):
+    """Row 1's first two launches (aw_synth_u) give aw_iteration_fwd_sm90's
+    u and m1 bit for bit on the same ct: the same stages on the same
+    tile; its y2 is u / peak_den(m1) bit for bit; it repeats bit for bit."""
+    ct, c, _, _ = _iter_inputs(t, cuda)
+    u, m1 = rt._synth_u(ct, c.csin, c.y_const, c.env, c.ab)
+    _, res = it.iteration_forward_fwd(ct, c)
+    y2, m1_y2 = rt.synth_norm_fwd(ct, c.csin, c.y_const, c.env, c.ab)
+    again = rt.synth_norm_fwd(ct, c.csin, c.y_const, c.env, c.ab)
+    torch.cuda.synchronize()
+    assert torch.equal(u, res.u) and torch.equal(m1, res.m1)
+    assert torch.equal(m1_y2, m1) and torch.equal(y2, u / rt.peak_den(m1))
+    assert torch.equal(again[0], y2) and torch.equal(again[1], m1_y2)
+
+
+@pytest.mark.gpu
+def test_synth_norm_bwd_splits_ties_and_repeats(cuda):
+    """Row 2 on clips with several equal maxima of both signs, at m1 = 3:
+    the sm90 VJP to the plain version's tie split, bit for bit twice."""
+    d = _data(97, cuda)
+    y2, _ = rt.synth_norm_fwd_plain(d["ct"], d["csin"], d["yconst"], d["env"], d["ab"])
+    flat = y2.reshape(B, -1)
+    peak = flat.abs().amax(dim=1)
+    flat[:, 11], flat[:, 5000], flat[:, -4] = peak, -peak, peak
+    m1 = torch.full((B,), 3.0, device=cuda)
+    args = (d["g_y2"], y2, m1, d["csin"], d["env"], d["abt"])
+    new, again = rt.synth_norm_bwd(*args), rt.synth_norm_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(new, again)
+    _close(new, rt.synth_norm_bwd_plain(*args))
+
+
+@pytest.mark.gpu
+def test_synth_norm_wrappers_refuse_before_any_launch(cuda):
+    def moved(x):  # a copy 2 bytes past a 16-byte boundary
+        out = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    d = _data(8, cuda)
+    before = [k.launches for k in rt.KERNELS]
+    with pytest.raises(ValueError):
+        rt.synth_norm_fwd(d["ct"], d["csin"], d["yconst"], d["env"], moved(d["ab"]))
+    with pytest.raises(ValueError):  # T = 1
+        rt.synth_norm_fwd(d["ct"][:, :1].contiguous(), d["csin"][:, :1].contiguous(),
+                          d["yconst"][:, :0], d["env"][:0], d["ab"])
+    y2, m1 = rt.synth_norm_fwd_plain(d["ct"], d["csin"], d["yconst"], d["env"], d["ab"])
+    with pytest.raises(ValueError):
+        rt.synth_norm_bwd(d["g_y2"], y2, m1, d["csin"], d["env"], moved(d["abt"]))
+    with pytest.raises(TypeError):
+        rt.synth_norm_bwd(d["g_y2"], y2, m1.double(), d["csin"], d["env"], d["abt"])
+    assert [k.launches for k in rt.KERNELS] == before
 
 
 def _det_consts(device):
