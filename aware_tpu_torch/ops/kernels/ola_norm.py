@@ -11,19 +11,31 @@ clip (the formulas are in its header):
 * ``ola_normalize_bwd`` (``_bwd_kernel``): g and y2 (B, T-1, hop), env
   and m1 -> dwframes (B, T, n_fft) f32.
 
+Each direction has two CUDA variants, one launch each in the plan's
+choice (``ola_plan``, from the shapes alone): "cluster", one thread-block
+cluster per clip whose CTAs hold the clip's rows in shared memory and
+finish its reductions through distributed shared memory
+(``aw_ola_fwd_cluster``, ``aw_ola_bwd_cluster``), where the rows fit the
+cluster's shared memory (the 10 s clips); "stream", blocks that share
+nothing and meet between launches in device memory
+(``aw_ola_fwd_stream``, ``aw_ola_bwd_stream``), past it (the 60 s clips).
+
 Each has a wrapper that checks its operands, launches on the current
-stream and counts the launch in its ``launches`` attribute (given CPU
-tensors it runs the plain version instead; on a CUDA tensor it launches
-the kernel or raises), and a plain PyTorch version (``*_plain``) that
-follows the TPU kernel's formulas line by line, not autograd of the
-chain: the slice adds in k = 0..3 order, the collapsed scale
-c = (m1 + e)(m1 / (m1 + e) + e), and the VJP's tie split over y2's own
-maxima (``aware_tpu/ops/pallas/ola_norm.py:84-107``).  ``ola_normalize``
-is the ``torch.autograd.Function`` the "ola" solver path differentiates
-through.
+stream and counts the launch in its ``launches`` attribute and by variant
+in ``variants`` (given CPU tensors it runs the plain version instead; on a
+CUDA tensor it launches the kernel or raises), and a plain PyTorch
+version (``*_plain``) that follows the TPU kernel's formulas line by line,
+not autograd of the chain: the slice adds in k = 0..3 order, the
+collapsed scale c = (m1 + e)(m1 / (m1 + e) + e), and the VJP's tie split
+over y2's own maxima (``aware_tpu/ops/pallas/ola_norm.py:84-107``).
+``ola_normalize`` is the ``torch.autograd.Function`` the "ola" solver path
+differentiates through.
 """
 
 from __future__ import annotations
+
+import functools
+import typing
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +45,7 @@ from aware_tpu_torch.ops.kernels.roundtrip import _check, _run
 _EPS = 1e-8
 R = 4      # slabs: n_fft / hop
 PAD = 2    # rows of centre crop: (n_fft / 2) / hop
-CHUNK = 1024  # elements per block of the CUDA kernels (csrc/ola_norm.cu kChunk)
+CHUNK = 1024  # elements per block of the stream variant (csrc/ola_norm.cu kChunk)
 
 
 def _scale(m1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -76,6 +88,44 @@ def ola_normalize_bwd_plain(g, y2, env, m1):
     return torch.cat([grows[:, k : k + t] for k in range(R)], dim=-1)
 
 
+# -------------------------------------------------------------------- plan ---
+
+SMEM_LIMIT = 232448   # shared memory a CTA may take on sm_90 (the opt-in maximum)
+CLUSTER_STATIC = 512  # bytes of the cluster kernels' static shared memory, at most
+CLUSTER_THREADS = 1024  # threads of a CTA of the cluster variant (csrc/ola_norm.cu kClusterThreads)
+CLUSTER_SIZES = (8, 16)
+CLUSTER = 8  # CTAs a clip (csrc/ola_norm.cu header: why this size)
+
+
+class OlaPlan(typing.NamedTuple):
+    """How one (B, T, hop) runs, both directions: the variant ("cluster"
+    where a CTA's rows fit its shared memory, else "stream"), the cluster
+    size, each CTA's (start, stop) of the T-1 rows of y_env (of g and y2)
+    and of the T+3 rows of grows that the VJP writes, and the dynamic
+    shared memory a CTA takes, in bytes (its rows of y_env, or of y2)."""
+
+    variant: str
+    cluster: int
+    rows: tuple
+    grows: tuple
+    smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def ola_plan(b: int, t: int, hop: int, cluster: int = CLUSTER) -> OlaPlan:
+    """The plan of a launch on B clips of T frames: from the shapes alone.
+    CTA r owns rows [r lr // C, (r + 1) lr // C) (as csrc/ola_norm.cu
+    cta_rows), and the grows rows PAD further on, the first CTA also the
+    centre crop's leading zero rows, the last its trailing ones."""
+    lr = t - 1
+    rows = tuple((r * lr // cluster, (r + 1) * lr // cluster) for r in range(cluster))
+    grows = tuple((0 if r == 0 else s + PAD, t + R - 1 if r == cluster - 1 else e + PAD)
+                  for r, (s, e) in enumerate(rows))
+    smem = -(-lr // cluster) * hop * 4  # bytes of a CTA's rows, at most
+    fits = smem + CLUSTER_STATIC <= SMEM_LIMIT and hop % 4 == 0
+    return OlaPlan("cluster" if fits else "stream", cluster, rows, grows, smem)
+
+
 # ---------------------------------------------------------------- wrappers ---
 
 def _check_hop(n_fft: int, hop: int) -> None:
@@ -83,52 +133,136 @@ def _check_hop(n_fft: int, hop: int) -> None:
         raise ValueError(f"CUDA ola_normalize needs n_fft == 4 * hop (got {n_fft}, {hop})")
 
 
-def ola_normalize_fwd(wframes, env):
-    """OLA + crop + envelope + double peak-norm: (y2, m1).  Replaces
-    ``_fwd_kernel`` (aware_tpu/ops/pallas/ola_norm.py:135)."""
-    if wframes.device.type == "cpu":
-        return ola_normalize_fwd_plain(wframes, env)
+def _check_frames(t: int) -> None:
+    if t < 2:
+        raise ValueError(f"CUDA ola_normalize needs T >= 2 frames (got {t})")
+
+
+def _check_aligned(**tensors) -> None:
+    """The cluster variant's 16-byte loads and stores."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"the cluster ola_normalize needs {name} 16-byte aligned "
+                             f"(at {x.data_ptr():#x})")
+
+
+def check_ola_fwd(wframes, env) -> tuple:
+    """What the forward kernels cannot take: raise, before any launch.
+    Returns (B, T, hop)."""
     b, t, n_fft = wframes.shape
     hop = env.shape[-1]
     dev = wframes.device
     _check_hop(n_fft, hop)
+    _check_frames(t)
     _check("wframes", wframes, (b, t, n_fft), torch.float32, dev)
     _check("env", env, (t - 1, hop), torch.float32, dev)
-    y2 = torch.empty(b, t - 1, hop, device=dev)
-    m1 = torch.empty(b, device=dev)
-    _run("aw_ola_fwd", dev, wframes, env, y2, m1, b, t, hop)
-    ola_normalize_fwd.launches += 1
-    return y2, m1
+    return b, t, hop
 
 
-def ola_normalize_bwd(g, y2, env, m1):
-    """VJP w.r.t. the frames.  Replaces ``_bwd_kernel``
-    (aware_tpu/ops/pallas/ola_norm.py:167)."""
-    if g.device.type == "cpu":
-        return ola_normalize_bwd_plain(g, y2, env, m1)
+def check_ola_bwd(g, y2, env, m1) -> tuple:
+    """What the VJP kernels cannot take: raise, before any launch.
+    Returns (B, T, hop)."""
     b, lr, hop = g.shape
     dev = g.device
+    _check_frames(lr + 1)
     _check("g", g, (b, lr, hop), torch.float32, dev)
     _check("y2", y2, (b, lr, hop), torch.float32, dev)
     _check("env", env, (lr, hop), torch.float32, dev)
     _check("m1", m1, (b,), torch.float32, dev)
-    part = torch.empty(b, -(-lr * hop // CHUNK), 2, device=dev)
-    scal = torch.empty(b, 2, device=dev)
-    ties = torch.empty(b, dtype=torch.int32, device=dev)
+    return b, lr + 1, hop
+
+
+def _fwd_launch(wframes, env, variant: str, plan: OlaPlan):
+    """One launch of the forward's ``variant`` on checked operands."""
+    b, t, _ = wframes.shape
+    hop = env.shape[-1]
+    dev = wframes.device
+    y2 = torch.empty(b, t - 1, hop, device=dev)
+    m1 = torch.empty(b, device=dev)
+    if variant == "cluster":
+        if plan.variant != "cluster":
+            raise ValueError(f"T={t} frames of hop {hop} do not fit a cluster of {plan.cluster}")
+        _check_aligned(wframes=wframes, env=env)
+        _run("aw_ola_fwd_cluster", dev, wframes, env, y2, m1, b, t, hop, plan.cluster)
+    else:
+        _run("aw_ola_fwd_stream", dev, wframes, env, y2, m1, b, t, hop)
+    return y2, m1
+
+
+def _bwd_launch(g, y2, env, m1, variant: str, plan: OlaPlan):
+    """One launch of the VJP's ``variant`` on checked operands."""
+    b, lr, hop = g.shape
+    dev = g.device
     dwf = torch.empty(b, lr + 1, R * hop, device=dev)
-    _run("aw_ola_bwd", dev, g, y2, env, m1, part, scal, ties, dwf, b, lr + 1, hop)
-    ola_normalize_bwd.launches += 1
+    if variant == "cluster":
+        if plan.variant != "cluster":
+            raise ValueError(f"T={lr + 1} frames of hop {hop} do not fit a cluster of "
+                             f"{plan.cluster}")
+        _check_aligned(g=g, y2=y2, env=env)
+        _run("aw_ola_bwd_cluster", dev, g, y2, env, m1, dwf, b, lr + 1, hop, plan.cluster)
+    else:
+        part = torch.empty(b, -(-lr * hop // CHUNK), 2, device=dev)
+        scal = torch.empty(b, 2, device=dev)
+        ties = torch.empty(b, dtype=torch.int32, device=dev)
+        _run("aw_ola_bwd_stream", dev, g, y2, env, m1, part, scal, ties, dwf, b, lr + 1, hop)
     return dwf
 
 
+def ola_normalize_fwd(wframes, env):
+    """OLA + crop + envelope + double peak-norm: (y2, m1), one launch of
+    the planned variant.  Replaces ``_fwd_kernel``
+    (aware_tpu/ops/pallas/ola_norm.py:135)."""
+    if wframes.device.type == "cpu":
+        return ola_normalize_fwd_plain(wframes, env)
+    b, t, hop = check_ola_fwd(wframes, env)
+    plan = ola_plan(b, t, hop)
+    out = _fwd_launch(wframes, env, plan.variant, plan)
+    ola_normalize_fwd.launches += 1
+    ola_normalize_fwd.variants[plan.variant] += 1
+    return out
+
+
+def ola_normalize_bwd(g, y2, env, m1):
+    """VJP w.r.t. the frames, one launch of the planned variant.  Replaces
+    ``_bwd_kernel`` (aware_tpu/ops/pallas/ola_norm.py:167)."""
+    if g.device.type == "cpu":
+        return ola_normalize_bwd_plain(g, y2, env, m1)
+    b, t, hop = check_ola_bwd(g, y2, env, m1)
+    plan = ola_plan(b, t, hop)
+    out = _bwd_launch(g, y2, env, m1, plan.variant, plan)
+    ola_normalize_bwd.launches += 1
+    ola_normalize_bwd.variants[plan.variant] += 1
+    return out
+
+
+def _ola_fwd_variant(wframes, env, variant: str, cluster: int = CLUSTER):
+    """The forward's ``variant`` (at ``cluster`` CTAs a clip), whatever the
+    plan picks, on the CUDA tensors ``ola_normalize_fwd`` takes: for the
+    chip check, which holds the variants against each other and times
+    them in turns.  Not counted."""
+    b, t, hop = check_ola_fwd(wframes, env)
+    return _fwd_launch(wframes, env, variant, ola_plan(b, t, hop, cluster))
+
+
+def _ola_bwd_variant(g, y2, env, m1, variant: str, cluster: int = CLUSTER):
+    """The VJP's ``variant``, as :func:`_ola_fwd_variant`.  Not counted."""
+    b, t, hop = check_ola_bwd(g, y2, env, m1)
+    return _bwd_launch(g, y2, env, m1, variant, ola_plan(b, t, hop, cluster))
+
+
 KERNELS = (ola_normalize_fwd, ola_normalize_bwd)
-for _k in KERNELS:
-    _k.launches = 0
+VARIANTS = ("cluster", "stream")
 
 
 def reset_launches() -> None:
+    """Every count to 0: each wrapper's ``launches`` and its launches by
+    variant (``variants``)."""
     for k in KERNELS:
         k.launches = 0
+        k.variants = dict.fromkeys(VARIANTS, 0)
+
+
+reset_launches()
 
 
 # ------------------------------------------------------------ autograd op ---

@@ -18,7 +18,10 @@ with a non-zero exit on any error:
    grid, threads, ring stages and dynamic shared memory of each launch the
    main paths make, each instance's registers at entry, which must be what
    its setmaxnreg split assumes, and the HGMMA and UTMALDG instructions in
-   its SASS (cuobjdump), none of either failing the run;
+   its SASS (cuobjdump), none of either failing the run; for the
+   ola_normalize cluster kernels (rows 14-15) at each cluster size, the
+   registers, static and dynamic shared memory, spills and
+   cudaOccupancyMaxActiveClusters;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    main path's operands (B = 8 clips of T = 626 frames, P = 256, hop = 256):
    the round-trip kernels to 1e-3 * max|plain| (float32 sums in another
@@ -35,11 +38,16 @@ with a non-zero exit on any error:
    shift_mm at each of its three uses and the tiled synthesis, on the
    problem's coefficients and on a probe whose last frame is loud (the
    rows past the crop set m1), to 1e-3 * max|plain|.  Then ola_normalize,
-   forward and VJP, on the "ola" path's frames (B = 8, T = 626) and on
-   random frames at B = 3, T = 63 with a silent lane, to the JAX suite's
-   tolerances for it (forward atol/rtol 1e-6, VJP atol 1e-5, rtol 1e-4),
-   and a tie probe (two ties of opposite sign at the peak of y2: each must
-   take K / 2 of the peak-norm's gradient).
+   forward and VJP, each variant (one cluster a clip at 8 and at 16 CTAs,
+   and the stream variant) and the wrappers, on the "ola" path's frames
+   (B = 8, T = 626), on random frames at B = 3, T = 63 with a silent lane
+   and at B = 2, T = 3751 (past the cluster's room: the wrappers take the
+   stream variant), to the JAX suite's tolerances for it (forward
+   atol/rtol 1e-6, VJP atol 1e-5, rtol 1e-4), the cluster forward the
+   stream forward's bits, the cluster VJP the same bits on two launches,
+   and a tie probe (two ties of opposite sign at the peak of y2, in
+   different CTAs: each must take K / 2 of the peak-norm's gradient); the
+   variants and the plain version timed in turns.
    Device times of kernel and plain version (CUDA-graph replays timed by
    CUDA events), per-call times from Python, the bound of each, and where
    one PyTorch call computes the same function (band_analysis and
@@ -129,7 +137,8 @@ with a non-zero exit on any error:
    the "slab" path (bare), "ola" (use_pallas_ola=True), "frames"
    (use_slab_dft=False) and "fft" (use_matmul_dft=False): 0 % BER on
    every lane, the ola_normalize kernels launched once per iteration each
-   on "ola", and no kernel at all on the other three; a 10-iteration solve
+   on "ola", every launch the cluster variant, and no kernel at all on the
+   other three; a 10-iteration solve
    per path on the card against the CPU's; a torch.profiler breakdown of a
    20-iteration solve on "ola"; and 2 clips of 1030 frames under the card
    file, which keep the slab path (no tiled kernel) and read back at 0 %.
@@ -219,12 +228,13 @@ def time_ms(torch, fn, reps: int) -> tuple[float, float]:
 GEMM_KERNELS = ("shift_gemm", "slab_gemm_sm90", "dense_gemm_sm90")
 
 
-def profile_solve(torch, run, trace: str | None = None, markers=GEMM_KERNELS) -> str:
+def profile_solve(torch, run, trace: str | None = None, markers=GEMM_KERNELS, show=()) -> str:
     """Device time by kind of kernel over one call of ``run``; with
     ``trace``, the Chrome trace is written to that file.  The solver
     loop's window runs from the first launch of a kernel whose name holds
     one of ``markers`` to the end of the last (set-up and reconstruction
-    launch none)."""
+    launch none).  Each kernel whose name holds one of ``show`` is listed
+    with its launches and device time, whatever its rank."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -270,6 +280,7 @@ def profile_solve(torch, run, trace: str | None = None, markers=GEMM_KERNELS) ->
     gemms = [(a, b) for a, b, n in spans if any(m in n for m in markers)]
     lo, hi = min(a for a, _ in gemms), max(b for _, b in gemms)
     in_loop = sum(min(b, hi) - max(a, lo) for a, b, _ in spans if b > lo and a < hi)
+    shown = [f"{n} x{c} {t:.3f} ms" for t, n, c in top if any(k in n for k in show)]
     top = sorted(top, reverse=True)[:6]
     return (
         f"wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
@@ -279,6 +290,7 @@ def profile_solve(torch, run, trace: str | None = None, markers=GEMM_KERNELS) ->
         + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.items())
         + f"; device-to-host copies {dtoh} (set-up and result included)"
         + "; top: " + "; ".join(f"{n} x{c} {t:.2f} ms" for t, n, c in top)
+        + ("; " + "; ".join(shown) if shown else "")
     )
 
 
@@ -476,6 +488,37 @@ def sm90_report(torch, b) -> None:
         say(f"  SASS of {tile}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
         if not all(c.values()):
             raise RuntimeError(f"{tile}: no {[op for op in ops if not c[op]]}")
+
+
+def ola_report(torch, b) -> None:
+    """Phase 1, rows 14-15's cluster variant: the forward and the VJP at
+    each cluster size on the "ola" path's shapes (B = 8, T = 626, hop =
+    256): registers, static shared memory and spilled (local) bytes a
+    thread, the dynamic shared memory a CTA takes, which must be the
+    plan's, and cudaOccupancyMaxActiveClusters at it (fewer than B
+    clusters at once would run the clips in waves)."""
+    import ctypes
+
+    from aware_tpu_torch.ops.kernels import ola_norm as on
+
+    for vjp, name in ((0, "aw_ola_fwd_cluster"), (1, "aw_ola_bwd_cluster")):
+        for size in on.CLUSTER_SIZES:
+            vals = [ctypes.c_int() for _ in range(5)]
+            err = b.lib.aw_ola_cluster_config(vjp, 626, 256, size, *map(ctypes.byref, vals))
+            if err:
+                raise RuntimeError(f"{name}, cluster {size}: CUDA error {err}")
+            regs, static, local, dyn, clusters = (v.value for v in vals)
+            want = on.ola_plan(BATCH, 626, 256, size).smem
+            say(f"  {name}, cluster of {size} ({on.CLUSTER_THREADS} threads a CTA): {regs} "
+                f"registers, {static} B static + {dyn} B dynamic shared memory, {local} B "
+                f"local (spills) a thread; cudaOccupancyMaxActiveClusters {clusters} "
+                f"(B = {BATCH} clips){' <- planned' if size == on.CLUSTER else ''}")
+            if dyn != want or static > on.CLUSTER_STATIC:
+                raise RuntimeError(f"{name}, cluster {size}: {dyn} B dynamic, {static} B static "
+                                   f"shared memory, not the plan's {want} and at most "
+                                   f"{on.CLUSTER_STATIC}")
+            if clusters < 1:
+                raise RuntimeError(f"{name}: no cluster of {size} fits the card")
 
 
 def in_turns(torch, fns: dict) -> dict:
@@ -1527,14 +1570,44 @@ def _close_ola(name, out, ref, tol) -> float:
     return float(err.max())
 
 
+def _ola_tie_shares(name, dwf, g, ties, m1, env, spots, t, hop) -> list:
+    """The tie probe: each tie of ``spots`` (row, column, value) in lane 0
+    of ``ties`` must take K / 2 off g / c with its sign; returns the two
+    shares."""
+    from aware_tpu_torch.ops.kernels import ola_norm as on
+
+    m = float(m1[0])
+    cc = (m + 1e-8) * (m / (m + 1e-8) + 1e-8)
+    q = float((g[0].double() * ties[0].double()).sum())
+    k_coef = (m / (m + 1e-8) + 1e-8) * q * (1e-8 + cc) / (cc * cc)
+    shares = []
+    for j, col, v in spots:
+        k = 0 if j + on.PAD < t else on.R - 1  # a slice of dwf that holds row j
+        g_env = float(dwf[0, j + on.PAD - k, k * hop + col]) * float(env[j, col])
+        g_c = float(g[0, j, col]) / cc
+        shares.append(g_c - g_env)
+        if abs(shares[-1] - np.sign(v) * k_coef / 2) > 1e-3 * (abs(k_coef / 2) + abs(g_c)):
+            raise RuntimeError(f"{name} tie probe: the tie at row {j} took {shares[-1]:.6e}, "
+                               f"not {np.sign(v) * k_coef / 2:.6e} = K / 2")
+    return shares + [k_coef]
+
+
 def check_ola_kernels(torch, pb, rng, quick: bool) -> dict:
-    """Phase 2, rows 14-15: ola_normalize forward and VJP against their
-    plain versions, to the JAX suite's tolerances for this kernel: on the
-    "ola" path's frames at its start (B = 8, T = 626) and on random frames
-    at B = 3, T = 63 (odd rows) with a silent lane; the VJP from the plain
-    forward's y2 and m1, and from the kernel's own.  Then the tie probe: y2
-    with the peak magnitude at two places of opposite sign, where each tie
-    must take K / 2 off g / c with its sign.  Returns one record each."""
+    """Phase 2, rows 14-15: ola_normalize forward and VJP, each variant
+    (the cluster variant at each cluster size, the stream variant) and the
+    wrappers (the planned variant), against their plain versions to the
+    JAX suite's tolerances for this kernel: on the "ola" path's frames at
+    its start (B = 8, T = 626), on random frames at B = 3, T = 63 (odd
+    rows) with a silent lane, and on random frames at B = 2, T = 3751 (the
+    60 s clip, past the cluster's room: the wrappers must take the stream
+    variant); the VJP from the plain forward's y2 and m1, and from the
+    kernel's own.  The cluster forward must give the stream forward's y2
+    and m1 bit for bit, the cluster VJP the same bits on two launches.
+    Then the tie probe on each variant: y2 with the peak magnitude at two
+    places of opposite sign, in different CTAs of the cluster, where each
+    tie must take K / 2 off g / c with its sign.  Then (not ``quick``) the
+    variants and the plain version timed in turns at B = 8, T = 626, and
+    the wrappers and plain at the long case.  Returns one record each."""
     from aware_tpu_torch.ops.kernels import ola_norm as on
     from aware_tpu_torch.ops.stft import _ola_envelope
     from aware_tpu_torch.ops.windows import get_window
@@ -1548,82 +1621,146 @@ def check_ola_kernels(torch, pb, rng, quick: bool) -> dict:
     def rand(*shape):
         return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)
 
+    def env_for(frames):
+        wkey = tuple(get_window("hann", n_fft).tolist())
+        return torch.as_tensor(_ola_envelope(wkey, n_fft, hop, frames), dtype=torch.float32,
+                               device=dev).reshape(frames - 1, hop)
+
+    def sized(b, frames):  # the cluster sizes whose CTAs' shared memory holds the clip
+        return [c for c in on.CLUSTER_SIZES if on.ola_plan(b, frames, hop, c).variant == "cluster"]
+
     c = pb.plain
     coeffs = pb.ct0[..., : pb.nb]
     frames = (c.frames_const + torch.cat([coeffs * c.cos, coeffs * c.sin], -1) @ c.ab).contiguous()
     small = rand(3, 63, n_fft)
     small[1] = 0.0  # a silent lane
-    wkey = tuple(get_window("hann", n_fft).tolist())
-    env_small = torch.as_tensor(_ola_envelope(wkey, n_fft, hop, 63), dtype=torch.float32,
-                                device=dev).reshape(62, hop)
+    inputs = (("B=8, T=626", frames, pb.env), ("B=3, T=63", small, env_for(63)),
+              ("B=2, T=3751", rand(2, 3751, n_fft), env_for(3751)))
     err_f = err_b = 0.0
-    for label, wf, env in (("B=8, T=626", frames, pb.env), ("B=3, T=63", small, env_small)):
+    for label, wf, env in inputs:
+        b, frames_n, _ = wf.shape
+        plan = on.ola_plan(b, frames_n, hop)
+        sizes = sized(b, frames_n)
+        if label.startswith("B=2") and (plan.variant, sizes) != ("stream", []):
+            raise RuntimeError(f"ola_plan at {label}: {plan.variant}, clusters of {sizes}, not "
+                               f"the stream variant at every cluster size")
         y2p, m1p = on.ola_normalize_fwd_plain(wf, env)
+        before = {k.__name__: dict(k.variants) for k in on.KERNELS}
         y2, m1 = on.ola_normalize_fwd(wf, env)
-        err_f = max(err_f, _close_ola(f"ola_normalize_fwd {label} y2", y2, y2p, OLA_FWD_TOL),
-                    _close_ola(f"ola_normalize_fwd {label} m1", m1, m1p, OLA_FWD_TOL))
+        outs = {"wrapper": (y2, m1), "stream": on._ola_fwd_variant(wf, env, "stream")}
+        for size in sizes:
+            outs[f"cluster {size}"] = on._ola_fwd_variant(wf, env, "cluster", size)
+        for name, (yy, mm) in outs.items():
+            err_f = max(err_f,
+                        _close_ola(f"ola_normalize_fwd {name} {label} y2", yy, y2p, OLA_FWD_TOL),
+                        _close_ola(f"ola_normalize_fwd {name} {label} m1", mm, m1p, OLA_FWD_TOL))
+            if not (torch.equal(yy, outs["stream"][0]) and torch.equal(mm, outs["stream"][1])):
+                raise RuntimeError(f"ola_normalize_fwd {name} {label}: not the stream "
+                                   f"variant's bits")
         g = rand(*y2p.shape)
         for res, (yy, mm) in (("plain", (y2p, m1p)), ("own", (y2, m1))):
-            err_b = max(err_b, _close_ola(
-                f"ola_normalize_bwd {label} from the {res} residuals",
-                on.ola_normalize_bwd(g, yy, env, mm),
-                on.ola_normalize_bwd_plain(g, yy, env, mm), OLA_VJP_TOL))
+            ref = on.ola_normalize_bwd_plain(g, yy, env, mm)
+            dwf = {"wrapper": on.ola_normalize_bwd(g, yy, env, mm),
+                   "stream": on._ola_bwd_variant(g, yy, env, mm, "stream")}
+            for size in sizes:
+                dwf[f"cluster {size}"] = on._ola_bwd_variant(g, yy, env, mm, "cluster", size)
+                again = on._ola_bwd_variant(g, yy, env, mm, "cluster", size)
+                if not torch.equal(dwf[f"cluster {size}"], again):
+                    raise RuntimeError(f"ola_normalize_bwd cluster {size} {label}: two "
+                                       f"launches gave different bits")
+            for name, out in dwf.items():
+                err_b = max(err_b, _close_ola(
+                    f"ola_normalize_bwd {name} {label} from the {res} residuals", out, ref,
+                    OLA_VJP_TOL))
+        took = {k.__name__: {v: n - before[k.__name__][v] for v, n in k.variants.items()}
+                for k in on.KERNELS}
+        want = {"ola_normalize_fwd": {plan.variant: 1}, "ola_normalize_bwd": {plan.variant: 2}}
+        if {k: {v: n for v, n in d.items() if n} for k, d in took.items()} != want:
+            raise RuntimeError(f"ola_normalize at {label}: the wrappers took {took}, not {want}")
+        say(f"  ola_normalize {label}: the wrappers took the {plan.variant} variant; clusters "
+            f"of {sizes} held (the forward the stream forward's bits, the VJP the same bits "
+            f"twice)")
         if label.startswith("B=3") and not (float(m1[1]) == 0.0 and not y2[1].any()):
             raise RuntimeError("ola_normalize_fwd: the silent lane is not silent")
-    # the tie probe: lane 0's y2 with +2 and -2 above every other |y2|
+    # the tie probe: lane 0's y2 with +2 and -2 above every other |y2|, at
+    # rows 3 and lr - 2, which lie in the first and the last CTA of a cluster
     y2p, m1p = on.ola_normalize_fwd_plain(frames, pb.env)
     g = rand(bsz, lr, hop)
     ties = y2p.clone()
     spots = ((3, 5, 2.0), (lr - 2, 100, -2.0))  # (row, column, value)
     for j, col, v in spots:
         ties[0, j, col] = v
-    dwf = on.ola_normalize_bwd(g, ties, pb.env, m1p)
-    err_b = max(err_b, _close_ola("ola_normalize_bwd tie probe", dwf,
-                                  on.ola_normalize_bwd_plain(g, ties, pb.env, m1p),
-                                  OLA_VJP_TOL))
-    m = float(m1p[0])
-    cc = (m + 1e-8) * (m / (m + 1e-8) + 1e-8)
-    q = float((g[0].double() * ties[0].double()).sum())
-    k_coef = (m / (m + 1e-8) + 1e-8) * q * (1e-8 + cc) / (cc * cc)
-    shares = []
-    for j, col, v in spots:
-        k = 0 if j + on.PAD < t else on.R - 1  # a slice of dwf that holds row j
-        g_env = float(dwf[0, j + on.PAD - k, k * hop + col]) * float(pb.env[j, col])
-        g_c = float(g[0, j, col]) / cc
-        shares.append(g_c - g_env)
-        if abs(shares[-1] - np.sign(v) * k_coef / 2) > 1e-3 * (abs(k_coef / 2) + abs(g_c)):
-            raise RuntimeError(f"ola_normalize_bwd tie probe: the tie at row {j} took "
-                               f"{shares[-1]:.6e}, not {np.sign(v) * k_coef / 2:.6e} = K / 2")
-    say(f"  ola_normalize tie probe: the two ties took {shares[0]:.6e} and {shares[1]:.6e} "
-        f"of K = {k_coef:.6e}; silent lane m1 0, y2 0, VJP finite")
+    ref = on.ola_normalize_bwd_plain(g, ties, pb.env, m1p)
+    probes = {"wrapper": on.ola_normalize_bwd(g, ties, pb.env, m1p),
+              "stream": on._ola_bwd_variant(g, ties, pb.env, m1p, "stream")}
+    for size in on.CLUSTER_SIZES:
+        rows = on.ola_plan(bsz, t, hop, size).rows
+        owners = [next(r for r, (a, z) in enumerate(rows) if a <= j < z) for j, _, _ in spots]
+        if owners[0] == owners[1]:
+            raise RuntimeError(f"the tie probe's two ties lie in one CTA of a cluster of {size}")
+        probes[f"cluster {size}"] = on._ola_bwd_variant(g, ties, pb.env, m1p, "cluster", size)
+    for name, dwf in probes.items():
+        err_b = max(err_b, _close_ola(f"ola_normalize_bwd {name} tie probe", dwf, ref,
+                                      OLA_VJP_TOL))
+        shares = _ola_tie_shares(f"ola_normalize_bwd {name}", dwf, g, ties, m1p, pb.env, spots,
+                                 t, hop)
+        say(f"  ola_normalize tie probe, {name}: the two ties took {shares[0]:.6e} and "
+            f"{shares[1]:.6e} of K = {shares[2]:.6e}")
+    say("  ola_normalize silent lane: m1 0, y2 0, VJP finite on every variant")
 
     g = rand(bsz, lr, hop)
     y2p, m1p = on.ola_normalize_fwd_plain(frames, pb.env)
     f32_rows = bsz * lr * hop * F32
-    cases = {  # name: (kernel, plain, replaces, bytes in + out, largest error)
+    cases = {  # name: (variant call, plain, replaces, bytes in + out, largest error)
         "ola_normalize_fwd": (
-            lambda: on.ola_normalize_fwd(frames, pb.env),
+            lambda v, size: (lambda: on._ola_fwd_variant(frames, pb.env, v, size)),
             lambda: on.ola_normalize_fwd_plain(frames, pb.env),
             "aware_tpu/ops/pallas/ola_norm.py:135",
             bsz * t * n_fft * F32 + lr * hop * F32 + f32_rows + bsz * F32, err_f),
         "ola_normalize_bwd": (
-            lambda: on.ola_normalize_bwd(g, y2p, pb.env, m1p),
+            lambda v, size: (lambda: on._ola_bwd_variant(g, y2p, pb.env, m1p, v, size)),
             lambda: on.ola_normalize_bwd_plain(g, y2p, pb.env, m1p),
             "aware_tpu/ops/pallas/ola_norm.py:167",
             2 * f32_rows + lr * hop * F32 + bsz * F32 + bsz * t * n_fft * F32, err_b),
     }
+    wrappers = {"ola_normalize_fwd": lambda: on.ola_normalize_fwd(frames, pb.env),
+                "ola_normalize_bwd": lambda: on.ola_normalize_bwd(g, y2p, pb.env, m1p)}
     records = {}
-    for name, (kern, plain, replaces, nbytes, err) in cases.items():
+    for name, (variant, plain, replaces, nbytes, err) in cases.items():
         # a few operations per element: bytes bound both; no single
         # PyTorch call computes either (F.fold does the overlap-add alone)
         rec = _record(name, src, replaces, err, 0, nbytes)
         if not quick:
-            rec["ms"] = time_ms(torch, kern, REPS)[0]
-            rec["plain_ms"] = time_ms(torch, plain, REPS)[0]
+            fns = {f"cluster{size}_ms": variant("cluster", size) for size in on.CLUSTER_SIZES}
+            fns.update(stream_ms=variant("stream", on.CLUSTER), plain_ms=plain)
+            turns = in_turns(torch, fns)
+            rec.update({k: sum(v) / len(v) for k, v in turns.items()})
+            rec["ms"] = rec[f"cluster{on.CLUSTER}_ms"]
+            call_ms = time_ms(torch, wrappers[name], REPS)[1]
+            say(f"  {name} in turns (" + ", ".join(fns) + ", then reversed), device ms: "
+                + "; ".join(f"{k} {v[0]:.5f} {v[1]:.5f}" for k, v in turns.items())
+                + f"; the wrapper {call_ms:.4f} ms a call from Python")
         records[name] = rec
-        say(f"phase 2 kernel {name}: max_abs_err {err:.3e} device ms {rec['ms']} plain device "
-            f"ms {rec['plain_ms']} bound_us {rec['bound_ms'] * 1e3:.2f} ({rec['bound_by']}; "
+        say(f"phase 2 kernel {name}: max_abs_err {err:.3e} device ms {rec['ms']} (cluster of "
+            f"{on.CLUSTER}) stream device ms {rec.get('stream_ms')} plain device ms "
+            f"{rec['plain_ms']} bound_us {rec['bound_ms'] * 1e3:.2f} ({rec['bound_by']}; "
             f"{nbytes / 1e6:.2f} MB)")
+    if not quick:  # the long clip, where the wrappers take the stream variant
+        label, wf, env = inputs[2]
+        y2l, m1l = on.ola_normalize_fwd_plain(wf, env)
+        gl = rand(*y2l.shape)
+        turns = in_turns(torch, {
+            "forward": lambda: on.ola_normalize_fwd(wf, env),
+            "forward plain": lambda: on.ola_normalize_fwd_plain(wf, env),
+            "VJP": lambda: on.ola_normalize_bwd(gl, y2l, env, m1l),
+            "VJP plain": lambda: on.ola_normalize_bwd_plain(gl, y2l, env, m1l)})
+        rows_l = y2l.numel() * F32
+        bounds = {"forward": (wf.numel() + env.numel()) * F32 + rows_l,
+                  "VJP": 2 * rows_l + env.numel() * F32 + wf.numel() * F32}
+        say(f"  ola_normalize at {label} (stream variant) in turns, device ms: "
+            + "; ".join(f"{k} {v[0]:.5f} {v[1]:.5f}" for k, v in turns.items())
+            + "; bound_us " + ", ".join(f"{k} {n / PEAK_BYTES * 1e6:.2f}"
+                                        for k, n in bounds.items()))
     return records
 
 
@@ -1639,6 +1776,8 @@ def solve_path(torch, kernels, label, emb, det, clips, bits, per_iteration, reco
     sr = cfg.detection_net.sample_rate
     for k in kernels:
         k.launches = 0
+        if hasattr(k, "variants"):  # ola_normalize's launches by variant
+            k.variants = dict.fromkeys(k.variants, 0)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1819,6 +1958,7 @@ def main() -> int:
         if any(k in line for k in ("registers", "Compiling entry", "spill", "(C75")):
             say("  " + line.strip())
     sm90_report(torch, b)
+    ola_report(torch, b)
 
     # ---- phase 2: kernels vs plain on the main path's shapes
     dev = torch.device("cuda")
@@ -1985,6 +2125,12 @@ def main() -> int:
             xla.append((label, e, d))
             solve_path(torch, kernels, label, e, d, clips, bits, dict.fromkeys(names, 1),
                        records, phase="6")
+            if path == "ola":  # every launch of the 10 s clips a cluster launch
+                by = {k.__name__: dict(k.variants) for k in on.KERNELS}
+                say(f"phase 6 {label}: launches by variant {by}")
+                want = {"cluster": e.cfg.num_iterations, "stream": 0}
+                if any(v != want for v in by.values()):
+                    raise RuntimeError(f"{label}: launches by variant {by}, not {want} each")
         pair = torch.as_tensor(clips[:2, : 2 * sr])
         wm_pair = torch.as_tensor(2.0 * bits[:2] - 1.0, dtype=torch.float32)
         for label, e, d in xla:
@@ -2000,7 +2146,8 @@ def main() -> int:
         prof_cfg = e.cfg.replace(num_iterations=20)
         trace = f"{args.trace}/trace_ola.json" if args.trace else None
         say(f"phase 6 profile, \"ola\" path, B={BATCH} x 20 iterations: " + profile_solve(
-            torch, lambda: embed_batch(d.net, x, wm, prof_cfg), trace, markers=("ola_",)))
+            torch, lambda: embed_batch(d.net, x, wm, prof_cfg), trace, markers=("ola_",),
+            show=("ola_",)))
         # a clip over 1024 frames under the card file keeps the slab path
         _, e, d = xla[0]
         r1030 = np.random.default_rng([args.seed, 1030])

@@ -13,7 +13,9 @@ chain from the kernel's own residuals, to the bounds of
 aware_tpu_torch/ops/kernels/agreement.py (which says why they are what
 they are); the whole-iteration kernels by agreement.check_iteration;
 ola_normalize to the JAX suite's tolerances for it (forward atol/rtol
-1e-6, VJP atol 1e-5 rtol 1e-4), with a silent lane and a tie probe; the
+1e-6, VJP atol 1e-5 rtol 1e-4), with a silent lane and a tie probe, each
+variant (the cluster forward the stream forward's bits, the cluster VJP
+the same bits on two launches); the
 sm90 slab GEMM (shift_mm at its three uses, the band_analysis forward and
 VJP) on each tile it can take, to 1e-3 * max|plain|, bit for bit over two
 launches, and its wrapper checks; the sm90 dense GEMM of the whole step on
@@ -774,29 +776,77 @@ def _ola_data(t, device, batch=B):
                             device=device))
 
 
+def _ola_variants(t, batch=B):
+    """The ola_normalize variants that take a clip of t frames: the
+    cluster variant at each cluster size where its rows fit, the stream
+    variant always."""
+    out = [("stream", on.CLUSTER)]
+    for size in on.CLUSTER_SIZES:
+        plan = on.ola_plan(batch, t, HOP, size)
+        if plan.variant == "cluster":
+            out.append(("cluster", size))
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("t", [8, 63, 626])
+@pytest.mark.parametrize("t", [8, 63, 626, 3751])
 def test_ola_kernels_match_plain(cuda, t):
     """The JAX suite's tolerances for this kernel (tests/test_pallas.py):
     forward atol/rtol 1e-6, VJP atol 1e-5 rtol 1e-4; with a silent lane,
-    and a tie of opposite signs at the peak of another."""
+    and a tie of opposite signs at the peak of another; the wrappers (the
+    planned variant, the stream variant at 3751 frames) and each variant."""
     wf, env, g = _ola_data(t, cuda)
     wf[1] = 0.0  # a silent lane
     y2p, m1p = on.ola_normalize_fwd_plain(wf, env)
     before = [k.launches for k in on.KERNELS]
+    plan = on.ola_plan(B, t, HOP)
+    taken = [dict(k.variants) for k in on.KERNELS]
     y2, m1 = on.ola_normalize_fwd(wf, env)
-    torch.testing.assert_close(y2, y2p, atol=1e-6, rtol=1e-6)
-    torch.testing.assert_close(m1, m1p, atol=1e-6, rtol=1e-6)
-    assert float(m1[1]) == 0.0
+    outs = [(y2, m1)] + [on._ola_fwd_variant(wf, env, v, size) for v, size in _ola_variants(t)]
+    for yy, mm in outs:
+        torch.testing.assert_close(yy, y2p, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(mm, m1p, atol=1e-6, rtol=1e-6)
+        assert float(mm[1]) == 0.0
     ties = y2p.clone()
     ties[2, 0, 5], ties[2, -1, 7] = 2.0, -2.0  # two ties above every other |y2|
     for y in (y2p, ties):
-        dwf = on.ola_normalize_bwd(g, y, env, m1p)
-        assert torch.isfinite(dwf).all()
-        torch.testing.assert_close(dwf, on.ola_normalize_bwd_plain(g, y, env, m1p),
-                                   atol=1e-5, rtol=1e-4)
+        ref = on.ola_normalize_bwd_plain(g, y, env, m1p)
+        dwfs = [on.ola_normalize_bwd(g, y, env, m1p)] + [
+            on._ola_bwd_variant(g, y, env, m1p, v, size) for v, size in _ola_variants(t)]
+        for dwf in dwfs:
+            assert torch.isfinite(dwf).all()
+            torch.testing.assert_close(dwf, ref, atol=1e-5, rtol=1e-4)
     torch.cuda.synchronize()
     assert [k.launches - n for k, n in zip(on.KERNELS, before)] == [1, 2]
+    assert [k.variants[plan.variant] - d[plan.variant] for k, d in zip(on.KERNELS, taken)] == [
+        1, 2]
+    assert plan.variant == ("stream" if t == 3751 else "cluster")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 63, 626])
+def test_ola_cluster_forward_gives_the_stream_forwards_bits(cuda, t):
+    """The same adds in the same order and the same division: y2 and m1
+    bit for bit, at each cluster size."""
+    wf, env, _ = _ola_data(t, cuda)
+    wf[0] *= 40.0  # a loud clip beside quiet ones
+    y2s, m1s = on._ola_fwd_variant(wf, env, "stream")
+    for v, size in _ola_variants(t)[1:]:
+        y2c, m1c = on._ola_fwd_variant(wf, env, v, size)
+        assert torch.equal(y2c, y2s) and torch.equal(m1c, m1s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 63, 626])
+def test_ola_cluster_vjp_repeats_bit_for_bit(cuda, t):
+    """Partials combined in rank order, ties counted as integers: two
+    launches give the same bits, at each cluster size."""
+    wf, env, g = _ola_data(t, cuda)
+    y2, m1 = on.ola_normalize_fwd_plain(wf, env)
+    for v, size in _ola_variants(t)[1:]:
+        a = on._ola_bwd_variant(g, y2, env, m1, v, size)
+        b = on._ola_bwd_variant(g, y2, env, m1, v, size)
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
