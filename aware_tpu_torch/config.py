@@ -25,6 +25,10 @@ class DetectorNetConfig:
     initial_pool_stride: int = 2
     n_filters: tuple[int, ...] = (512, 1024, 1024)
     output_length: int = 20
+    # the key bundle: a file name under the JAX package's models/_key, or an
+    # absolute path; empty selects the default key (aware_key_v1.npz).
+    # Re-keyed cards (the desync card) name theirs here
+    key_file: str = ""
 
     def __post_init__(self) -> None:
         if len(self.n_filters) != self.num_blocks:
@@ -40,6 +44,10 @@ class DetectorNetConfig:
 # float32 slab round trip, "high" the kernels; "default" (single-pass bf16
 # everywhere, the JAX package's turbo card) is not ported
 MATMUL_PRECISIONS = ("high", "highest")
+
+# the EOT views' settings, each a tuple of view parameters
+EOT_FIELDS = ("eot_stretch_rates", "eot_pitch_cents", "eot_mp3_qualities",
+              "eot_celp_modes", "eot_ste_codecs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,17 +97,42 @@ class AwareConfig:
     use_pallas_roundtrip: bool = True
     use_pallas_detector: bool = True
     use_pallas_iteration: bool = True
+    # EOT (expectation over transforms) views: each iteration also scores
+    # the candidate waveform after a differentiable edit and adds
+    # eot_weight x that loss (embed/solver.py).  Vocoder time-stretch
+    # rates, pitch shifts in cents, mp3_approx qualities 0-11, celp_approx
+    # modes ("nb8k", "mb16k"), and real host codecs with a straight-through
+    # gradient ("opus_8k", "opus_16k", "gsm_fr"; not ported).  "all" takes
+    # the mean over the views every iteration, "cycle" view it % n_views
+    eot_stretch_rates: Any = ()
+    eot_pitch_cents: Any = ()
+    eot_mp3_qualities: Any = ()
+    eot_celp_modes: Any = ()
+    eot_ste_codecs: Any = ()
+    eot_weight: float = 1.0
+    eot_mode: str = "all"
 
     def __post_init__(self) -> None:
         if self.window not in ("hann", "hamming"):
             raise ValueError(f"Invalid window type: {self.window}")
-        for field in ("optimizer_params", "scheduler_params", "embedding_bands"):
+        if self.eot_mode not in ("all", "cycle"):
+            raise ValueError(f"Invalid eot_mode: {self.eot_mode}")
+        for field in ("optimizer_params", "scheduler_params", "embedding_bands", *EOT_FIELDS):
             value = getattr(self, field)
             if isinstance(value, Mapping):
                 value = tuple(sorted(value.items()))
             elif isinstance(value, list):
                 value = tuple(value)
             object.__setattr__(self, field, value)
+        bad_q = [q for q in self.eot_mp3_qualities if int(q) not in range(12)]
+        if bad_q:
+            raise ValueError(f"Invalid eot_mp3_qualities (0-11): {bad_q}")
+        bad_m = [m for m in self.eot_celp_modes if m not in ("nb8k", "mb16k")]
+        if bad_m:
+            raise ValueError(f"Invalid eot_celp_modes: {bad_m}")
+        bad_s = [s for s in self.eot_ste_codecs if s not in ("opus_8k", "opus_16k", "gsm_fr")]
+        if bad_s:
+            raise ValueError(f"Invalid eot_ste_codecs: {bad_s}")
 
     @property
     def opt_params(self) -> dict[str, Any]:
@@ -122,6 +155,7 @@ class AwareConfig:
             "num_iterations", "loss", "threshold", "vad",
             "use_pallas_roundtrip", "use_pallas_detector", "use_pallas_iteration",
             "use_matmul_dft", "use_slab_dft", "use_pallas_ola",
+            "eot_weight", "eot_mode",
         }
         # read by the JAX package only; their default values change
         # nothing here
@@ -133,7 +167,7 @@ class AwareConfig:
                 kwargs[key] = value
             elif key == "matmul_precision" and value in MATMUL_PRECISIONS:
                 kwargs[key] = value
-            elif key == "embedding_bands":
+            elif key == "embedding_bands" or key in EOT_FIELDS:
                 kwargs[key] = tuple(value)
             elif key == "optimizer_cfg":
                 kwargs["optimizer_name"] = value.get("name", "nadam")

@@ -60,6 +60,19 @@ and, where the slab decomposition and the kernels' geometry both hold
         "band_analysis" path's tail; the VJPs are shift_mm twice more
         (ops/kernels/roundtrip_tiled.py).
 
+EOT views (``cfg.eot_*``, the robust, desync and compression cards; the
+port of ``aware_tpu/embed/solver.py:180-316``): each iteration also
+scores the live waveform y2 of the round trip after a differentiable edit
+(attacks/: vocoder time stretch "ts", pitch shift "ps", mp3_approx "mp3",
+celp_approx "celp"), then peak-norm -> STFT -> |.| of the band -> the
+float32 banded detector -> push_extremes, and adds eot_weight x that loss
+to each clip's; "cycle" takes view it % n_views in iteration it, "all" the
+mean over the views.  The views need y2, so that, as in the JAX package's
+gate (``:483``), a problem with views never takes "iteration_step" or
+"iteration_forward": by default it lands on "analysis_detector".  The
+best snapshot then compares the totals of different views (the JAX
+package's "known bias", kept).
+
 The generic step of all but "iteration_step": push_extremes loss (per
 clip), backward through the same chain (autograd, and the kernels' VJPs),
 NAdam step at the lr from before this step's scheduler tick, scheduler
@@ -84,6 +97,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aware_tpu_torch.attacks.celp import celp_approx
+from aware_tpu_torch.attacks.codec import mp3_approx
+from aware_tpu_torch.attacks.vocoder import pitch_shift, time_stretch
 from aware_tpu_torch.config import MATMUL_PRECISIONS, AwareConfig, in_band_bins
 from aware_tpu_torch.embed.losses import push_extremes
 from aware_tpu_torch.embed.optim import nadam, nadam_schedule
@@ -124,6 +140,7 @@ from aware_tpu_torch.ops.kernels.roundtrip_tiled import (
 from aware_tpu_torch.ops.mel import mel_filter_bank
 from aware_tpu_torch.ops.stft import (
     _ola_envelope,
+    device_window,
     irfft_basis,
     istft,
     istft_synthesis,
@@ -168,10 +185,61 @@ def check_supported(cfg: AwareConfig) -> None:
         unported.append("win_length != frame_length")
     if cfg.vad != "spectral":
         unported.append(f"vad {cfg.vad!r}")
+    if cfg.eot_ste_codecs:
+        unported.append(
+            f"eot_ste_codecs {cfg.eot_ste_codecs!r} (the voice card): these views run the "
+            "real codecs (libopus, libgsm) on the host once per iteration, with a "
+            "straight-through gradient, and the port binds no host codec library"
+        )
     if unported:
         raise NotImplementedError(
             "not ported to aware_tpu_torch: " + "; ".join(unported)
         )
+
+
+def eot_views(cfg: AwareConfig) -> tuple[tuple[str, object], ...]:
+    """The EOT views as (kind, value) pairs, in the JAX package's order:
+    stretch rates, pitch shifts in cents, mp3 qualities, celp modes."""
+    return (
+        tuple(("ts", r) for r in cfg.eot_stretch_rates)
+        + tuple(("ps", c) for c in cfg.eot_pitch_cents)
+        + tuple(("mp3", q) for q in cfg.eot_mp3_qualities)
+        + tuple(("celp", m) for m in cfg.eot_celp_modes)
+    )
+
+
+def _view(y: torch.Tensor, kind: str, value, sr: int) -> torch.Tensor:
+    """The differentiable edit of one view on waveforms (B, L)."""
+    if kind == "ts":
+        return time_stretch(y, value)
+    if kind == "ps":  # cents -> semitones, as the eval suite's ps_5 attack
+        return pitch_shift(y, value / 100.0)
+    if kind == "mp3":
+        return mp3_approx(y, sr, int(value))
+    return celp_approx(y, sr, str(value))
+
+
+def _view_loss(y: torch.Tensor, kind: str, value, pb: "Problem", net: DetectorNet,
+               cfg: AwareConfig) -> torch.Tensor:
+    """Per-clip loss (B,) of one view of the live waveforms y (B, L): the
+    edit, peak-norm, STFT, |.| of the band, the float32 banded detector
+    (``detector_apply_banded`` at float32), push_extremes."""
+    yr = _view(y, kind, value, cfg.detection_net.sample_rate)
+    window = device_window(cfg.window, cfg.win_length, y.device)
+    z = stft(peak_normalize(yr), cfg.frame_length, cfg.hop_length, window)[..., pb.lo : pb.hi, :]
+    pred = net.forward_banded(safe_magnitude(z.real, z.imag), pb.lo, pb.hi)
+    return push_extremes(pred, pb.wm)
+
+
+def eot_loss(y: torch.Tensor, pb: "Problem", net: DetectorNet, cfg: AwareConfig,
+             it: int) -> torch.Tensor:
+    """The views' loss (B,) of iteration ``it``: "cycle" view it % n_views
+    (the same view for every clip), "all" the mean over the views."""
+    views = eot_views(cfg)
+    if cfg.eot_mode == "cycle":
+        kind, value = views[it % len(views)]
+        return _view_loss(y, kind, value, pb, net, cfg)
+    return sum(_view_loss(y, k, v, pb, net, cfg) for k, v in views) / len(views)
 
 
 class TiledConsts(NamedTuple):
@@ -262,7 +330,7 @@ def build_problem(
       ``cfg.use_pallas_detector``, where the JAX package's gate holds
       (``:451-457``), also the merged analysis + detector kernels'
       constants from the keyed ``net``, and with ``cfg.use_pallas_iteration``
-      the whole-iteration kernels' (``:483-511``).
+      and no EOT view the whole-iteration kernels' (``:483-511``).
 
     ``check_supported`` holds the frame geometry every path here assumes
     (n_fft == 4 hop, hop % 128 == 0)."""
@@ -396,7 +464,7 @@ def build_problem(
         )
 
     path = "band_analysis" if fused is None else "analysis_detector"
-    if fused is not None and cfg.use_pallas_iteration:
+    if fused is not None and cfg.use_pallas_iteration and not eot_views(cfg):
         iteration = IterConsts(csin=csin, y_const=y_const, env=env, ab=ab, abt=abt,
                                csw=csw, cswt=cswt, det=fused.det)
         step_whole = (
@@ -422,7 +490,8 @@ def build_problem(
 
 def _plain_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig):
     """The float32 round trip and detector of the "slab", "frames", "ola"
-    and "fft" paths: bits (B, n_bits) of the coefficients ct (B, T, P)."""
+    and "fft" paths: bits (B, n_bits) of the coefficients ct (B, T, P),
+    and the live waveforms (B, L) that the detector's STFT reads."""
     n_fft, hop = cfg.frame_length, cfg.hop_length
     c = pb.plain
     batch, t_frames = ct.shape[0], ct.shape[1]
@@ -430,11 +499,11 @@ def _plain_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfi
     if pb.path == "fft":
         m = torch.cat([pb.mag[:, : pb.lo], coeffs.transpose(1, 2), pb.mag[:, pb.hi :]], dim=1)
         z = torch.complex(m * c.cos, m * c.sin)
-        y = peak_normalize(istft(z, n_fft, hop, c.window, env=pb.env.reshape(-1)))
-        band = stft(peak_normalize(y), n_fft, hop, c.window)[:, pb.lo : pb.hi]
+        y = peak_normalize(peak_normalize(istft(z, n_fft, hop, c.window, env=pb.env.reshape(-1))))
+        band = stft(y, n_fft, hop, c.window)[:, pb.lo : pb.hi]
         m2 = safe_magnitude(band.real, band.imag)
         # the whole detector on the band-zeroed magnitude, as the JAX path
-        return net(F.pad(m2, (0, 0, pb.lo, m.shape[1] - pb.hi)))
+        return net(F.pad(m2, (0, 0, pb.lo, m.shape[1] - pb.hi))), y
     reim = torch.cat([coeffs * c.cos, coeffs * c.sin], dim=-1)  # (B, T, 2nb)
     if pb.path == "slab":
         # OLA as R shifted row adds of hop-wide slabs; the out-of-band
@@ -447,10 +516,10 @@ def _plain_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfi
         # the double peak-norm as one scale: the second max is
         # m1 / (m1 + e) exactly
         m1 = u.abs().amax(dim=(1, 2), keepdim=True)
-        yf = (u / ((m1 + 1e-8) * (m1 / (m1 + 1e-8) + 1e-8))).reshape(batch, -1)
+        y2 = (u / ((m1 + 1e-8) * (m1 / (m1 + 1e-8) + 1e-8))).reshape(batch, -1)
         half = n_fft // 2
         yp = torch.cat(
-            [yf[:, 1 : half + 1].flip(-1), yf, yf[:, -half - 1 : -1].flip(-1)], dim=-1
+            [y2[:, 1 : half + 1].flip(-1), y2, y2[:, -half - 1 : -1].flip(-1)], dim=-1
         ).reshape(batch, t_frames + R - 1, hop)
         cs2 = sum(yp[:, k : k + t_frames] @ c.cs[k * hop : (k + 1) * hop] for k in range(R))
     else:
@@ -462,16 +531,16 @@ def _plain_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfi
                 istft_synthesis(frames, n_fft, hop, None, env=pb.env.reshape(-1))))
         cs2 = stft_frames(y2, n_fft, hop, c.window) @ c.cs
     m2 = safe_magnitude(cs2[..., : pb.nb], cs2[..., pb.nb :])
-    return net.forward_banded(m2.transpose(1, 2), pb.lo, pb.hi)
+    return net.forward_banded(m2.transpose(1, 2), pb.lo, pb.hi), y2
 
 
-def objective(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig):
-    """Per-clip loss (B,) of the coefficients ct (B, T, P)."""
+def _kernel_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig):
+    """The kernel paths' bits (B, n_bits) of the coefficients ct (B, T, P),
+    and the live waveforms y2 (B, (T-1)*hop) (None on the whole-iteration
+    kernels, which keep y2 to themselves)."""
     t_frames, p = ct.shape[1], ct.shape[2]
-    if pb.plain is not None:
-        return push_extremes(_plain_pred(ct, pb, net, cfg), pb.wm)
     if pb.iteration is not None:
-        return push_extremes(iteration_forward(ct, pb.iteration), pb.wm)
+        return iteration_forward(ct, pb.iteration), None
     if pb.tiled is not None:
         tc = pb.tiled
         y2 = synth_norm_tiled(ct, tc.csinp, pb.y_const, pb.env, tc.w_sf, tc.w_sb)
@@ -479,15 +548,23 @@ def objective(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig)
     else:
         y2 = synth_norm(ct, pb.csin, pb.y_const, pb.env, pb.ab, pb.abt)
         if pb.fused is not None:
-            return push_extremes(analysis_detector(y2, pb.fused), pb.wm)
+            return analysis_detector(y2, pb.fused), y2.reshape(y2.shape[0], -1)
         cs2 = band_analysis(y2, pb.csw, pb.cswt)
-    cs2 = cs2 + edge_corrections(
-        y2.reshape(y2.shape[0], -1), pb.csw_k, cfg.frame_length,
-        cfg.hop_length, t_frames,
-    )
+    y2 = y2.reshape(y2.shape[0], -1)
+    cs2 = cs2 + edge_corrections(y2, pb.csw_k, cfg.frame_length, cfg.hop_length, t_frames)
     m2 = safe_magnitude(cs2[..., : pb.nb], cs2[..., p : p + pb.nb])
-    pred = net.forward_banded(m2.transpose(1, 2), pb.lo, pb.hi)
-    return push_extremes(pred, pb.wm)
+    return net.forward_banded(m2.transpose(1, 2), pb.lo, pb.hi), y2
+
+
+def objective(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig, it: int = 0):
+    """Per-clip loss (B,) of the coefficients ct (B, T, P) in iteration
+    ``it``: push_extremes of the detector's bits, plus eot_weight x the
+    EOT views' loss of the live waveforms where the config has views."""
+    pred, y2 = (_plain_pred if pb.plain is not None else _kernel_pred)(ct, pb, net, cfg)
+    loss = push_extremes(pred, pb.wm)
+    if eot_views(cfg):
+        loss = loss + cfg.eot_weight * eot_loss(y2, pb, net, cfg, it)
+    return loss
 
 
 def _reconstruct(pb: Problem, best_coeffs: torch.Tensor, cfg: AwareConfig):
@@ -553,10 +630,10 @@ def _solve_autograd(pb: Problem, net: DetectorNet, cfg: AwareConfig):
     best_loss = torch.full((batch,), float("inf"), device=dev)
     best = ct
     loss = best_loss
-    for _ in range(cfg.num_iterations):
+    for it in range(cfg.num_iterations):
         leaf = ct.detach().requires_grad_(True)
         with torch.enable_grad():
-            loss = objective(leaf, pb, net, cfg)
+            loss = objective(leaf, pb, net, cfg, it)
             (g,) = torch.autograd.grad(loss.sum(), leaf)
         loss = loss.detach()
         lr = sched_state["lr"]  # the lr from before this step's tick

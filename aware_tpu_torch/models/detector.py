@@ -32,15 +32,19 @@ from aware_tpu_torch.ops.mel import mel_filter_bank
 from aware_tpu_torch.ops.stft import magphase, peak_normalize, stft
 from aware_tpu_torch.ops.windows import get_window
 
-# the key bundle lives with the JAX package; it is data, read by path
-KEY_FILE = (
-    pathlib.Path(__file__).resolve().parents[2]
-    / "aware_tpu" / "models" / "_key" / "aware_key_v1.npz"
-)
+# the key bundles live with the JAX package; they are data, read by path
+KEY_DIR = pathlib.Path(__file__).resolve().parents[2] / "aware_tpu" / "models" / "_key"
+KEY_FILE = KEY_DIR / "aware_key_v1.npz"
 
 
-def load_key_params(path: str | pathlib.Path = KEY_FILE) -> dict[str, np.ndarray]:
-    """The golden key bundle (seeded torch xavier weights) as numpy."""
+def load_key_params(key_file: str | pathlib.Path = "") -> dict[str, np.ndarray]:
+    """A key bundle's detector weights as numpy: ``key_file`` as
+    ``DetectorNetConfig.key_file`` names it (a file name under KEY_DIR, or
+    an absolute path), or with none the golden key (seeded torch xavier
+    weights)."""
+    path = pathlib.Path(key_file or KEY_FILE)
+    if not path.is_absolute():
+        path = KEY_DIR / path
     with np.load(path) as z:
         return {k: z[k] for k in z.files if k != "seed"}
 

@@ -75,6 +75,13 @@ def _polyphase_plan(up: int, down: int, n_in: int):
     return n_out, c, w, q, pad_left, pad_right, bmin, g_mat.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def _g_tensor(up: int, down: int, n_in: int, device: torch.device, dtype: torch.dtype):
+    """The plan's filter matrix on ``device``, built once: a copy from the
+    host in every call would wait for the card."""
+    return torch.from_numpy(_polyphase_plan(up, down, n_in)[-1]).to(device, dtype)
+
+
 def resample_poly(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
     """Rational-rate resample of the last axis (scipy.resample_poly
     semantics); output length ``ceil(L * up / down)``."""
@@ -83,13 +90,13 @@ def resample_poly(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
     if up == down == 1:
         return x
     n_in = x.shape[-1]
-    n_out, c, w, q, pad_left, pad_right, bmin, g_mat = _polyphase_plan(up, down, n_in)
+    n_out, c, w, q, pad_left, pad_right, bmin, _ = _polyphase_plan(up, down, n_in)
     batch_shape = x.shape[:-1]
     xp = F.pad(x, (pad_left, pad_right))
     off = pad_left + bmin
     rows = xp[..., off : off + (c + q) * down].reshape(*batch_shape, c + q, down)
     frames = torch.cat([rows[..., i : i + c, :] for i in range(q)], dim=-1)[..., :w]
-    y = frames @ torch.from_numpy(g_mat).to(x.device, x.dtype)
+    y = frames @ _g_tensor(up, down, n_in, x.device, x.dtype)
     return y.reshape(*batch_shape, c * up)[..., :n_out]
 
 

@@ -101,6 +101,23 @@ def _ola_envelope(
     return env
 
 
+@functools.lru_cache(maxsize=64)
+def device_window(name: str, n: int, device: torch.device) -> torch.Tensor:
+    """The float32 window ``name`` of ``n`` samples on ``device``, built
+    once: a copy from the host in every call would wait for the card."""
+    return torch.from_numpy(get_window(name, n)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def device_envelope(
+    name: str, n_fft: int, hop_length: int, n_frames: int, device: torch.device
+) -> torch.Tensor:
+    """:func:`_ola_envelope` of the window ``name`` as a float32 tensor on
+    ``device``, built once (the ``env`` of :func:`istft`)."""
+    env = _ola_envelope(tuple(get_window(name, n_fft).tolist()), n_fft, hop_length, n_frames)
+    return torch.as_tensor(env, dtype=torch.float32, device=device)
+
+
 def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
     """Overlap-add (..., T, n_fft) frames -> (..., (T-1)*hop + n_fft)."""
     *batch, t, n_fft = frames.shape

@@ -147,7 +147,9 @@ def load(
     (``aware_tpu/cards/<name>.yaml``, read as data); with none, the
     default card's values.  ``device`` defaults to the CUDA card and raises
     where there is none.  A card or keyword that asks for a path this port
-    does not have raises NotImplementedError.
+    does not have raises NotImplementedError.  The detector's weights come
+    from the card's ``detection_net_cfg.key_file`` (the desync card's
+    re-keyed bundle), else from the golden key.
 
     The embed solver takes the JAX package's paths, selected as there
     (``embed/solver.py`` names them).  By default, the kernel paths (bf16
@@ -163,7 +165,11 @@ def load(
     or ``use_pallas_roundtrip=False`` the "slab" path;
     ``use_slab_dft=False`` the "frames" path; ``use_pallas_ola=True`` the
     "ola" path (the frames round trip through the ``ola_normalize``
-    kernel); ``use_matmul_dft=False`` the "fft" path.  Detection is the
+    kernel); ``use_matmul_dft=False`` the "fft" path.  Cards with EOT views
+    (``load("robust")``, ``"desync"``, ``"compression"``) never take the
+    whole-iteration kernels, as in the JAX package: by default they run the
+    synthesis kernel, the merged analysis + detector kernels and the views
+    in plain torch.  Detection is the
     float32 plain-torch detector, as in the JAX package, which has no
     detection kernel.
 
@@ -181,13 +187,14 @@ def load(
     if overrides:
         cfg = cfg.replace(**overrides)
     check_supported(cfg)
-    if cfg.detection_net != DetectorNetConfig():
+    net_cfg = cfg.detection_net
+    if dataclasses.replace(net_cfg, key_file="") != DetectorNetConfig():
         raise NotImplementedError(
-            "only the default detector architecture has a key bundle in the port"
+            "only the default detector architecture has key bundles in the port"
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    net = DetectorNet(params_from_jax(load_key_params()), cfg.detection_net).to(dev)
+    net = DetectorNet(params_from_jax(load_key_params(net_cfg.key_file)), net_cfg).to(dev)
     return (
         AWAREEmbedder(net=net, cfg=cfg, device=dev),
         AWAREDetector(net=net, cfg=cfg, device=dev),

@@ -232,8 +232,14 @@ def test_card_file_is_read_by_path(tmp_path):
                     "optimizer_cfg: {name: nadam, params: {lr: 0.05}}\n")
     emb, _ = aware_tpu_torch.load(card, device="cpu")
     assert emb.cfg.num_iterations == 7 and emb.cfg.opt_params == {"lr": 0.05}
-    # the JAX package's robust card asks for EOT views, which are not ported
+    # EOT views: the robust card's keys load; the voice card's real host
+    # codecs (eot_ste_codecs) are not ported, and the error names them
     robust = tmp_path / "robust.yaml"
-    robust.write_text("eot_stretch_rates: [0.98, 1.02]\n")
-    with pytest.raises(NotImplementedError, match="eot_stretch_rates"):
-        aware_tpu_torch.load(robust, device="cpu")
+    robust.write_text("eot_stretch_rates: [0.98, 1.02]\neot_pitch_cents: [-5.0, 5.0]\n"
+                      "eot_mode: cycle\neot_weight: 2.0\n")
+    emb, _ = aware_tpu_torch.load(robust, device="cpu")
+    assert emb.cfg.eot_stretch_rates == (0.98, 1.02) and emb.cfg.eot_mode == "cycle"
+    voice = tmp_path / "voice.yaml"
+    voice.write_text("eot_ste_codecs: [opus_8k, gsm_fr]\n")
+    with pytest.raises(NotImplementedError, match="eot_ste_codecs.*libopus, libgsm"):
+        aware_tpu_torch.load(voice, device="cpu")

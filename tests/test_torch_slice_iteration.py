@@ -168,8 +168,12 @@ def test_load_defaults_to_the_whole_step_path():
 
 
 def test_bare_card_names_resolve_against_the_jax_cards():
-    with pytest.raises(NotImplementedError, match="eot_stretch_rates"):
-        aware_tpu_torch.load("robust", device="cpu")
+    # the robust card (EOT views) loads by its bare name; the voice card's
+    # host codecs are not ported
+    robust, _ = aware_tpu_torch.load("robust", device="cpu")
+    assert robust.cfg.eot_mode == "cycle" and len(robust.cfg.eot_stretch_rates) == 8
+    with pytest.raises(NotImplementedError, match="eot_ste_codecs"):
+        aware_tpu_torch.load("voice", device="cpu")
     # the default card file pins matmul_precision: highest, which selects
     # the float32 slab path, as in the JAX package
     by_name, _ = aware_tpu_torch.load("config", device="cpu")
