@@ -8,8 +8,10 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  The embed solver's iteration runs through hand-written
 CUDA kernels (``csrc/*.cu``: the synthesis round trip, the reflect-pad
 analysis and the fused detector, forward and VJP), built with nvcc at
-first use.  This package imports torch, numpy and the standard
-library only; it never imports jax or aware_tpu.
+first use; the attack suite's IIR filters are scan kernels
+(``csrc/iir.cu``).  This package imports torch, numpy and the standard
+library (and scipy in the host metrics and the MP3 codec's alignment); it
+never imports jax or aware_tpu.
 """
 
 __all__ = [

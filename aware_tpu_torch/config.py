@@ -40,10 +40,13 @@ class DetectorNetConfig:
         return (self.n_mels, *self.n_filters, 2 * self.output_length)
 
 
-# the matmul precisions the port has a path for: "highest" selects the
-# float32 slab round trip, "high" the kernels; "default" (single-pass bf16
-# everywhere, the JAX package's turbo card) is not ported
-MATMUL_PRECISIONS = ("high", "highest")
+# the matmul precisions (the JAX package's names): "highest" selects the
+# float32 slab round trip, "high" and "default" the kernels.  Outside the
+# kernels (which are bf16 on every precision) "high" and "highest" multiply
+# in float32, and "default" (the turbo card's) as jax.lax.Precision.DEFAULT
+# does on a TPU: one bf16 pass, operands rounded to bf16, float32
+# accumulation and result (models/detector.py matmul)
+MATMUL_PRECISIONS = ("high", "highest", "default")
 
 # the EOT views' settings, each a tuple of view parameters
 EOT_FIELDS = ("eot_stretch_rates", "eot_pitch_cents", "eot_mp3_qualities",
@@ -91,6 +94,10 @@ class AwareConfig:
     # use_pallas_detector=False synth_norm -> band_analysis -> edge
     # corrections -> the detector in plain torch
     matmul_precision: str = "high"
+    # the JAX package's lax.scan unroll factor of its solver loop; validated
+    # as a positive int and otherwise unread: the port's loop is a Python
+    # loop, with no scan to unroll
+    scan_unroll: int = 1
     use_matmul_dft: bool = True
     use_slab_dft: bool = True
     use_pallas_ola: bool = False
@@ -117,6 +124,9 @@ class AwareConfig:
             raise ValueError(f"Invalid window type: {self.window}")
         if self.eot_mode not in ("all", "cycle"):
             raise ValueError(f"Invalid eot_mode: {self.eot_mode}")
+        if (isinstance(self.scan_unroll, bool) or not isinstance(self.scan_unroll, int)
+                or self.scan_unroll < 1):
+            raise ValueError(f"scan_unroll must be a positive int, got {self.scan_unroll!r}")
         for field in ("optimizer_params", "scheduler_params", "embedding_bands", *EOT_FIELDS):
             value = getattr(self, field)
             if isinstance(value, Mapping):
@@ -155,7 +165,7 @@ class AwareConfig:
             "num_iterations", "loss", "threshold", "vad",
             "use_pallas_roundtrip", "use_pallas_detector", "use_pallas_iteration",
             "use_matmul_dft", "use_slab_dft", "use_pallas_ola",
-            "eot_weight", "eot_mode",
+            "eot_weight", "eot_mode", "scan_unroll",
         }
         # read by the JAX package only; their default values change
         # nothing here

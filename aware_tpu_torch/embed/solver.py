@@ -76,8 +76,13 @@ package's "known bias", kept).
 The generic step of all but "iteration_step": push_extremes loss (per
 clip), backward through the same chain (autograd, and the kernels' VJPs),
 NAdam step at the lr from before this step's scheduler tick, scheduler
-tick, clamp to the box, best snapshot.  The plain paths' products are
-float32 matmuls, as XLA's are in the JAX package (TF32 is off).
+tick, clamp to the box, best snapshot.  The plain paths' products (the
+set-up's out-of-band frames, the float32 round trips, the plain-torch
+detector and the views' detector) take the card's matmul_precision as
+XLA's do in the JAX package: float32 for "high" and "highest" (TF32 is
+off), one bf16 pass for "default", the turbo card's
+(``models.detector.matmul``).  The kernels are bf16 on every precision;
+"highest" alone keeps a problem off them ("slab").
 
 Reference quirks kept: the best snapshot pairs iteration t's loss with the
 post-step, post-clamp coefficients; the box comes from the initial
@@ -104,7 +109,7 @@ from aware_tpu_torch.config import MATMUL_PRECISIONS, AwareConfig, in_band_bins
 from aware_tpu_torch.embed.losses import push_extremes
 from aware_tpu_torch.embed.optim import nadam, nadam_schedule
 from aware_tpu_torch.embed.schedulers import reduce_lr_on_plateau
-from aware_tpu_torch.models.detector import DetectorNet
+from aware_tpu_torch.models.detector import DetectorNet, matmul
 from aware_tpu_torch.ops.kernels.analysis_detector import (
     MIN_FRAMES,
     AnalysisDetConsts,
@@ -227,7 +232,7 @@ def _view_loss(y: torch.Tensor, kind: str, value, pb: "Problem", net: DetectorNe
     yr = _view(y, kind, value, cfg.detection_net.sample_rate)
     window = device_window(cfg.window, cfg.win_length, y.device)
     z = stft(peak_normalize(yr), cfg.frame_length, cfg.hop_length, window)[..., pb.lo : pb.hi, :]
-    pred = net.forward_banded(safe_magnitude(z.real, z.imag), pb.lo, pb.hi)
+    pred = net.forward_banded(safe_magnitude(z.real, z.imag), pb.lo, pb.hi, cfg.matmul_precision)
     return push_extremes(pred, pb.wm)
 
 
@@ -385,12 +390,13 @@ def build_problem(
     aw = torch.from_numpy(a_np * wvec[None, :]).to(dev)
     bw = torch.from_numpy(b_np * wvec[None, :]).to(dev)
     re_full, im_full = mag * cos_ph, mag * sin_ph
+    prec = cfg.matmul_precision
     # the constant (out-of-band) part of the windowed ISTFT frames
     frames_const = (
-        re_full[:, :lo].transpose(1, 2) @ aw[:lo]
-        + re_full[:, hi:].transpose(1, 2) @ aw[hi:]
-        + im_full[:, :lo].transpose(1, 2) @ bw[:lo]
-        + im_full[:, hi:].transpose(1, 2) @ bw[hi:]
+        matmul(re_full[:, :lo].transpose(1, 2), aw[:lo], prec)
+        + matmul(re_full[:, hi:].transpose(1, 2), aw[hi:], prec)
+        + matmul(im_full[:, :lo].transpose(1, 2), bw[:lo], prec)
+        + matmul(im_full[:, hi:].transpose(1, 2), bw[hi:], prec)
     )
     cos_in = cos_ph[:, lo:hi].transpose(1, 2).contiguous()  # (B, T, nb)
     sin_in = sin_ph[:, lo:hi].transpose(1, 2).contiguous()
@@ -493,6 +499,7 @@ def _plain_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfi
     and "fft" paths: bits (B, n_bits) of the coefficients ct (B, T, P),
     and the live waveforms (B, L) that the detector's STFT reads."""
     n_fft, hop = cfg.frame_length, cfg.hop_length
+    prec = cfg.matmul_precision
     c = pb.plain
     batch, t_frames = ct.shape[0], ct.shape[1]
     coeffs = ct[..., : pb.nb]  # (B, T, nb)
@@ -503,13 +510,13 @@ def _plain_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfi
         band = stft(y, n_fft, hop, c.window)[:, pb.lo : pb.hi]
         m2 = safe_magnitude(band.real, band.imag)
         # the whole detector on the band-zeroed magnitude, as the JAX path
-        return net(F.pad(m2, (0, 0, pb.lo, m.shape[1] - pb.hi))), y
+        return net(F.pad(m2, (0, 0, pb.lo, m.shape[1] - pb.hi)), prec), y
     reim = torch.cat([coeffs * c.cos, coeffs * c.sin], dim=-1)  # (B, T, 2nb)
     if pb.path == "slab":
         # OLA as R shifted row adds of hop-wide slabs; the out-of-band
         # part enters after the envelope as a waveform
         yd = sum(
-            F.pad(reim @ c.ab[:, k * hop : (k + 1) * hop], (0, 0, k, R - 1 - k))
+            F.pad(matmul(reim, c.ab[:, k * hop : (k + 1) * hop], prec), (0, 0, k, R - 1 - k))
             for k in range(R)
         )
         u = yd[:, PAD : PAD + t_frames - 1] / pb.env + pb.y_const
@@ -521,17 +528,18 @@ def _plain_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfi
         yp = torch.cat(
             [y2[:, 1 : half + 1].flip(-1), y2, y2[:, -half - 1 : -1].flip(-1)], dim=-1
         ).reshape(batch, t_frames + R - 1, hop)
-        cs2 = sum(yp[:, k : k + t_frames] @ c.cs[k * hop : (k + 1) * hop] for k in range(R))
+        cs2 = sum(matmul(yp[:, k : k + t_frames], c.cs[k * hop : (k + 1) * hop], prec)
+                  for k in range(R))
     else:
-        frames = c.frames_const + reim @ c.ab  # (B, T, n_fft)
+        frames = c.frames_const + matmul(reim, c.ab, prec)  # (B, T, n_fft)
         if pb.path == "ola":
             y2 = ola_normalize(frames, pb.env).reshape(batch, -1)
         else:
             y2 = peak_normalize(peak_normalize(
                 istft_synthesis(frames, n_fft, hop, None, env=pb.env.reshape(-1))))
-        cs2 = stft_frames(y2, n_fft, hop, c.window) @ c.cs
+        cs2 = matmul(stft_frames(y2, n_fft, hop, c.window), c.cs, prec)
     m2 = safe_magnitude(cs2[..., : pb.nb], cs2[..., pb.nb :])
-    return net.forward_banded(m2.transpose(1, 2), pb.lo, pb.hi), y2
+    return net.forward_banded(m2.transpose(1, 2), pb.lo, pb.hi, prec), y2
 
 
 def _kernel_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig):
@@ -553,7 +561,7 @@ def _kernel_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConf
     y2 = y2.reshape(y2.shape[0], -1)
     cs2 = cs2 + edge_corrections(y2, pb.csw_k, cfg.frame_length, cfg.hop_length, t_frames)
     m2 = safe_magnitude(cs2[..., : pb.nb], cs2[..., p : p + pb.nb])
-    return net.forward_banded(m2.transpose(1, 2), pb.lo, pb.hi), y2
+    return net.forward_banded(m2.transpose(1, 2), pb.lo, pb.hi, cfg.matmul_precision), y2
 
 
 def objective(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig, it: int = 0):

@@ -15,8 +15,10 @@ The port of ``aware_tpu/models/detector.py``.  For a batch of magnitudes
     out = tanh(mean_t(x)[0::2] - mean_t(x)[1::2])          # BRH, (B, 20)
 
 Every normalization is per clip, as under ``vmap`` in the JAX package.
-The 1x1 convolutions are batched matmuls in float32; the callers turn
-TF32 off (``service.api.load``) so that they match the JAX package.
+The mel projection and the 1x1 convolutions are batched matmuls at the
+card's ``matmul_precision`` (:func:`matmul`): float32 for "high" and
+"highest", one bf16 pass for "default"; the callers turn TF32 off
+(``service.api.load``) so that they match the JAX package.
 """
 
 from __future__ import annotations
@@ -57,6 +59,49 @@ def params_from_jax(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
         for k, v in params.items()
     }
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even), kept in its own dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+class _Bf16Matmul(torch.autograd.Function):
+    """a @ b as ``jax.lax.Precision.DEFAULT`` computes it on a TPU, both
+    ways: each operand rounded to bf16, the products exact in float32,
+    float32 accumulation and result; the VJP's products likewise (the
+    cotangent rounded too).  ``torch.matmul`` of two bf16 tensors would
+    round the result to bf16 as well: a different function.  The rounded
+    operands are saved for the VJP as bf16, which holds them exactly."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ctx.save_for_backward(a16, b16)
+        ctx.shapes = (a.shape, b.shape)
+        return torch.matmul(a16.to(a.dtype), b16.to(b.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        ar, br = a16.to(g.dtype), b16.to(g.dtype)
+        gr = _bf16_round(g)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(gr, br.transpose(-1, -2)).sum_to_size(ctx.shapes[0])
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(ar.transpose(-1, -2), gr).sum_to_size(ctx.shapes[1])
+        return ga, gb
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """a @ b at a JAX matmul precision: "default" is one bf16 pass
+    (:class:`_Bf16Matmul`); "high" and "highest" multiply in float32 (with
+    TF32 off, as ``service.api.load`` sets it).  The one place of the
+    port's plain paths where the precision is applied."""
+    if precision == "default":
+        return _Bf16Matmul.apply(a, b)
+    return torch.matmul(a, b)
 
 
 def global_standardize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -103,7 +148,7 @@ class DetectorNet(nn.Module):
             self.register_buffer(f"conv{i}_w", w.float())
             self.register_buffer(f"conv{i}_b", b.float())
 
-    def _stack(self, mel: torch.Tensor) -> torch.Tensor:
+    def _stack(self, mel: torch.Tensor, precision: str) -> torch.Tensor:
         cfg = self.cfg
         x = instance_norm(mel)
         x = global_standardize(x)
@@ -111,20 +156,22 @@ class DetectorNet(nn.Module):
         for i in range(cfg.num_blocks + 1):
             w = getattr(self, f"conv{i}_w")
             b = getattr(self, f"conv{i}_b")
-            x = instance_norm(torch.matmul(w, x) + b[:, None])
+            x = instance_norm(matmul(w, x, precision) + b[:, None])
             x = torch.where(x >= 0, x, 0.2 * x)
         pooled = x.mean(dim=-1)
         return torch.tanh(pooled[..., 0::2] - pooled[..., 1::2])
 
-    def forward(self, mag: torch.Tensor) -> torch.Tensor:
-        """Magnitude (..., F, T) -> bit values (..., output_length)."""
-        return self._stack(torch.matmul(self.mel_basis, mag))
+    def forward(self, mag: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+        """Magnitude (..., F, T) -> bit values (..., output_length), every
+        product at ``precision`` (:func:`matmul`)."""
+        return self._stack(matmul(self.mel_basis, mag, precision), precision)
 
-    def forward_banded(self, band_mag: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    def forward_banded(self, band_mag: torch.Tensor, lo: int, hi: int,
+                       precision: str = "highest") -> torch.Tensor:
         """Forward from the in-band rows (..., hi-lo, T) alone: identical to
         :meth:`forward` on the band-zeroed magnitude, since out-of-band rows
         add nothing to the mel projection.  The embed solver's entry."""
-        return self._stack(torch.matmul(self.mel_basis[:, lo:hi], band_mag))
+        return self._stack(matmul(self.mel_basis[:, lo:hi], band_mag, precision), precision)
 
 
 def preprocess_magnitude(
@@ -145,13 +192,15 @@ def detect_values_batch(
     window: str = "hann",
     win_length: int | None = None,
     embedding_bands: tuple[float, float] = (500.0, 4000.0),
+    precision: str = "highest",
 ) -> torch.Tensor:
-    """Waveforms (B, L) -> detector values (B, output_length)."""
+    """Waveforms (B, L) -> detector values (B, output_length), the
+    detector's products at ``precision`` (:func:`matmul`)."""
     cfg = net.cfg
     w = get_window(window, win_length or cfg.n_fft)
     lo, hi = in_band_bins(cfg.sample_rate, cfg.n_fft, embedding_bands)
     with torch.no_grad():
-        return net(preprocess_magnitude(audios, cfg.n_fft, hop_length, w, lo, hi))
+        return net(preprocess_magnitude(audios, cfg.n_fft, hop_length, w, lo, hi), precision)
 
 
 def detect_values(net: DetectorNet, audio: torch.Tensor, **kwargs) -> torch.Tensor:

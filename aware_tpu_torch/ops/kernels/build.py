@@ -79,6 +79,10 @@ SIGNATURES = {
     "aw_ola_fwd_cluster": [_P] * 4 + [_I] * 4 + [_P],
     "aw_ola_bwd_cluster": [_P] * 5 + [_I] * 4 + [_P],
     "aw_ola_cluster_config": [_I] * 4 + [_P] * 5,
+    # x, coefs, zi (null for none), y, then batch, length and the state
+    # length (lfilter) or the sections (sosfilt)
+    "aw_lfilter": [_P] * 4 + [_I] * 3 + [_P],
+    "aw_sosfilt": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 

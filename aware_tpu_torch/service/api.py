@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from aware_tpu_torch.config import AwareConfig, DetectorNetConfig
+from aware_tpu_torch.device import resolve_device
 from aware_tpu_torch.embed.solver import check_supported, embed_batch
 from aware_tpu_torch.models.detector import (
     DetectorNet,
@@ -50,16 +51,6 @@ def _card_path(card: str | pathlib.Path) -> pathlib.Path:
     if not path.exists() and (CARDS_DIR / f"{card}.yaml").exists():
         return CARDS_DIR / f"{card}.yaml"
     return path
-
-
-def _resolve_device(device: str | torch.device | None) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "aware_tpu_torch runs on a CUDA card and none is available; "
-            "pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -123,6 +114,7 @@ class AWAREDetector:
             window=self.cfg.window,
             win_length=self.cfg.win_length,
             embedding_bands=self.cfg.embedding_bands,
+            precision=self.cfg.matmul_precision,
         )
         return values.cpu().numpy()
 
@@ -169,15 +161,18 @@ def load(
     (``load("robust")``, ``"desync"``, ``"compression"``) never take the
     whole-iteration kernels, as in the JAX package: by default they run the
     synthesis kernel, the merged analysis + detector kernels and the views
-    in plain torch.  Detection is the
-    float32 plain-torch detector, as in the JAX package, which has no
-    detection kernel.
+    in plain torch.  ``load("turbo")`` (50 iterations, ``matmul_precision:
+    default``) takes the kernel paths, and its plain products (set-up,
+    detector) one bf16 pass each, as ``jax.lax.Precision.DEFAULT`` on a
+    TPU; its ``scan_unroll`` is read and unused.  Detection is the
+    plain-torch detector at the card's precision, as in the JAX package,
+    which has no detection kernel.
 
     TF32 is turned off for float32 matmuls and convolutions (process-wide
     switches of torch): the float32 detector would not match the JAX
     package's with it.
     """
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     if card is not None:
         import yaml  # only for a card file; the default path needs none
 

@@ -2,7 +2,7 @@
 """Chip check of aware_tpu_torch on one CUDA card (written for an H100).
 
     python3 chip_smoke.py            # all phases, the default card's 400 iterations
-    python3 chip_smoke.py --quick    # phases 0-2 only, each kernel checked, none timed
+    python3 chip_smoke.py --quick    # phases 0-2 and 8's filter checks, none timed
     python3 chip_smoke.py --reference-lib LIB  # also: rows 9-11 give LIB's bits
 
 Phases, each printing one progress line (plus details) and failing the run
@@ -158,7 +158,29 @@ with a non-zero exit on any error:
    2 clips, at 2 s and at T = 1025 (the tiled path with views), on the
    card against the CPU plain solve, within EOT_LOSS_TOL (twice the CPU
    solve's own spread, printed beside it); and a torch.profiler breakdown
-   of a 20-iteration robust-card solve.
+   of a 20-iteration robust-card solve;
+8. the turbo card and the robustness eval: the attack suite's filters,
+   the scan kernels aw_lfilter (the order-6 low-pass) and aw_sosfilt (the
+   order-4 high-pass, and twice for the band-stop sosfiltfilt at a fixed
+   band), against their plain loops at B = 4 lanes x 8000 samples within
+   FILTER_TOL * max|plain|, and at 1 lane x 160 000 samples against a
+   float64 recurrence within the JAX suite's bounds; load("turbo") (50
+   iterations, matmul_precision "default") -> embed_watermark_batch of the
+   phase 3 clips ->
+   detect_watermark_batch: 0 % BER on every lane and exactly 50
+   iteration_step launches, the embed s and peak memory against phase 3's
+   default-card embed, and the largest difference between the bf16 and
+   the float32 detection values (printed); then run_robustness_eval on the
+   turbo card (4 fixture clips, seed 0, the 22-attack suite, the attacks on
+   the card): every key, clean_ber, ber:pcm_16 and ber:pcm_24 at 0, the
+   filter kernels launched once (low_pass) and three times (high_pass, the
+   band-stop's two passes) a clip; every key, the MP3 rows it took, the
+   wall seconds and the attacks' share, beside the JAX package's own record
+   of that eval (EVAL_RESULTS_TURBO.json); then each filter kernel against
+   its plain loop on the very inputs the eval gave it on its first clip
+   (one lane of the watermarked clip's length, the band-stop's passes that
+   plus its padding), within FILTER_TOL * max|plain|, each timed beside its
+   plain version: the kernels' records.
 
 The last lines are one JSON object with a record per kernel
 ({"kernels": [...]}), nvidia-smi's name/power line, and
@@ -169,6 +191,7 @@ package beside it, the script fails and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -179,6 +202,7 @@ import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
+PEAK_F32_FLOPS = 67e12    # H100 SXM float32 rate outside the tensor cores
 TOL = 1e-3                # round-trip kernels vs plain, relative to max|plain|
 LIB_TOL = 1e-2            # a bf16-output library call vs plain, relative to max|plain|
 F32, BF16 = 4, 2          # bytes
@@ -369,9 +393,10 @@ def _det_counts(bsz, t, p, td):
     return flops, fwd_bytes, bwd_bytes, weights, residuals
 
 
-def _record(name, source, replaces, err, flops, nbytes, library_ms=None) -> dict:
+def _record(name, source, replaces, err, flops, nbytes, library_ms=None,
+            peak_flops=PEAK_BF16_FLOPS) -> dict:
     """One kernel's record; bound = max(FLOP / peak, bytes / peak rate)."""
-    t_flop = flops / PEAK_BF16_FLOPS * 1e3
+    t_flop = flops / peak_flops * 1e3
     t_byte = nbytes / PEAK_BYTES * 1e3
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1786,7 +1811,8 @@ def solve_path(torch, kernels, label, emb, det, clips, bits, per_iteration, reco
     """One solver path: the batch embed and detect, with every count set to
     0 just before and read just after; each of the path's kernels
     (``per_iteration``: name -> launches per iteration) must have launched
-    that many times per iteration, every other kernel never."""
+    that many times per iteration, every other kernel never.  Returns the
+    watermarked clips and the embed's seconds."""
     from aware_tpu_torch import detect_watermark_batch, embed_watermark_batch
 
     cfg = emb.cfg
@@ -1827,7 +1853,7 @@ def solve_path(torch, kernels, label, emb, det, clips, bits, per_iteration, reco
     for name in per_iteration:
         if records[name]["launches"] == 0:  # the first path that runs it
             records[name]["launches"] = launches[name]
-    return out
+    return out, embed_s
 
 
 # the two-kernel path's kernels, one launch each an iteration: the path of
@@ -1882,8 +1908,8 @@ def eot_cards(torch, kernels, clips, bits, default_out, det_default, det_cpu, re
         if path != "analysis_detector":
             raise RuntimeError(f'load("{card}") took the {path} path, not analysis_detector')
         outs[card] = (solve_path(torch, kernels, f'{card} card (load("{card}"), {path})', e, d,
-                                 clips, bits, dict.fromkeys(TWO_KERNEL, 1), records, phase="7"),
-                      e, d)
+                                 clips, bits, dict.fromkeys(TWO_KERNEL, 1), records,
+                                 phase="7")[0], e, d)
     robust = stretch_ber(torch, outs["robust"][0], bits, outs["robust"][2])
     default = stretch_ber(torch, default_out, bits, det_default)
     say(f"phase 7 time_stretch {STRETCH_RATES}: mean BER % robust card {robust:.3f}, "
@@ -1926,6 +1952,318 @@ def eot_cards(torch, kernels, clips, bits, default_out, det_default, det_cpu, re
     prof_cfg = e.cfg.replace(num_iterations=20)
     say(f"phase 7 profile, robust card, B={BATCH} x 20 iterations: " + profile_solve(
         torch, lambda: embed_batch(d.net, x, wm, prof_cfg), trace))
+
+
+# ---- phase 8: the turbo card and the robustness eval
+FILTER_TOL = 1e-4              # filter kernels vs plain, relative to max|plain|
+FILTER_REF_TOL = (1e-3, 1e-2)  # at 160 000 samples vs float64: atol, rtol
+#                                (the JAX suite's, tests/test_attacks.py:151-156)
+BANDSTOP_LOW = 1000.0          # Hz, the band-stop check's fixed band [1000, 1200)
+EVAL_CLIPS = 4
+IIR_SOURCE = "aware_tpu_torch/csrc/iir.cu"
+
+
+def _df2t64(b, a, x) -> np.ndarray:
+    """lfilter in float64 Python floats: the reference recurrence."""
+    n = len(b)
+    z = [0.0] * (n - 1)
+    y = np.empty(len(x))
+    for t, xn in enumerate(x.tolist()):
+        yn = b[0] * xn + z[0]
+        for i in range(n - 1):
+            z[i] = b[i + 1] * xn - a[i + 1] * yn + (z[i + 1] if i + 2 < n else 0.0)
+        y[t] = yn
+    return y
+
+
+def _sos64(sos, x, zi=None) -> np.ndarray:
+    """sosfilt in float64 Python floats."""
+    c = [list(map(float, np.concatenate([r[:3], r[3:] / r[3]]))) for r in np.asarray(sos)]
+    z = [list(map(float, r)) for r in zi] if zi is not None else [[0.0, 0.0] for _ in c]
+    y = np.empty(len(x))
+    for t, v in enumerate(x.tolist()):
+        for s, (b0, b1, b2, _, a1, a2) in enumerate(c):
+            out = b0 * v + z[s][0]
+            z[s][0], z[s][1] = b1 * v - a1 * out + z[s][1], b2 * v - a2 * out
+            v = out
+        y[t] = v
+    return y
+
+
+def _sosfiltfilt_with(torch, scan, sos, x):
+    """ops.iir.sosfiltfilt on (B, L), each pass through ``scan`` (the
+    kernel's wrapper or its plain version), or with ``scan`` None in float64
+    on the host from ``x`` (L,) as numpy."""
+    from aware_tpu_torch.ops import iir
+
+    padlen = 3 * (2 * len(sos) + 1)
+    zi = iir.sosfilt_zi(sos)
+    if scan is None:
+        ext = np.concatenate([2 * x[:1] - x[1 : padlen + 1][::-1], x,
+                              2 * x[-1:] - x[-padlen - 1 : -1][::-1]])
+        y = _sos64(sos, ext, zi * ext[0])[::-1]
+        return _sos64(sos, y, zi * y[0])[::-1][padlen:-padlen]
+    ext = iir._odd_ext(x, padlen)
+    zt = iir.device_array(zi, x.device)
+    y = scan(ext, sos, (zt * ext[:, :1, None]).contiguous()).flip(-1)
+    return scan(y, sos, (zt * y[:, :1, None]).contiguous()).flip(-1)[:, padlen:-padlen]
+
+
+def _events_ms(torch, fn):
+    """(the result, device ms) of one call of ``fn`` by CUDA events: the
+    plain loops, hundreds of thousands of launches, too many to capture in
+    a graph, and seconds long, so that a warm-up call would add little to
+    the reading and much to the run."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def filter_checks(torch, rng, quick: bool) -> dict:
+    """The attack suite's three filters on the card: the scan kernels
+    against their plain versions at B = 4 lanes x 8000 samples (within
+    FILTER_TOL * max|plain|), and at 1 lane x 160 000 samples (a 10 s clip)
+    against a float64 recurrence (FILTER_REF_TOL).  Returns the two
+    kernels' records at B = 4 x 8000: ``eval_filter_checks`` replaces them
+    by the eval's own inputs where the eval runs."""
+    from aware_tpu_torch.ops import iir
+    from aware_tpu_torch.ops.kernels import iir as ki
+
+    sr = 16000
+    b, a = iir.butter(6, 4000.0 / (0.5 * sr), "low")          # low_pass
+    bn, an = iir._ba(b, a)
+    sos_hp = iir.butter_sos(4, 500.0 / (0.5 * sr), "high")     # high_pass
+    sos_bs = iir.butter_sos(4, (BANDSTOP_LOW / (0.5 * sr), (BANDSTOP_LOW + 200.0) / (0.5 * sr)),
+                            "bandstop")                          # bandstop_200Hz
+    dev = torch.device("cuda")
+    x = torch.as_tensor(rng.standard_normal((4, 8000)), dtype=torch.float32, device=dev)
+    cases = {
+        "low_pass (aw_lfilter)": (lambda: ki.lfilter_scan(x, bn, an),
+                                  lambda: ki.lfilter_plain(x, bn, an),
+                                  lambda: iir.lfilter(b, a, x)),
+        "high_pass (aw_sosfilt)": (lambda: ki.sosfilt_scan(x, sos_hp),
+                                   lambda: ki.sosfilt_plain(x, sos_hp),
+                                   lambda: iir.sosfilt(sos_hp, x)),
+        "bandstop_200Hz (aw_sosfilt, twice)": (
+            lambda: _sosfiltfilt_with(torch, ki.sosfilt_scan, sos_bs, x),
+            lambda: _sosfiltfilt_with(torch, ki.sosfilt_plain, sos_bs, x),
+            lambda: iir.sosfiltfilt(sos_bs, x)),
+    }
+    times = {}
+    for label, (kernel, plain, library) in cases.items():
+        out_k = kernel()
+        out_p, plain_ms = (plain(), None) if quick else _events_ms(torch, plain)
+        if not torch.equal(out_k, library()):
+            raise RuntimeError(f"{label}: ops.iir does not give the wrapper's bits")
+        err = float((out_k - out_p).abs().max())
+        ref = float(out_p.abs().max())
+        say(f"phase 8 filter {label}, B=4 x 8000: max_abs_err vs plain {err:.3e} "
+            f"(bound {FILTER_TOL} * max|plain| = {FILTER_TOL * ref:.3e})")
+        if not (out_k.isfinite().all() and err <= FILTER_TOL * ref):
+            raise RuntimeError(f"{label}: the kernel departs from its plain version")
+        ms = None if quick else time_ms(torch, kernel, REPS)[0]
+        times[label] = (err, ms, plain_ms)
+        say(f"phase 8 filter {label}, B=4 x 8000: device ms kernel {ms} plain {plain_ms}")
+
+    # one 10 s clip against float64 recurrences on the host
+    x1 = rng.standard_normal(160000).astype(np.float32)
+    xt = torch.as_tensor(x1, device=dev)[None]
+    for label, kernel, ref in (
+        ("low_pass (aw_lfilter)", lambda: iir.lfilter(b, a, xt), lambda: _df2t64(bn, an, x1)),
+        ("high_pass (aw_sosfilt)", lambda: iir.sosfilt(sos_hp, xt), lambda: _sos64(sos_hp, x1)),
+        ("bandstop_200Hz (aw_sosfilt, twice)", lambda: iir.sosfiltfilt(sos_bs, xt),
+         lambda: _sosfiltfilt_with(torch, None, sos_bs, x1.astype(np.float64))),
+    ):
+        y = kernel()[0].cpu().numpy().astype(np.float64)
+        y64 = ref()
+        err = float(np.abs(y - y64).max())
+        atol, rtol = FILTER_REF_TOL
+        over = float(np.max(np.abs(y - y64) - rtol * np.abs(y64)))
+        ms = None if quick else time_ms(torch, kernel, 5)[0]
+        say(f"phase 8 filter {label}, 1 x 160000: max_abs_err vs float64 {err:.3e}, "
+            f"max(|err| - {rtol} |ref|) {over:.3e} (atol {atol}); device ms {ms}")
+        if not (np.isfinite(y).all() and over <= atol):
+            raise RuntimeError(f"{label}, 160000 samples: departs from the float64 recurrence")
+
+    lp = times["low_pass (aw_lfilter)"]
+    hp = times["high_pass (aw_sosfilt)"]
+    n = x.numel()
+    records = {
+        "aw_lfilter": _record("aw_lfilter", IIR_SOURCE,
+                              "aware_tpu/ops/iir.py:247 (lax.scan, not a TPU kernel)", lp[0],
+                              n * (2 + 4 * (len(bn) - 1)), 2 * n * F32, peak_flops=PEAK_F32_FLOPS),
+        "aw_sosfilt": _record("aw_sosfilt", IIR_SOURCE,
+                              "aware_tpu/ops/iir.py:304 (lax.scan, not a TPU kernel)", hp[0],
+                              n * 9 * len(sos_hp), 2 * n * F32, peak_flops=PEAK_F32_FLOPS),
+    }
+    for name, (_, ms, plain_ms) in (("aw_lfilter", lp), ("aw_sosfilt", hp)):
+        records[name].update(ms=ms, plain_ms=plain_ms)
+    return records
+
+
+class _Timed:
+    """An attack whose ``apply`` adds its wall seconds to ``spent``."""
+
+    def __init__(self, attack, spent: list):
+        self.attack, self.name, self.spent = attack, attack.name, spent
+
+    def apply(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.attack.apply(*args, **kwargs)
+        self.spent[0] += time.perf_counter() - t0
+        return out
+
+
+def turbo_and_eval(torch, kernels, clips, bits, default_s, records) -> None:
+    """Phase 8 after the filter checks: the turbo card on the phase 3 clips,
+    then run_robustness_eval on it with the 22-attack suite (module
+    docstring)."""
+    import pathlib
+
+    from aware_tpu_torch import load
+    from aware_tpu_torch.attacks import default_attack_suite
+    from aware_tpu_torch.embed.solver import build_problem
+    from aware_tpu_torch.eval import run_robustness_eval
+    from aware_tpu_torch.models.detector import detect_values_batch
+    from aware_tpu_torch.ops.kernels import iir as ki
+
+    dev = torch.device("cuda")
+    emb, det = load("turbo", device=dev)
+    x = torch.as_tensor(clips, device=dev)
+    wm = torch.as_tensor(2.0 * bits - 1.0, dtype=torch.float32, device=dev)
+    path = build_problem(det.net, x, wm, emb.cfg).path
+    if path != "iteration_step" or emb.cfg.num_iterations != 50:
+        raise RuntimeError(f'load("turbo") took the {path} path at {emb.cfg.num_iterations}')
+    out, embed_s = solve_path(torch, kernels, f'turbo card (load("turbo"), {path})', emb, det,
+                              clips, bits, {"iteration_step": 1}, records, phase="8")
+    say(f"phase 8 turbo embed {embed_s:.3f} s; over phase 3's 400-iteration default-card embed "
+        f"of the same clips: {embed_s / default_s:.4f}")
+    y = torch.as_tensor(out, device=dev)
+    v16 = detect_values_batch(det.net, y, precision="default")
+    v32 = detect_values_batch(det.net, y, precision="highest")
+    say(f"phase 8 turbo detection values, bf16 (the card's) vs float32 products: max |diff| "
+        f"{float((v16 - v32).abs().max()):.3e} (a reading); sign flips "
+        f"{int(((v16 > 0) != (v32 > 0)).sum())} of {v16.numel()}")
+
+    suite = default_attack_suite()
+    mp3_rows = [a.name for a in suite if a.name.startswith("mp3")]
+    say(f"phase 8 eval suite: {len(suite)} attacks, MP3 rows {mp3_rows} "
+        f"({'the real codec' if mp3_rows[0].startswith('mp3_') else 'the MDCT approximation'})")
+    spent = [0.0]
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _FilterInputs() as inputs:
+        results = run_robustness_eval(n_clips=EVAL_CLIPS, seed=0, model=(emb, det),
+                                      attacks=[_Timed(a, spent) for a in suite])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in kernels if k.launches}
+    say(f"phase 8 eval, turbo card, {EVAL_CLIPS} clips x {len(suite)} attacks: wall {wall:.3f} s, "
+        f"attacks {spent[0]:.3f} s ({100 * spent[0] / wall:.1f} %); launches {launched}")
+    say("phase 8 eval results (this run): " + json.dumps(results))
+    record = pathlib.Path(__file__).resolve().parent / "EVAL_RESULTS_TURBO.json"
+    say("phase 8 EVAL_RESULTS_TURBO.json, the JAX package's record of its own turbo-card eval "
+        "(BERs; no time): " + (json.dumps(json.loads(record.read_text())) if record.exists()
+                                else "absent"))
+    keys = {"clean_ber", "pesq", "pesq_proxy", "stoi", "snr"} | {f"ber:{a.name}" for a in suite}
+    missing = keys - set(results)
+    if missing or not all(np.isfinite(results[k]) for k in keys - {"snr"}):
+        raise RuntimeError(f"eval: keys missing {sorted(missing)} or not finite")
+    if results["clean_ber"] != 0.0 or results["ber:pcm_16"] != 0.0 or results["ber:pcm_24"] != 0.0:
+        raise RuntimeError("eval: the clean, pcm_16 or pcm_24 BER is not 0")
+    want = {"lfilter_scan": EVAL_CLIPS, "sosfilt_scan": 3 * EVAL_CLIPS,
+            "iteration_step": EVAL_CLIPS * emb.cfg.num_iterations}
+    got = {name: launched.get(name, 0) for name in want}
+    if got != want:
+        raise RuntimeError(f"eval: launches {got}, not {want}")
+    records["aw_lfilter"]["launches"] = ki.lfilter_scan.launches
+    records["aw_sosfilt"]["launches"] = ki.sosfilt_scan.launches
+    eval_filter_checks(torch, inputs, records)
+
+
+class _FilterInputs:
+    """While open, ``ops.iir``'s calls of the two scan wrappers go through
+    unchanged, and the arguments of the first clip's calls (one lfilter and
+    three sosfilt calls a clip) are kept, cloned, in ``calls``: the inputs
+    that the main path gives the kernels."""
+
+    PER_CLIP = {"lfilter_scan": 1, "sosfilt_scan": 3}
+
+    def __init__(self):
+        self.calls = {name: [] for name in self.PER_CLIP}
+
+    def __enter__(self):
+        from aware_tpu_torch.ops import iir
+
+        self.saved = {name: getattr(iir, name) for name in self.PER_CLIP}
+        for name, wrapper in self.saved.items():
+            setattr(iir, name, self._keeping(name, wrapper))
+        return self.calls
+
+    def _keeping(self, name, wrapper):
+        def call(*args):
+            if len(self.calls[name]) < self.PER_CLIP[name]:
+                self.calls[name].append(tuple(
+                    a.clone() if hasattr(a, "clone") else a for a in args))
+            return wrapper(*args)
+        return call
+
+    def __exit__(self, *exc):
+        from aware_tpu_torch.ops import iir
+
+        for name, wrapper in self.saved.items():
+            setattr(iir, name, wrapper)
+        return False
+
+
+def eval_filter_checks(torch, inputs, records) -> None:
+    """Each filter kernel against its plain loop on the inputs that the
+    eval gave it on its first clip (``_FilterInputs``), within FILTER_TOL *
+    max|plain|, each timed beside its plain version.  The kernel's record
+    takes the largest error over its calls and the first call's times and
+    bound (lfilter: the low-pass; sosfilt: its first call a clip)."""
+    from aware_tpu_torch.ops.kernels import iir as ki
+
+    plains = {"lfilter_scan": ki.lfilter_plain, "sosfilt_scan": ki.sosfilt_plain}
+    wrappers = {"lfilter_scan": ki.lfilter_scan, "sosfilt_scan": ki.sosfilt_scan}
+    names = {"lfilter_scan": "aw_lfilter", "sosfilt_scan": "aw_sosfilt"}
+    for key, calls in inputs.items():
+        if len(calls) != _FilterInputs.PER_CLIP[key]:
+            raise RuntimeError(f"eval: {len(calls)} {key} calls on its first clip")
+        rec, worst = records[names[key]], 0.0
+        for i, args in enumerate(calls):
+            x, zi = args[0], args[-1]
+            kernel = functools.partial(wrappers[key], *args)
+            out_k = kernel()
+            out_p, plain_ms = _events_ms(torch, functools.partial(plains[key], *args))
+            err = float((out_k - out_p).abs().max())
+            ref = float(out_p.abs().max())
+            ms = time_ms(torch, kernel, REPS)[0]
+            say(f"phase 8 filter {names[key]} on the eval's call {i} of its first clip, "
+                f"{tuple(x.shape)}{' with zi' if zi is not None else ''}: max_abs_err vs plain "
+                f"{err:.3e} (bound {FILTER_TOL} * max|plain| = {FILTER_TOL * ref:.3e}); device "
+                f"ms kernel {ms} plain {plain_ms}")
+            if not (out_k.isfinite().all() and err <= FILTER_TOL * ref):
+                raise RuntimeError(f"{names[key]}: departs from its plain version on the eval's "
+                                   f"input {tuple(x.shape)}")
+            worst = max(worst, err)
+            if i == 0:
+                n, taps = x.numel(), args[1]
+                if key == "lfilter_scan":
+                    flops = n * (2 + 4 * (len(taps) - 1))
+                else:
+                    flops = n * 9 * len(taps)
+                fresh = _record(names[key], IIR_SOURCE, rec["replaces"], 0.0, flops,
+                                2 * n * F32, peak_flops=PEAK_F32_FLOPS)
+                rec.update(bound_ms=fresh["bound_ms"], bound_by=fresh["bound_by"], ms=ms,
+                           plain_ms=plain_ms)
+        rec["max_abs_err"] = worst
 
 
 SHORT_LOSS_TOL = 0.1  # 10-iteration best loss, card vs CPU, below 32 frames
@@ -2026,7 +2364,8 @@ def short_sign_test(torch, paths, det_cpu) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--quick", action="store_true", help="phases 0-2, one launch each")
+    ap.add_argument("--quick", action="store_true",
+                    help="phases 0-2 and the filter checks of 8, one launch each")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None,
                     help="a directory for the Chrome traces of the phase 3 profiles")
@@ -2051,13 +2390,15 @@ def main() -> int:
     from aware_tpu_torch.embed.solver import build_problem, embed_batch, solve
     from aware_tpu_torch.ops.kernels import analysis_detector as tad
     from aware_tpu_torch.ops.kernels import detector as td
+    from aware_tpu_torch.ops.kernels import iir as ki
     from aware_tpu_torch.ops.kernels import iteration as it
     from aware_tpu_torch.ops.kernels import ola_norm as on
     from aware_tpu_torch.ops.kernels import roundtrip as rt
     from aware_tpu_torch.ops.kernels import roundtrip_tiled as rtt
     from aware_tpu_torch.ops.kernels.build import build
 
-    kernels = rt.KERNELS + td.KERNELS + tad.KERNELS + it.KERNELS + rtt.KERNELS + on.KERNELS
+    kernels = (rt.KERNELS + td.KERNELS + tad.KERNELS + it.KERNELS + rtt.KERNELS + on.KERNELS
+               + ki.KERNELS)
     t_start = time.perf_counter()
     # ---- phase 0: the card
     smi = subprocess.run(
@@ -2133,11 +2474,12 @@ def main() -> int:
         ):
             e, d = (emb, det) if not overrides else load(device=dev, **overrides)
             paths.append((label, e, d, names))
-        default_out = None
+        default_out = default_s = None
         for label, e, d, names in paths:
-            out = solve_path(torch, kernels, label, e, d, clips, bits, dict.fromkeys(names, 1),
-                             records)
-            default_out = out if default_out is None else default_out
+            out, embed_s = solve_path(torch, kernels, label, e, d, clips, bits,
+                                      dict.fromkeys(names, 1), records)
+            if default_out is None:
+                default_out, default_s = out, embed_s
         # the default, two-kernel and weight-decay paths again, in turns (a
         # later solve finds the process warm), then reversed
         turns = []
@@ -2295,10 +2637,18 @@ def main() -> int:
         eot_cards(torch, kernels, clips, bits, default_out, det, det_cpu, records,
                   f"{args.trace}/trace_robust.json" if args.trace else None)
 
+    # ---- phase 8: the filter kernels, the turbo card and the eval
+    records.update(filter_checks(torch, np.random.default_rng([args.seed, 8]), args.quick))
+    if not args.quick:
+        turbo_and_eval(torch, kernels, clips, bits, default_s, records)
         for name, rec in records.items():
             if rec["launches"] < 1:
                 raise RuntimeError(f"kernel {name} was not launched on any path")
+    return finish(torch, t_start, records, smi, kind)
 
+
+def finish(torch, t_start, records, smi, kind) -> int:
+    """The last three lines: the kernel records, nvidia-smi's line, the result."""
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(smi, flush=True)

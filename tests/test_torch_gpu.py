@@ -896,3 +896,43 @@ def test_ola_wrappers_reject_what_the_kernels_do_not_take(cuda):
     y2, m1 = on.ola_normalize_fwd(wf, env)
     with pytest.raises(ValueError):
         on.ola_normalize_bwd(g, y2, env, m1.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b_lanes, length", [(4, 8000), (1, 31744), (3, 37)])
+def test_iir_scan_kernels_match_plain(cuda, b_lanes, length):
+    """aw_lfilter and aw_sosfilt against their plain loops on the same CUDA
+    tensors, with and without an initial state: the same float32
+    operations in the same order (no FMA contraction), so the same bits."""
+    from aware_tpu_torch.ops import iir
+    from aware_tpu_torch.ops.kernels import iir as ki
+
+    x = torch.as_tensor(np.random.default_rng(length).standard_normal((b_lanes, length)),
+                        dtype=torch.float32, device=cuda)
+    bn, an = iir._ba(*iir.butter(6, 0.5, "low"))
+    sos = iir.butter_sos(4, (1000 / 8000, 1200 / 8000), "bandstop")
+    zl = torch.randn(b_lanes, len(bn) - 1, device=cuda)
+    zs = torch.randn(b_lanes, len(sos), 2, device=cuda)
+    before = (ki.lfilter_scan.launches, ki.sosfilt_scan.launches)
+    for kernel, plain in (
+        (lambda: ki.lfilter_scan(x, bn, an), lambda: ki.lfilter_plain(x, bn, an)),
+        (lambda: ki.lfilter_scan(x, bn, an, zl), lambda: ki.lfilter_plain(x, bn, an, zl)),
+        (lambda: ki.sosfilt_scan(x, sos), lambda: ki.sosfilt_plain(x, sos)),
+        (lambda: ki.sosfilt_scan(x, sos, zs), lambda: ki.sosfilt_plain(x, sos, zs)),
+    ):
+        out_k, out_p = kernel(), plain()
+        assert float((out_k - out_p).abs().max()) <= 1e-4 * float(out_p.abs().max())
+    assert (ki.lfilter_scan.launches, ki.sosfilt_scan.launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.gpu
+def test_iir_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from aware_tpu_torch.ops.kernels import iir as ki
+
+    x = torch.zeros(2, 100, device=cuda)
+    with pytest.raises(ValueError):
+        ki.lfilter_scan(x, np.ones(18), np.ones(18))
+    with pytest.raises(ValueError):
+        ki.sosfilt_scan(x, np.ones((2, 6)), torch.zeros(2, 2, 2))  # zi on the CPU
+    with pytest.raises(TypeError):
+        ki.sosfilt_scan(x.double(), np.ones((2, 6)))

@@ -122,9 +122,11 @@ def test_config_from_dict_reads_the_jax_key_names():
     assert cfg.tolerance_db == 3.0 and cfg.embedding_bands == (600, 3000)
     assert cfg.sched_params == {"patience": 5}
     # "highest" (the default card file's) selects the float32 slab path;
-    # "default" (the turbo card's single-pass bf16) has no path in the port
+    # "default" (the turbo card's single-pass bf16) loads, with scan_unroll
     assert AwareConfig.from_dict({"matmul_precision": "highest"}).matmul_precision == "highest"
+    turbo = AwareConfig.from_dict({"matmul_precision": "default", "scan_unroll": 2})
+    assert turbo.matmul_precision == "default" and turbo.scan_unroll == 2
     with pytest.raises(NotImplementedError, match="matmul_precision"):
-        AwareConfig.from_dict({"matmul_precision": "default"})
+        AwareConfig.from_dict({"matmul_precision": "fastest"})
     with pytest.raises(NotImplementedError, match="activation"):
         AwareConfig.from_dict({"detection_net_cfg": {"activation": "gelu"}})

@@ -211,13 +211,23 @@ def test_service_rejects_bad_input(handles, speechlike):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"scheduler_name": "cosine_annealing"}, {"matmul_precision": "default"},
+    {"scheduler_name": "cosine_annealing"},
     {"optimizer_name": "adam"}, {"loss": "hinge"}, {"vad": "webrtc_gmm"},
     {"frame_length": 2048, "win_length": 2048},
 ])
 def test_unported_paths_raise(overrides):
     with pytest.raises(NotImplementedError):
         aware_tpu_torch.load(device="cpu", **overrides)
+
+
+@pytest.mark.parametrize("overrides", [
+    {"matmul_precision": "default"},                   # the turbo card's precision
+    {"matmul_precision": "default", "scan_unroll": 2},  # bench.py's configuration
+])
+def test_configurations_that_now_load(overrides):
+    emb, det = aware_tpu_torch.load(device="cpu", **overrides)
+    assert all(getattr(emb.cfg, k) == v for k, v in overrides.items())
+    assert det.cfg is emb.cfg
 
 
 def test_long_clips_name_the_tiled_kernels(net):
