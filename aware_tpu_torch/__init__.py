@@ -9,9 +9,11 @@ Entry points run on the CUDA card unless the caller passes
 CUDA kernels (``csrc/*.cu``: the synthesis round trip, the reflect-pad
 analysis and the fused detector, forward and VJP), built with nvcc at
 first use; the attack suite's IIR filters are scan kernels
-(``csrc/iir.cu``).  This package imports torch, numpy and the standard
-library (and scipy in the host metrics and the MP3 codec's alignment); it
-never imports jax or aware_tpu.
+(``csrc/iir.cu``); the host runtime (WAV I/O, the GMM silence gate, the
+batch loader: ``native.py``) is C++ built by g++ at first use.  This
+package imports torch, numpy and the standard library (and scipy in the
+host metrics and the MP3 codec's alignment); it never imports jax or
+aware_tpu.
 """
 
 __all__ = [

@@ -53,6 +53,15 @@ EOT_FIELDS = ("eot_stretch_rates", "eot_pitch_cents", "eot_mp3_qualities",
               "eot_celp_modes", "eot_ste_codecs")
 
 
+# the silence gates of the service: "spectral" (ops/vad.py, on the device)
+# and "webrtc_gmm" (the host runtime's GMM classifier, native.py)
+VADS = ("spectral", "webrtc_gmm")
+
+
+def _tuple(value: Any) -> Any:
+    return tuple(_tuple(v) for v in value) if isinstance(value, list) else value
+
+
 @dataclasses.dataclass(frozen=True)
 class AwareConfig:
     """Framework configuration: the default card's values."""
@@ -66,6 +75,8 @@ class AwareConfig:
     embedding_bands: tuple[float, float] = (500.0, 4000.0)
     tolerance_db: float = 6.0
     num_iterations: int = 400
+    # any name of embed/optim.py's, embed/schedulers.py's and
+    # embed/losses.py's registries (the JAX package's), with its params
     optimizer_name: str = "nadam"
     # sorted (key, value) tuples keep the config hashable; read them
     # through .opt_params / .sched_params
@@ -122,6 +133,8 @@ class AwareConfig:
     def __post_init__(self) -> None:
         if self.window not in ("hann", "hamming"):
             raise ValueError(f"Invalid window type: {self.window}")
+        if self.vad not in VADS:
+            raise ValueError(f"Invalid vad gate: {self.vad}")
         if self.eot_mode not in ("all", "cycle"):
             raise ValueError(f"Invalid eot_mode: {self.eot_mode}")
         if (isinstance(self.scan_unroll, bool) or not isinstance(self.scan_unroll, int)
@@ -130,7 +143,9 @@ class AwareConfig:
         for field in ("optimizer_params", "scheduler_params", "embedding_bands", *EOT_FIELDS):
             value = getattr(self, field)
             if isinstance(value, Mapping):
-                value = tuple(sorted(value.items()))
+                # a card's list values (betas, milestones) as tuples, so
+                # that the config stays hashable
+                value = tuple(sorted((k, _tuple(v)) for k, v in value.items()))
             elif isinstance(value, list):
                 value = tuple(value)
             object.__setattr__(self, field, value)

@@ -1,7 +1,8 @@
 """The batched adversarial embed solver.
 
 The port of ``aware_tpu/embed/solver.py`` (``build_problem`` with its
-path selection, ``embed_core``, ``embed_batch`` and ``_reconstruct``).
+path selection, ``embed_core``, ``embed_batch``, ``embed_lbfgs`` and
+``_reconstruct``).
 Each of ``num_iterations`` steps, for all B clips at once, in the padded
 time-major (B, T, P) coefficient layout, on one of the paths that
 ``build_problem`` selects as the JAX package's gate does
@@ -40,9 +41,9 @@ and, where the slab decomposition and the kernels' geometry both hold
         +/- tolerance_db box -> best snapshot; then the scheduler tick.
         Only the NAdam schedule's per-clip scalars and the tick are torch
         ops, with no host sync;
-    "iteration_forward" (use_pallas_iteration otherwise; in the port, NAdam
-        with weight decay): the iteration_forward kernel and its VJP
-        through autograd, then the generic step below;
+    "iteration_forward" (use_pallas_iteration otherwise: any other loss
+        or optimizer, or NAdam with weight decay): the iteration_forward
+        kernel and its VJP through autograd, then the generic step below;
     "analysis_detector" (use_pallas_iteration=False, the fused detector's
         gate): synth_norm (kernel) coeffs -> slab synthesis -> OLA ->
         envelope -> + out-of-band waveform -> double peak-norm -> y2, then
@@ -65,7 +66,7 @@ port of ``aware_tpu/embed/solver.py:180-316``): each iteration also
 scores the live waveform y2 of the round trip after a differentiable edit
 (attacks/: vocoder time stretch "ts", pitch shift "ps", mp3_approx "mp3",
 celp_approx "celp"), then peak-norm -> STFT -> |.| of the band -> the
-float32 banded detector -> push_extremes, and adds eot_weight x that loss
+float32 banded detector -> the card's loss, and adds eot_weight x that loss
 to each clip's; "cycle" takes view it % n_views in iteration it, "all" the
 mean over the views.  The views need y2, so that, as in the JAX package's
 gate (``:483``), a problem with views never takes "iteration_step" or
@@ -73,10 +74,16 @@ gate (``:483``), a problem with views never takes "iteration_step" or
 best snapshot then compares the totals of different views (the JAX
 package's "known bias", kept).
 
-The generic step of all but "iteration_step": push_extremes loss (per
-clip), backward through the same chain (autograd, and the kernels' VJPs),
-NAdam step at the lr from before this step's scheduler tick, scheduler
-tick, clamp to the box, best snapshot.  The plain paths' products (the
+The generic step of all but "iteration_step": the card's loss (per clip,
+``embed/losses.py``), backward through the same chain (autograd, and the
+kernels' VJPs; a loss with no gradient graph, "ber", gives a zero
+gradient, as JAX's is), the card's optimizer step (``embed/optim.py``) at
+the lr from before this step's scheduler tick, the card's scheduler tick
+(``embed/schedulers.py``), clamp to the box, best snapshot.  The
+schedulers tick on "iteration_step" too: only the loss and the optimizer
+select the path.  L-BFGS (``optimizer_name == "lbfgs"``) is a host loop
+over one clip, ``embed_lbfgs``, with one value and gradient an iteration
+through the problem's path.  The plain paths' products (the
 set-up's out-of-band frames, the float32 round trips, the plain-torch
 detector and the views' detector) take the card's matmul_precision as
 XLA's do in the JAX package: float32 for "high" and "highest" (TF32 is
@@ -106,9 +113,10 @@ from aware_tpu_torch.attacks.celp import celp_approx
 from aware_tpu_torch.attacks.codec import mp3_approx
 from aware_tpu_torch.attacks.vocoder import pitch_shift, time_stretch
 from aware_tpu_torch.config import MATMUL_PRECISIONS, AwareConfig, in_band_bins
-from aware_tpu_torch.embed.losses import push_extremes
-from aware_tpu_torch.embed.optim import nadam, nadam_schedule
-from aware_tpu_torch.embed.schedulers import reduce_lr_on_plateau
+from aware_tpu_torch.embed.lbfgs import HISTORY_SIZE, LBFGSMemory, lbfgs_update
+from aware_tpu_torch.embed.losses import get_loss_fn
+from aware_tpu_torch.embed.optim import get_optimizer, nadam_schedule
+from aware_tpu_torch.embed.schedulers import get_scheduler
 from aware_tpu_torch.models.detector import DetectorNet, matmul
 from aware_tpu_torch.ops.kernels.analysis_detector import (
     MIN_FRAMES,
@@ -175,12 +183,6 @@ def check_supported(cfg: AwareConfig) -> None:
     unported = []
     if cfg.matmul_precision not in MATMUL_PRECISIONS:
         unported.append(f"matmul_precision {cfg.matmul_precision!r}")
-    if cfg.optimizer_name != "nadam":
-        unported.append(f"optimizer {cfg.optimizer_name!r}")
-    if cfg.loss != "push_extremes":
-        unported.append(f"loss {cfg.loss!r}")
-    if cfg.scheduler_name != "reduce_lr_on_plateau":
-        unported.append(f"scheduler {cfg.scheduler_name!r}")
     if cfg.frame_length != R * cfg.hop_length or cfg.hop_length % 128:
         unported.append(
             f"frame geometry {cfg.frame_length}/{cfg.hop_length} "
@@ -188,8 +190,6 @@ def check_supported(cfg: AwareConfig) -> None:
         )
     if cfg.win_length != cfg.frame_length:
         unported.append("win_length != frame_length")
-    if cfg.vad != "spectral":
-        unported.append(f"vad {cfg.vad!r}")
     if cfg.eot_ste_codecs:
         unported.append(
             f"eot_ste_codecs {cfg.eot_ste_codecs!r} (the voice card): these views run the "
@@ -228,12 +228,12 @@ def _view_loss(y: torch.Tensor, kind: str, value, pb: "Problem", net: DetectorNe
                cfg: AwareConfig) -> torch.Tensor:
     """Per-clip loss (B,) of one view of the live waveforms y (B, L): the
     edit, peak-norm, STFT, |.| of the band, the float32 banded detector
-    (``detector_apply_banded`` at float32), push_extremes."""
+    (``detector_apply_banded`` at the card's precision), the card's loss."""
     yr = _view(y, kind, value, cfg.detection_net.sample_rate)
     window = device_window(cfg.window, cfg.win_length, y.device)
     z = stft(peak_normalize(yr), cfg.frame_length, cfg.hop_length, window)[..., pb.lo : pb.hi, :]
     pred = net.forward_banded(safe_magnitude(z.real, z.imag), pb.lo, pb.hi, cfg.matmul_precision)
-    return push_extremes(pred, pb.wm)
+    return get_loss_fn(cfg.loss)(pred, pb.wm)
 
 
 def eot_loss(y: torch.Tensor, pb: "Problem", net: DetectorNet, cfg: AwareConfig,
@@ -566,10 +566,10 @@ def _kernel_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConf
 
 def objective(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig, it: int = 0):
     """Per-clip loss (B,) of the coefficients ct (B, T, P) in iteration
-    ``it``: push_extremes of the detector's bits, plus eot_weight x the
+    ``it``: the card's loss of the detector's bits, plus eot_weight x the
     EOT views' loss of the live waveforms where the config has views."""
     pred, y2 = (_plain_pred if pb.plain is not None else _kernel_pred)(ct, pb, net, cfg)
-    loss = push_extremes(pred, pb.wm)
+    loss = get_loss_fn(cfg.loss)(pred, pb.wm)
     if eot_views(cfg):
         loss = loss + cfg.eot_weight * eot_loss(y2, pb, net, cfg, it)
     return loss
@@ -587,14 +587,14 @@ def _reconstruct(pb: Problem, best_coeffs: torch.Tensor, cfg: AwareConfig):
 def _solve_steps(pb: Problem, cfg: AwareConfig):
     """The "iteration_step" path's loop: one iteration_step call per
     iteration, updating ct, m, v, best and best_loss in place, then the
-    scheduler tick on its loss.  NAdam's schedule comes from the same
-    float32 mu-product recursion as ``embed.optim.nadam``, per clip where
-    the lr is, on the device.  Returns (best, best_loss, final loss)."""
+    card's scheduler tick on its loss.  NAdam's schedule comes from the
+    same float32 mu-product recursion as ``embed.optim.nadam``, per clip
+    where the lr is, on the device.  Returns (best, best_loss, final loss)."""
     params = cfg.opt_params
     b1, b2 = params.get("betas", (0.9, 0.999))
     psi = params.get("momentum_decay", 4e-3)
     coefs = nadam_coefs((b1, b2), params.get("eps", 1e-8))
-    sched = reduce_lr_on_plateau(**cfg.sched_params)
+    sched = get_scheduler(cfg.scheduler_name, **cfg.sched_params)
     batch, t_frames, p = pb.ct0.shape
     dev = pb.ct0.device
 
@@ -622,13 +622,28 @@ def _solve_steps(pb: Problem, cfg: AwareConfig):
     return best, best_loss, loss.clone()
 
 
+def value_and_grad(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfig,
+                   it: int = 0):
+    """The objective (B,) of ct (B, T, P) in iteration ``it`` and its
+    gradient, by autograd through the kernels' VJPs.  A loss with no
+    gradient graph ("ber") has a zero gradient, as in JAX."""
+    leaf = ct.detach().requires_grad_(True)
+    with torch.enable_grad():
+        loss = objective(leaf, pb, net, cfg, it)
+        if loss.requires_grad:
+            (g,) = torch.autograd.grad(loss.sum(), leaf)
+        else:
+            g = torch.zeros_like(leaf)
+    return loss.detach(), g
+
+
 def _solve_autograd(pb: Problem, net: DetectorNet, cfg: AwareConfig):
     """The other paths' loop: the objective's gradient by autograd through
-    the kernels' VJPs, then NAdam, the tick, the clamp and the best
-    snapshot in torch (under the caller's no_grad).  Returns (best,
+    the kernels' VJPs, then the card's optimizer, scheduler tick, clamp and
+    best snapshot in torch (under the caller's no_grad).  Returns (best,
     best_loss, final loss)."""
-    opt = nadam(**{k: v for k, v in cfg.opt_params.items() if k != "lr"})
-    sched = reduce_lr_on_plateau(**cfg.sched_params)
+    opt = get_optimizer(cfg.optimizer_name, **cfg.opt_params)
+    sched = get_scheduler(cfg.scheduler_name, **cfg.sched_params)
     batch = pb.ct0.shape[0]
     dev = pb.ct0.device
 
@@ -639,11 +654,7 @@ def _solve_autograd(pb: Problem, net: DetectorNet, cfg: AwareConfig):
     best = ct
     loss = best_loss
     for it in range(cfg.num_iterations):
-        leaf = ct.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss = objective(leaf, pb, net, cfg, it)
-            (g,) = torch.autograd.grad(loss.sum(), leaf)
-        loss = loss.detach()
+        loss, g = value_and_grad(ct, pb, net, cfg, it)
         lr = sched_state["lr"]  # the lr from before this step's tick
         ct, opt_state = opt.update(g, opt_state, ct, lr)
         sched_state = sched.step(sched_state, loss)
@@ -671,6 +682,11 @@ def embed_batch(
 ) -> EmbedResult:
     """Embed B bipolar patterns (B, n_bits) into B equal-length clips
     (B, L), all on ``audios.device``."""
+    if cfg.optimizer_name == "lbfgs":
+        raise ValueError(
+            "lbfgs is a host-loop optimizer over one clip and cannot run in the batched "
+            "solver; call embed_lbfgs (the service's single-clip embed dispatches there)."
+        )
     check_supported(cfg)
     pb = build_problem(net, audios, watermarks, cfg)
     best, best_loss, loss = solve(pb, net, cfg)
@@ -678,3 +694,47 @@ def embed_batch(
         best_coeffs = best[..., : pb.nb].transpose(1, 2)
         audio = _reconstruct(pb, best_coeffs, cfg)
     return EmbedResult(audio, best_loss, loss, best_coeffs)
+
+
+def embed_lbfgs(
+    net: DetectorNet,
+    audio: torch.Tensor,
+    watermark: torch.Tensor,
+    cfg: AwareConfig,
+) -> EmbedResult:
+    """L-BFGS embed of one clip (L,) with a bipolar pattern (n_bits,), on
+    ``audio.device``: the port of ``aware_tpu/embed/solver.py:825-883``.
+
+    One quasi-Newton iteration (``embed/lbfgs.py``) per solver iteration,
+    on the flat (T, P) carry, with one value and gradient of the objective
+    through the problem's path (on the default card rows 9-10, the
+    iteration_forward kernels); then the scheduler tick on the loss, the
+    clamp to the box and the best snapshot.  The lr defaults to torch's
+    LBFGS default, 1.0, where the card's params give none; history_size
+    comes from them.  The padding columns of the carry have zero
+    gradients, so they stay 0.  Returns the unbatched result: audio
+    ((T-1)*hop,), scalar losses, coeffs (n_band, T)."""
+    check_supported(cfg)
+    pb = build_problem(net, audio[None], watermark[None], cfg)
+    params = cfg.opt_params
+    mem = LBFGSMemory(history_size=int(params.get("history_size", HISTORY_SIZE)))
+    sched = get_scheduler(cfg.scheduler_name, **cfg.sched_params)
+    sched_state = sched.init(float(params.get("lr", 1.0)), 1, audio.device)
+    shape = pb.ct0.shape
+    x = pb.ct0.reshape(-1)
+    lower, upper = pb.lower.reshape(-1), pb.upper.reshape(-1)
+    best, best_loss, last_loss = x, float("inf"), float("inf")
+    with torch.no_grad():
+        for it in range(cfg.num_iterations):
+            loss, g = value_and_grad(x.reshape(shape), pb, net, cfg, it)
+            lr = float(sched_state["lr"][0])  # the lr from before this step's tick
+            x = lbfgs_update(mem, x, g, lr)
+            sched_state = sched.step(sched_state, loss)
+            x = torch.clamp(x, lower, upper)
+            # the best snapshot pairs loss t with the post-step, post-clamp x
+            last_loss = float(loss[0])
+            if last_loss < best_loss:
+                best_loss, best = last_loss, x
+        best_coeffs = best.reshape(shape)[..., : pb.nb].transpose(1, 2)
+        out = _reconstruct(pb, best_coeffs, cfg)
+    return EmbedResult(out[0], torch.tensor(best_loss), torch.tensor(last_loss), best_coeffs[0])

@@ -59,7 +59,7 @@ from typing import NamedTuple
 
 import torch
 
-from aware_tpu_torch.embed.losses import push_extremes
+from aware_tpu_torch.embed.losses import mse
 from aware_tpu_torch.ops.kernels.analysis_detector import (
     MIN_FRAMES,
     AnalysisDetConsts,
@@ -293,12 +293,14 @@ def iteration_forward_bwd_plain(g: torch.Tensor, res: IterResiduals, c: IterCons
 def push_extremes_grad(pred: torch.Tensor, wm: torch.Tensor):
     """The push_extremes loss of the first 20 lanes of pred (B, 128) against
     wm (B, 128), per clip (B,), and its gradient on pred (B, 128), 0 on the
-    other lanes: (2 (pred - wm) - 0.1 sgn(pred)) / 20, taken by autograd of
-    ``embed.losses.push_extremes`` so that it is the float the autograd
-    paths of the solver get."""
+    other lanes: (2 (pred - wm) - 0.1 sgn(pred)) / 20, with sgn(0) = 0 as
+    the kernels (and the JAX step kernel) take it, by autograd of
+    ``embed.losses.push_extremes``'s expression with torch's ``abs`` (whose
+    gradient at 0 is 0), so that off pred == 0 it is the float the
+    autograd paths of the solver get."""
     with torch.enable_grad():
         p = pred[:, :N_BITS].detach().requires_grad_(True)
-        loss = push_extremes(p, wm[:, :N_BITS])
+        loss = mse(p, wm[:, :N_BITS]) - 0.1 * p.abs().mean(dim=-1)
         (dp,) = torch.autograd.grad(loss.sum(), p)
     dpred = torch.zeros_like(pred)
     dpred[:, :N_BITS] = dp

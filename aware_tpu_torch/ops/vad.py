@@ -4,8 +4,8 @@ The port of ``aware_tpu/ops/vad.py:69`` (the "spectral" gate).  A 30 ms
 frame is voiced when it has (a) enough energy relative to full scale, (b)
 most of its energy in the speech band (80-3500 Hz) and (c) a moderate
 zero-crossing rate; a clip is silent when fewer than 0.01 s of its frames
-are voiced.  The reference's WebRTC GMM gate (``vad="webrtc_gmm"``) needs
-the JAX package's C++ runtime and is not ported.
+are voiced.  The reference's WebRTC GMM gate (``vad="webrtc_gmm"``) is the
+host runtime's (``aware_tpu_torch/native.py``).
 """
 
 from __future__ import annotations

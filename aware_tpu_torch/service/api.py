@@ -8,7 +8,9 @@ quietly.
 Reference quirks kept: the per-channel rescale uses the **signed max** of
 the pre-embed channel, not the absolute max; stereo detection merges per
 bit by the larger absolute value; silent clips are rejected by the VAD
-gate (or, in a batch with ``on_silent="mask"``, passed through).
+gate that ``cfg.vad`` names (or, in a batch with ``on_silent="mask"``,
+passed through): "spectral" on the device, "webrtc_gmm" the host
+runtime's GMM classifier (``native.py``), clip by clip.
 Sample rates other than the model's 16 kHz are resampled in and back out.
 """
 
@@ -23,7 +25,10 @@ import torch
 
 from aware_tpu_torch.config import AwareConfig, DetectorNetConfig
 from aware_tpu_torch.device import resolve_device
-from aware_tpu_torch.embed.solver import check_supported, embed_batch
+from aware_tpu_torch.embed.losses import get_loss_fn
+from aware_tpu_torch.embed.optim import get_optimizer
+from aware_tpu_torch.embed.schedulers import get_scheduler
+from aware_tpu_torch.embed.solver import check_supported, embed_batch, embed_lbfgs
 from aware_tpu_torch.models.detector import (
     DetectorNet,
     detect_values_batch,
@@ -81,11 +86,20 @@ class AWAREEmbedder:
         return res.audio.cpu().numpy()
 
     def embed(self, audio: np.ndarray, sample_rate: int, watermark: np.ndarray) -> np.ndarray:
-        """One mono clip at the model rate (see :meth:`embed_batch`)."""
+        """One mono clip at the model rate (see :meth:`embed_batch`);
+        ``lbfgs`` takes its host loop, ``embed_lbfgs``."""
         if sample_rate != self.cfg.detection_net.sample_rate:
             raise ValueError(
                 f"Embedder operates at {self.cfg.detection_net.sample_rate} Hz"
             )
+        if self.cfg.optimizer_name == "lbfgs":
+            res = embed_lbfgs(
+                self.net,
+                torch.as_tensor(np.asarray(audio, np.float32), device=self.device),
+                torch.as_tensor(np.asarray(watermark, np.float32), device=self.device),
+                self.cfg,
+            )
+            return res.audio.cpu().numpy()
         return self.embed_batch(np.asarray(audio)[None], np.asarray(watermark)[None])[0]
 
 
@@ -161,7 +175,16 @@ def load(
     (``load("robust")``, ``"desync"``, ``"compression"``) never take the
     whole-iteration kernels, as in the JAX package: by default they run the
     synthesis kernel, the merged analysis + detector kernels and the views
-    in plain torch.  ``load("turbo")`` (50 iterations, ``matmul_precision:
+    in plain torch.  Every loss, optimizer and scheduler of the card
+    schema loads (``loss``, ``optimizer_cfg``, ``scheduler_cfg``, or the
+    keywords ``loss=``, ``optimizer_name=`` / ``optimizer_params=``,
+    ``scheduler_name=`` / ``scheduler_params=``): a loss or optimizer other
+    than push_extremes + NAdam without weight decay takes the
+    ``iteration_forward`` kernels (the JAX gate's), a scheduler alone
+    stays on the whole-step kernel; ``lbfgs`` embeds one clip at a time
+    (``embed_watermark``; the batch call raises ValueError, as in the JAX
+    package).  ``vad="webrtc_gmm"`` gates silence with the host runtime's
+    GMM classifier.  ``load("turbo")`` (50 iterations, ``matmul_precision:
     default``) takes the kernel paths, and its plain products (set-up,
     detector) one bf16 pass each, as ``jax.lax.Precision.DEFAULT`` on a
     TPU; its ``scan_unroll`` is read and unused.  Detection is the
@@ -182,6 +205,10 @@ def load(
     if overrides:
         cfg = cfg.replace(**overrides)
     check_supported(cfg)
+    # an unknown name or parameter raises here, not at the first embed
+    get_loss_fn(cfg.loss)
+    get_optimizer(cfg.optimizer_name, **cfg.opt_params)
+    get_scheduler(cfg.scheduler_name, **cfg.sched_params)
     net_cfg = cfg.detection_net
     if dataclasses.replace(net_cfg, key_file="") != DetectorNetConfig():
         raise NotImplementedError(
@@ -200,9 +227,19 @@ def load(
 # Service functions
 # ---------------------------------------------------------------------------
 
-def _silent(audios: np.ndarray, sample_rate: int, device: torch.device) -> np.ndarray:
-    """VAD gate per clip for (..., L) host audio -> bool array (...)."""
-    x = torch.as_tensor(np.asarray(audios, np.float32), device=device)
+def _silent(audios: np.ndarray, sample_rate: int, model: AWAREEmbedder) -> np.ndarray:
+    """The silence gate that ``cfg.vad`` names, per clip of (..., L) host
+    audio -> bool array (...): "spectral" on the model's device,
+    "webrtc_gmm" the host runtime's GMM classifier clip by clip (as the
+    JAX package's ``_gate_silent``; it raises without the library)."""
+    audios = np.asarray(audios, np.float32)
+    if model.cfg.vad == "webrtc_gmm":
+        from aware_tpu_torch.native import vad_gmm_is_silent
+
+        flat = audios.reshape(-1, audios.shape[-1])
+        return np.array([vad_gmm_is_silent(a, sample_rate) for a in flat]).reshape(
+            audios.shape[:-1])
+    x = torch.as_tensor(audios, device=model.device)
     return is_silent(x, sample_rate).cpu().numpy()
 
 
@@ -256,7 +293,7 @@ def embed_watermark(
     if audio.ndim == 2 and audio.shape[1] == 2:  # stereo
         left, right = audio[:, 0], audio[:, 1]
         left_mx, right_mx = np.max(left), np.max(right)  # signed-max quirk
-        silent_l, silent_r = _silent(audio.T, sample_rate, model.device)
+        silent_l, silent_r = _silent(audio.T, sample_rate, model)
         if silent_l and silent_r:
             raise ValueError(_SILENT)
         left_wm = model.embed(left, sample_rate, pattern) * left_mx
@@ -265,7 +302,7 @@ def embed_watermark(
 
     if audio.ndim == 1 or (audio.ndim == 2 and audio.shape[1] == 1):  # mono
         mono = _as_float_mono(audio)
-        if _silent(mono, sample_rate, model.device):
+        if _silent(mono, sample_rate, model):
             raise ValueError(_SILENT)
         audio_mx = np.max(mono)  # signed-max quirk
         return model.embed(mono, sample_rate, pattern) * audio_mx
@@ -323,7 +360,7 @@ def embed_watermark_batch(
         audios = _resample_nd(audios, sample_rate, model_sr, model.device)
     silent = np.zeros(audios.shape[0], bool)
     if check_silence:
-        silent = _silent(audios, model_sr, model.device)
+        silent = _silent(audios, model_sr, model)
         if silent.any() and on_silent == "raise":
             raise ValueError(f"Clips {np.where(silent)[0].tolist()} contain no speech.")
     mx = np.max(audios, axis=1)  # signed-max quirk, per clip

@@ -181,6 +181,28 @@ with a non-zero exit on any error:
    (one lane of the watermarked clip's length, the band-stop's passes that
    plus its padding), within FILTER_TOL * max|plain|, each timed beside its
    plain version: the kernels' records.
+9. every solver mode of the card schema, and the host runtime: load() with
+   each of the six other losses, the eight other optimizers (sparse_adam
+   among them) and the six schedules (MODE_SCHEDULES: their params) ->
+   embed_watermark_batch of the phase 3 clips (8 x 10 s, 400 iterations)
+   -> detect_watermark_batch: a loss or optimizer mode launches rows 9-10
+   (iteration_forward and its VJP) 400 times each and row 11 never (ber:
+   no VJP, its loss has no gradient graph), a schedule row 11 400 times
+   and rows 9-10 never; 0 % BER on every lane but for sgd and adadelta
+   (printed: they barely move at lr 0.1, as in the JAX package) and bce
+   and ber, whose output must equal the 0-iteration reconstruction to the
+   bit (bce's loss is NaN, ber's gradient 0, as in the JAX package), and
+   sign, whose solve must reach a best loss of 0 on every lane and whose
+   BER is printed (MARGINLESS_MODES says why); per
+   mode the embed s and mean SNR, and a 10-iteration solve of 2 clips on
+   the card against the CPU plain solve within SHORT_LOSS_TOL; then lbfgs
+   through embed_watermark on one 10 s clip (0 % BER, rows 9-10 400 times
+   each) and its short solve; then the host runtime (aware_tpu_torch/
+   _native, built here with g++, the phase failing if it cannot be):
+   load(vad="webrtc_gmm") on the 8 clips and a silent lane under
+   on_silent="mask" (the silent lane masked and passed through, 0 % BER on
+   the others), and the batch loader over 9 files in batches of 4 with 4
+   threads giving the 1-thread batches in 20 runs.
 
 The last lines are one JSON object with a record per kernel
 ({"kernels": [...]}), nvidia-smi's name/power line, and
@@ -1806,13 +1828,10 @@ def check_ola_kernels(torch, pb, rng, quick: bool) -> dict:
     return records
 
 
-def solve_path(torch, kernels, label, emb, det, clips, bits, per_iteration, records,
-               phase="3") -> None:
-    """One solver path: the batch embed and detect, with every count set to
-    0 just before and read just after; each of the path's kernels
-    (``per_iteration``: name -> launches per iteration) must have launched
-    that many times per iteration, every other kernel never.  Returns the
-    watermarked clips and the embed's seconds."""
+def embed_and_read(torch, kernels, label, emb, det, clips, bits, phase="3") -> dict:
+    """The batch embed and detect of ``clips``, with every count set to 0
+    just before and read just after, and the line that reports them:
+    {"out", "embed_s", "ber" (% per lane), "snr" (dB per lane), "launches"}."""
     from aware_tpu_torch import detect_watermark_batch, embed_watermark_batch
 
     cfg = emb.cfg
@@ -1844,16 +1863,33 @@ def solve_path(torch, kernels, label, emb, det, clips, bits, per_iteration, reco
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
     )
     say(f"phase {phase} {label} launches: {launches}")
-    if ber.any():
-        raise RuntimeError(f"{label}: a lane did not read back its message")
+    return {"out": out, "embed_s": embed_s, "ber": ber, "snr": snr, "launches": launches}
+
+
+def check_launches(label, launches, per_iteration, iterations) -> None:
+    """Each kernel of ``per_iteration`` (name -> launches per iteration)
+    launched that many times per iteration, every other kernel never."""
     for name, n in launches.items():
-        want = cfg.num_iterations * per_iteration.get(name, 0)
+        want = iterations * per_iteration.get(name, 0)
         if n != want:
             raise RuntimeError(f"{label}: kernel {name} launched {n} times, not {want}")
+
+
+def solve_path(torch, kernels, label, emb, det, clips, bits, per_iteration, records,
+               phase="3") -> None:
+    """One solver path: ``embed_and_read``, 0 % BER on every lane, and each
+    of the path's kernels (``per_iteration``: name -> launches per
+    iteration) launched that many times per iteration, every other kernel
+    never.  Returns the watermarked clips and the embed's seconds."""
+    run = embed_and_read(torch, kernels, label, emb, det, clips, bits, phase)
+    launches = run["launches"]
+    if run["ber"].any():
+        raise RuntimeError(f"{label}: a lane did not read back its message")
+    check_launches(label, launches, per_iteration, emb.cfg.num_iterations)
     for name in per_iteration:
         if records[name]["launches"] == 0:  # the first path that runs it
             records[name]["launches"] = launches[name]
-    return out, embed_s
+    return run["out"], run["embed_s"]
 
 
 # the two-kernel path's kernels, one launch each an iteration: the path of
@@ -2362,6 +2398,208 @@ def short_sign_test(torch, paths, det_cpu) -> None:
                                f"{ag.SHORT_ALPHA}")
 
 
+# ---- phase 9: every solver mode of the card schema, and the host runtime
+MODE_LOSSES = ("hinge", "mse", "push_sigmoid", "sign", "bce", "ber")
+MODE_OPTIMIZERS = ("adam", "adamw", "sgd", "rmsprop", "adagrad", "adadelta", "adamax",
+                   "sparse_adam")
+MODE_SCHEDULES = {
+    "cosine_annealing": {"T_max": 400},
+    "cosine_annealing_warm_restarts": {"T_0": 50, "T_mult": 2},
+    "step": {"step_size": 100, "gamma": 0.5},
+    "multi_step": {"milestones": [100, 250], "gamma": 0.5},
+    "exponential": {"gamma": 0.995},
+    "cyclic": {"base_lr": 0.01, "max_lr": 0.1, "step_size_up": 100, "mode": "triangular2"},
+}
+# the modes whose output is the unperturbed reconstruction, in the JAX
+# package too: bce's loss is NaN on the detector's tanh outputs, so no step
+# is ever better; ber has no gradient
+UNPERTURBED = ("bce", "ber")
+# SGD and Adadelta barely move the coefficients at lr 0.1 (the JAX package
+# reads 20 % BER on a 2 s clip): their BER is printed, not gated
+SLOW_MODES = ("sgd", "adadelta")
+# the sign loss is 0 once every bit's sign is right inside the solve, so the
+# best snapshot keeps the first such iteration, whose smallest margin is
+# 1e-4 to 1e-2: the reconstruction can flip that bit on a lane, in the JAX
+# package too (its float32 path reads 5 % on one of six 2 s lanes;
+# ``PYTHONPATH=. python tests/test_torch_solver_modes.py`` retakes it).  Its
+# gate is the solve's own: best loss 0 on every lane; its BER is printed
+MARGINLESS_MODES = ("sign",)
+LOADER_FILES, LOADER_BATCH, LOADER_RUNS = 9, 4, 20  # 4 + 4 + 1: a short final batch
+
+
+def _short_solve(torch, label, cfg, d, det_cpu, pair, wm2, lbfgs=False) -> float:
+    """The 10-iteration solve of ``pair`` on the card and through the plain
+    versions on the CPU: |best_loss difference| (0 where both have none,
+    as bce's), held to SHORT_LOSS_TOL."""
+    from aware_tpu_torch.embed.solver import embed_batch, embed_lbfgs
+
+    short = cfg.replace(num_iterations=10)
+    dev = torch.device("cuda")
+    if lbfgs:
+        res = [embed_lbfgs(net, pair[0].to(dv), wm2[0].to(dv), short).best_loss.reshape(1)
+               for net, dv in ((d.net, dev), (det_cpu.net, torch.device("cpu")))]
+    else:
+        res = [embed_batch(net, pair.to(dv), wm2.to(dv), short).best_loss
+               for net, dv in ((d.net, dev), (det_cpu.net, torch.device("cpu")))]
+    card, cpu = res[0].cpu(), res[1]
+    both_none = torch.isinf(card) & torch.isinf(cpu)
+    dloss = float(torch.where(both_none, 0.0, (card - cpu).abs()).max())
+    say(f"phase 9 reference, {label}: 10-iteration best_loss card {card.tolist()} CPU plain "
+        f"{cpu.tolist()}, |diff| {dloss:.3e} (bound {SHORT_LOSS_TOL})")
+    if not dloss < SHORT_LOSS_TOL:
+        raise RuntimeError(f"{label}: the card's solve departs from the plain solve")
+    return dloss
+
+
+def solver_modes(torch, kernels, clips, bits, det_cpu) -> None:
+    """Phase 9: every loss, optimizer and schedule of the card schema, L-BFGS,
+    and the host runtime (module docstring).  Every mode runs, and the
+    phase then fails naming each mode that failed."""
+    from aware_tpu_torch import embed_watermark_batch, load
+    from aware_tpu_torch.embed.solver import build_problem, embed_batch
+
+    dev = torch.device("cuda")
+    sr = 16000
+    x = torch.as_tensor(clips, device=dev)
+    wm = torch.as_tensor(2.0 * bits - 1.0, dtype=torch.float32, device=dev)
+    pair, wm2 = torch.as_tensor(clips[:2, : 2 * sr]), wm[:2].cpu()
+    modes = ([(name, {"loss": name}) for name in MODE_LOSSES]
+             + [(name, {"optimizer_name": name}) for name in MODE_OPTIMIZERS]
+             + [(name, {"scheduler_name": name, "scheduler_params": params})
+                for name, params in MODE_SCHEDULES.items()])
+    start_out, summary, failed = None, [], []
+    for name, override in modes:
+        try:
+            e, d = load(device=dev, **override)
+            path = build_problem(d.net, x, wm, e.cfg).path
+            want = "iteration_step" if "scheduler_name" in override else "iteration_forward"
+            if path != want:
+                raise RuntimeError(f"the {path} path, not {want}")
+            # rows 9-10 for a loss or optimizer (ber's loss has no gradient
+            # graph, so nothing reaches the VJP), row 11 for a schedule
+            per_iteration = ({"iteration_step": 1} if want == "iteration_step" else
+                             {"iteration_forward_fwd": 1,
+                              "iteration_forward_bwd": int(name != "ber")})
+            label = f"mode {name} ({path})"
+            run = embed_and_read(torch, kernels, label, e, d, clips, bits, phase="9")
+            summary.append(f"{name} {run['embed_s']:.3f} s {run['snr'].mean():.2f} dB")
+            check_launches(label, run["launches"], per_iteration, e.cfg.num_iterations)
+            _short_solve(torch, label, e.cfg, d, det_cpu, pair, wm2)
+            if name in UNPERTURBED:
+                if start_out is None:
+                    e0, _ = load(device=dev, num_iterations=0)
+                    start_out = embed_watermark_batch(clips, sr, bits, e0)
+                diff = float(np.abs(run["out"] - start_out).max())
+                say(f"phase 9 {label}: max |output - the 0-iteration reconstruction| {diff:.3e}")
+                if diff != 0.0:
+                    raise RuntimeError("not the unperturbed reconstruction")
+            elif name in SLOW_MODES:
+                say(f"phase 9 {label}: mean BER {run['ber'].mean():.2f} % (a reading, not gated)")
+            elif name in MARGINLESS_MODES:
+                best = embed_batch(d.net, x, wm, e.cfg).best_loss
+                say(f"phase 9 {label}: best loss per lane {best.tolist()} (must be 0); mean BER "
+                    f"{run['ber'].mean():.2f} % (a reading, not gated)")
+                if best.abs().max() != 0.0:
+                    raise RuntimeError("the solve did not reach every sign")
+            elif run["ber"].any():
+                raise RuntimeError("a lane did not read back its message")
+        except RuntimeError as err:
+            say(f"phase 9 mode {name} FAILED: {err}")
+            failed.append(name)
+    say(f"phase 9 modes, B={len(clips)} x {clips.shape[1] / sr:g} s x 400 iterations, embed s "
+        "and mean SNR: " + "; ".join(summary))
+
+    try:
+        lbfgs_mode(torch, kernels, clips, bits, det_cpu, pair, wm2)
+    except RuntimeError as err:
+        say(f"phase 9 lbfgs FAILED: {err}")
+        failed.append("lbfgs")
+    host_runtime(torch, kernels, clips, bits)
+    if failed:
+        raise RuntimeError(f"phase 9: the modes {failed} failed")
+
+
+def lbfgs_mode(torch, kernels, clips, bits, det_cpu, pair, wm2) -> None:
+    """Phase 9's L-BFGS: the service's single-clip embed of the first clip,
+    one value and gradient an iteration through rows 9-10, then the short
+    solve of ``pair``."""
+    from aware_tpu_torch import detect_watermark, embed_watermark, load
+
+    sr = 16000
+    e, d = load(device=torch.device("cuda"), optimizer_name="lbfgs")
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = embed_watermark(clips[0], sr, bits[0], e)
+    torch.cuda.synchronize()
+    lbfgs_s = time.perf_counter() - t0
+    ber = float(np.mean(detect_watermark(out, sr, d) != bits[0]) * 100.0)
+    n_out = len(out)
+    snr = 10 * np.log10(np.mean(out**2) / np.mean((out - clips[0, :n_out]) ** 2))
+    launches = {k.__name__: k.launches for k in kernels}
+    say(f"phase 9 lbfgs (embed_watermark, 1 x {clips.shape[1] / sr:g} s x "
+        f"{e.cfg.num_iterations} iterations): embed "
+        f"{lbfgs_s:.3f} s, BER {ber} %, SNR {snr:.2f} dB, launches {launches}")
+    check_launches("lbfgs", launches, {"iteration_forward_fwd": 1, "iteration_forward_bwd": 1},
+                   e.cfg.num_iterations)
+    if ber != 0.0 or not np.isfinite(out).all():
+        raise RuntimeError("lbfgs: the clip did not read back its message")
+    _short_solve(torch, "lbfgs (embed_lbfgs)", e.cfg, d, det_cpu, pair, wm2, lbfgs=True)
+
+
+def host_runtime(torch, kernels, clips, bits) -> None:
+    """Phase 9's host runtime: the g++ build, the GMM gate on the phase 3
+    clips plus a silent lane, the loader's batches in file order."""
+    import tempfile
+
+    from aware_tpu_torch import detect_watermark_batch, embed_watermark_batch, load, native
+
+    t0 = time.perf_counter()
+    so = native.build_native()
+    say(f"phase 9 host runtime: g++ {time.perf_counter() - t0:.2f} s -> {so.name}")
+    sr = 16000
+    e, d = load(device=torch.device("cuda"), vad="webrtc_gmm")
+    lanes = np.concatenate([clips, np.zeros((1, clips.shape[1]), np.float32)])
+    lane_bits = np.concatenate([bits, bits[:1]])
+    t0 = time.perf_counter()
+    gate = [native.vad_gmm_is_silent(a, sr) for a in lanes]
+    gate_s = time.perf_counter() - t0
+    for k in kernels:
+        k.launches = 0
+    out, mask = embed_watermark_batch(lanes, sr, lane_bits, e, on_silent="mask")
+    launches = {k.__name__: k.launches for k in kernels}
+    ber = np.mean(detect_watermark_batch(out[:-1], sr, d) != bits, axis=1) * 100.0
+    say(f"phase 9 vad webrtc_gmm, {len(lanes)} lanes (the {len(clips)} clips and a silent one): "
+        f"gate {gate} in {gate_s:.3f} s on the host, mask {mask.tolist()}, BER % per lane "
+        f"{ber.tolist()}, launches {launches}")
+    check_launches("vad webrtc_gmm", launches, {"iteration_step": 1}, e.cfg.num_iterations)
+    if (mask.tolist() != [True] * len(clips) + [False] or ber.any()
+            or not np.array_equal(out[-1], lanes[-1, : out.shape[1]])):
+        raise RuntimeError("the GMM gate's batch embed failed")
+
+    rng = np.random.default_rng(9)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for i in range(LOADER_FILES):
+            path = f"{tmp}/clip{i}.wav"
+            native.write_wav(path, speechlike(rng, 0.25 + 0.05 * i, sr), sr)
+            files.append(path)
+        want = list(native.BatchLoader(files, LOADER_BATCH, sr // 2, n_threads=1))
+        t0 = time.perf_counter()
+        for _ in range(LOADER_RUNS):
+            got = list(native.BatchLoader(files, LOADER_BATCH, sr // 2, n_threads=4))
+            if len(got) != len(want) or not all(
+                    np.array_equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w)):
+                raise RuntimeError("the loader's batches with 4 threads differ from 1 thread's")
+        loader_s = time.perf_counter() - t0
+    say(f"phase 9 loader: {LOADER_FILES} files in batches of {LOADER_BATCH} (counts "
+        f"{[b[3] for b in want]}), 4 threads gave the 1-thread batches in {LOADER_RUNS} runs "
+        f"({loader_s:.3f} s)")
+    if [b[3] for b in want] != [4, 4, 1]:
+        raise RuntimeError("the loader's counts are not 4, 4, 1")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2641,6 +2879,8 @@ def main() -> int:
     records.update(filter_checks(torch, np.random.default_rng([args.seed, 8]), args.quick))
     if not args.quick:
         turbo_and_eval(torch, kernels, clips, bits, default_s, records)
+        # ---- phase 9: every solver mode, and the host runtime
+        solver_modes(torch, kernels, clips, bits, det_cpu)
         for name, rec in records.items():
             if rec["launches"] < 1:
                 raise RuntimeError(f"kernel {name} was not launched on any path")

@@ -211,9 +211,13 @@ def test_service_rejects_bad_input(handles, speechlike):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"scheduler_name": "cosine_annealing"},
-    {"optimizer_name": "adam"}, {"loss": "hinge"}, {"vad": "webrtc_gmm"},
+    # the frame geometries the JAX gate takes off the kernels, the window
+    # length and the voice card's host codecs are what the port refuses
     {"frame_length": 2048, "win_length": 2048},
+    {"hop_length": 200},
+    {"frame_length": 768, "win_length": 768},
+    {"win_length": 512},
+    {"eot_ste_codecs": ("gsm_fr",)},
 ])
 def test_unported_paths_raise(overrides):
     with pytest.raises(NotImplementedError):
@@ -223,6 +227,9 @@ def test_unported_paths_raise(overrides):
 @pytest.mark.parametrize("overrides", [
     {"matmul_precision": "default"},                   # the turbo card's precision
     {"matmul_precision": "default", "scan_unroll": 2},  # bench.py's configuration
+    # the solver modes and the GMM gate, refused before they were ported
+    {"scheduler_name": "cosine_annealing", "scheduler_params": (("T_max", 400),)},
+    {"optimizer_name": "adam"}, {"loss": "hinge"}, {"vad": "webrtc_gmm"},
 ])
 def test_configurations_that_now_load(overrides):
     emb, det = aware_tpu_torch.load(device="cpu", **overrides)
