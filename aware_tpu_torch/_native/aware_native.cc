@@ -549,6 +549,7 @@ struct AnLoader {
   std::atomic<bool> stop{false};
   std::atomic<int64_t> batches_produced{0};
   int64_t batches_total = 0;
+  int64_t next_push = 0;  // the batch whose turn it is to enter `ready` (under mu)
   std::mutex assemble_mu;
   std::condition_variable cv_turn;  // building_index moved on
   AnBatch* building = nullptr;
@@ -614,12 +615,21 @@ static void loader_worker(AnLoader* L) {
       L->building_index++;
       lk.unlock();
       L->cv_turn.notify_all();
+      // Batches enter the queue in file order: the worker that closed
+      // batch j+1 may get here before the one that closed batch j, so it
+      // waits for its turn as well as for room.  (assemble_mu is not held
+      // here, so an_loader_destroy can take it while this worker waits.)
       std::unique_lock<std::mutex> qk(L->mu);
-      L->cv_space.wait(qk, [L] {
-        return (int32_t)L->ready.size() < L->prefetch || L->stop.load();
+      L->cv_space.wait(qk, [L, my_batch] {
+        return (L->next_push == my_batch &&
+                (int32_t)L->ready.size() < L->prefetch) ||
+               L->stop.load();
       });
       L->ready.push(done);
+      L->next_push++;
+      qk.unlock();
       L->cv_ready.notify_all();
+      L->cv_space.notify_all();  // the next batch's worker may be waiting
     }
   }
 }

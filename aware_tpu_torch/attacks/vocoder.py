@@ -30,19 +30,25 @@ _N_FFT = 2048
 _HOP = 512
 
 
-@functools.lru_cache(maxsize=64)
+# 256: the robust detector's 12 stretch lanes and the fine grids around
+# them for one clip length (service/robust.py), with room to spare
+@functools.lru_cache(maxsize=256)
 def _plan(t_in: int, rate: float, device: torch.device, dtype: torch.dtype):
-    """(lo, lo + 1, frac, omega) of a stretch of ``t_in`` frames by
+    """(lo, hi, frac, omega) of a stretch of ``t_in`` frames by
     ``rate``.  The fractional analysis positions are taken on the host,
     with numpy, as the JAX package takes them, so that the output length
     is the same."""
     steps = np.arange(0.0, t_in - 1, rate)
     lo = np.floor(steps).astype(np.int64)
     frac = torch.as_tensor((steps - lo)[None, :], dtype=dtype, device=device)
+    # arange's float step can reach t_in - 1 itself (t_in 51 at rate 1/1.12:
+    # 57 steps, the last 50.0); JAX's gather clamps the frame after it to
+    # the last one, where frac is 0
+    hi = np.minimum(lo + 1, t_in - 1)
     # the expected phase advance a hop of each bin
     omega = (2.0 * np.pi * _HOP * np.arange(_N_FFT // 2 + 1) / _N_FFT).astype(np.float64)
     omega = torch.as_tensor(omega[:, None], dtype=dtype, device=device)
-    return torch.as_tensor(lo, device=device), torch.as_tensor(lo + 1, device=device), frac, omega
+    return torch.as_tensor(lo, device=device), torch.as_tensor(hi, device=device), frac, omega
 
 
 def time_stretch(x: torch.Tensor, rate: float) -> torch.Tensor:

@@ -11,7 +11,7 @@ speech-like fixtures unless a WAV directory is given.  Embedding, the
 attacks and the device metrics run on the model's device.
 
 Run:  python -m aware_tpu_torch.eval [audio_dir] [--clips N] [--seed S]
-      [--card NAME] [--cpu]
+      [--card NAME] [--robust-detect] [--cpu]
 """
 
 from __future__ import annotations
@@ -36,9 +36,6 @@ from aware_tpu_torch.service.api import (
 from aware_tpu_torch.utils.io import read_wav
 
 logger = logging.getLogger("aware_tpu_torch.eval")
-
-_ROBUST = ("robust detection (the rate-search compensation detector, service/robust.py) "
-           "is not ported")
 
 
 def synthesize_speech_clip(seed: int, seconds: float = 2.0, sr: int = 16000) -> np.ndarray:
@@ -91,16 +88,19 @@ def run_robustness_eval(
     clips; BERs are percentages per the reference metric quirk).  A clip
     that ``embed_watermark`` rejects (the VAD gate) is skipped.  ``model``
     defaults to ``load(device=device)``; everything runs on the model's
-    device.  ``robust=True`` (the rate-search detector) is not ported and
-    raises.
+    device.  With ``robust=True`` every detection goes through the
+    rate-search compensation detector (``service/robust.py``,
+    ``detect_watermark_robust``) instead of the plain forward.
     """
-    if robust:
-        raise NotImplementedError(_ROBUST)
     embedder, detector = model if model else load(device=device)
     dev = embedder.device
     attacks = list(default_attack_suite()) if attacks is None else list(attacks)
     clips = _load_clips(audio_dir, n_clips, seed, sample_rate, dev)
     rng = np.random.default_rng(seed)
+    if robust:
+        from aware_tpu_torch.service.robust import detect_watermark_robust as _detect
+    else:
+        _detect = detect_watermark
 
     rec: dict[str, list[float]] = {
         "clean_ber": [], "pesq": [], "pesq_proxy": [], "stoi": [], "snr": [],
@@ -113,7 +113,7 @@ def run_robustness_eval(
         except ValueError as e:
             logger.warning("skipping clip %d: %s", i, e)
             continue
-        detected = detect_watermark(wm, sample_rate, detector)
+        detected = _detect(wm, sample_rate, detector)
         rec["clean_ber"].append(ber(bits, detected))
         rec["pesq"].append(pesq(wm, audio, sample_rate, device=dev))
         rec["pesq_proxy"].append(pesq_proxy(wm, audio, sample_rate, device=dev))
@@ -122,8 +122,7 @@ def run_robustness_eval(
 
         for j, attack in enumerate(attacks):
             attacked = attack.apply(wm, sample_rate, key=seed * 10007 + i * 101 + j, device=dev)
-            detected = detect_watermark(np.asarray(attacked, dtype=np.float32), sample_rate,
-                                        detector)
+            detected = _detect(np.asarray(attacked, dtype=np.float32), sample_rate, detector)
             rec.setdefault(f"ber:{attack.name}", []).append(ber(bits, detected))
 
     results = {k: float(np.mean(v)) for k, v in rec.items() if v}
@@ -150,19 +149,18 @@ def main(argv: Sequence[str] | None = None) -> None:
                          "('robust', 'compression', 'turbo', 'desync') or a YAML path; the "
                          "default card otherwise")
     ap.add_argument("--robust-detect", action="store_true",
-                    help="detect through the rate-search compensation detector (not ported)")
+                    help="detect through the rate-search compensation detector "
+                         "(service/robust.py) instead of the plain forward")
     args = ap.parse_args(argv)
     if args.extended:
         raise NotImplementedError(
             "--extended: the extended suite's host voice codecs (attacks/voice_codecs.py, "
             "attacks/av_codecs.py: Opus, GSM full-rate, AAC, Vorbis, Speex, G.722) are not ported"
         )
-    if args.robust_detect:
-        raise NotImplementedError(f"--robust-detect: {_ROBUST}")
     device = "cpu" if args.cpu else None
     model = load(args.card, device=device) if args.card else None
     results = run_robustness_eval(args.audio_dir, args.clips, args.seed, model=model,
-                                  device=device)
+                                  robust=args.robust_detect, device=device)
     print(json.dumps(results, indent=2))
 
 

@@ -173,6 +173,53 @@ class DetectorNet(nn.Module):
         add nothing to the mel projection.  The embed solver's entry."""
         return self._stack(matmul(self.mel_basis[:, lo:hi], band_mag, precision), precision)
 
+    def forward_masked(self, mag: torch.Tensor, mask: torch.Tensor,
+                       precision: str = "highest") -> torch.Tensor:
+        """Forward over zero-padded magnitudes (H, F, T) with frame-validity
+        masks: (H, T) -> values (H, output_length), or (H, K, T) -> (H, K,
+        output_length), one readout a mask of the same magnitude.  Equal,
+        to float tolerance, to :meth:`forward` on each lane's valid frames
+        alone: every statistic and the readout's mean ignore masked frames,
+        and the initial pool keeps only the windows with no masked frame,
+        as the unpadded forward's floor division drops the rest.  The port
+        of ``detector_apply_masked``, which lets lanes of different lengths
+        run as one batch."""
+        cfg = self.cfg
+        size = cfg.initial_pool_size
+        if size != cfg.initial_pool_stride:
+            raise ValueError("masked forward supports size==stride pooling only")
+        mel = matmul(self.mel_basis, mag, precision)  # (H, C, T)
+        if mask.dim() == mag.dim():  # (H, K, T): K readouts of each lane
+            mel = mel.unsqueeze(-3)
+        m = mask.to(mel.dtype).unsqueeze(-2)  # (..., 1, T)
+        x = mel * m
+        n = m.sum(-1, keepdim=True)
+        # masked InstanceNorm1d (biased variance over the valid frames)
+        mean = (x * m).sum(-1, keepdim=True) / n
+        var = (((x - mean) * m) ** 2).sum(-1, keepdim=True) / n
+        x = (x - mean) * torch.rsqrt(var + 1e-5) * m
+        # masked GlobalStandardize (unbiased over C * n_valid elements)
+        n_el = x.shape[-2] * n
+        gmean = (x * m).sum((-2, -1), keepdim=True) / n_el
+        gvar = (((x - gmean) * m) ** 2).sum((-2, -1), keepdim=True) / (n_el - 1.0)
+        x = (x - gmean) / (torch.sqrt(gvar) + 1e-8) * m
+
+        t_out = x.shape[-1] // size
+        x = x[..., : t_out * size].reshape(*x.shape[:-1], t_out, size).mean(-1)
+        mp = m[..., : t_out * size].reshape(*m.shape[:-1], t_out, size).prod(-1)
+        x = x * mp
+        n_pool = mp.sum(-1, keepdim=True)
+        for i in range(cfg.num_blocks + 1):
+            w = getattr(self, f"conv{i}_w")
+            b = getattr(self, f"conv{i}_b")
+            x = (matmul(w, x, precision) + b[:, None]) * mp
+            mean = (x * mp).sum(-1, keepdim=True) / n_pool
+            var = (((x - mean) * mp) ** 2).sum(-1, keepdim=True) / n_pool
+            x = (x - mean) * torch.rsqrt(var + 1e-5) * mp
+            x = torch.where(x >= 0, x, 0.2 * x) * mp
+        pooled = (x * mp).sum(-1) / n_pool[..., 0]
+        return torch.tanh(pooled[..., 0::2] - pooled[..., 1::2])
+
 
 def preprocess_magnitude(
     audio: torch.Tensor, n_fft: int, hop_length: int, window, lo: int, hi: int

@@ -39,7 +39,10 @@ def polyphase_filter(up: int, down: int) -> np.ndarray:
     return (h * up).astype(np.float64)
 
 
-@functools.lru_cache(maxsize=64)
+# Plans are per (up, down, n_in).  256 holds, for one clip length, the robust
+# detector's 19 resample lanes and the fine grid around each of them (6 a
+# winner, service/robust.py), so a stream of such clips builds each once.
+@functools.lru_cache(maxsize=256)
 def _polyphase_plan(up: int, down: int, n_in: int):
     """Host-side constants: output n0 + m*up + s is frames[m] @ G[:, s],
     with frames of width W strided by ``down`` and G a (W, up) embedding
@@ -75,7 +78,7 @@ def _polyphase_plan(up: int, down: int, n_in: int):
     return n_out, c, w, q, pad_left, pad_right, bmin, g_mat.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
 def _g_tensor(up: int, down: int, n_in: int, device: torch.device, dtype: torch.dtype):
     """The plan's filter matrix on ``device``, built once: a copy from the
     host in every call would wait for the card."""

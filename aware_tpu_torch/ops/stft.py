@@ -83,7 +83,9 @@ def stft(
     return torch.fft.rfft(frames, dim=-1).transpose(-1, -2)
 
 
-@functools.lru_cache(maxsize=64)
+# 128 envelopes: one a frame count, and the robust detector's stretch lanes
+# with their fine grids give 84 frame counts a clip length
+@functools.lru_cache(maxsize=128)
 def _ola_envelope(
     window_key: tuple, n_fft: int, hop_length: int, n_frames: int
 ) -> np.ndarray:
@@ -108,7 +110,7 @@ def device_window(name: str, n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(get_window(name, n)).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=128)
 def device_envelope(
     name: str, n_fft: int, hop_length: int, n_frames: int, device: torch.device
 ) -> torch.Tensor:

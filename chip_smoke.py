@@ -203,6 +203,31 @@ with a non-zero exit on any error:
    on_silent="mask" (the silent lane masked and passed through, 0 % BER on
    the others), and the batch loader over 9 files in batches of 4 with 4
    threads giving the 1-thread batches in 20 runs.
+10. the payload and long-form services (service/ecc.py, robust.py,
+   streaming.py) and the command line, each part failing the run on a
+   missed gate: (a) seeded k = 8 messages through the [20, 8] code into
+   the phase 3 clips (embed_watermark_batch, 400 iteration_step launches;
+   embed_message on one clip, 400 more), all decoded by detect_message,
+   and by detect_message_robust after a (9, 10) and an (11, 10) speed
+   change (resample_poly), margins and p-values printed; (b)
+   detect_watermark_robust (the full coarse grid and the refine) on phase
+   3's default-card embeds: 0 % BER on every lane after the speed changes
+   (21, 20), (9, 10) and (11, 10), each won by a resample lane within 0.06
+   of down / up, and on the clean clips by the identity lane, plain
+   detection's BER beside each; time_stretch at 0.9 and 1.1 and the wall
+   s a clip as readings; run_robustness_eval(n_clips=4, robust=True) on
+   the turbo card beside phase 8's plain eval (the same keys, clean_ber
+   0); (c) tools/streaming_eval.py's stream and plants, draw for draw:
+   one hour of the eval's speech fixtures at gains of 0.4-1.0 (summed on
+   the card) with 24 planted 4 s marks carrying k = 8 messages (one batch
+   embed, 400 iteration_step launches) at arbitrary offsets, localized by
+   StreamingDetector (auto threshold, 2 s windows, 1 s hop: 3599
+   windows): 24/24 segments, no false segment, 24/24 messages by
+   decode_message_windows over each segment's windows, and the hour's
+   peak device memory within MEMORY_RATIO of its first 10 minutes'; (d)
+   python -m aware_tpu_torch as subprocesses: embed --message, detect
+   --message-k (the message back) and detect --robust on a (9, 10) speed
+   change of the marked file (0 % BER).
 
 The last lines are one JSON object with a record per kernel
 ({"kernels": [...]}), nvidia-smi's name/power line, and
@@ -2154,10 +2179,11 @@ class _Timed:
         return out
 
 
-def turbo_and_eval(torch, kernels, clips, bits, default_s, records) -> None:
+def turbo_and_eval(torch, kernels, clips, bits, default_s, records) -> tuple:
     """Phase 8 after the filter checks: the turbo card on the phase 3 clips,
     then run_robustness_eval on it with the 22-attack suite (module
-    docstring)."""
+    docstring).  Returns the turbo handles, the eval's results and its
+    wall seconds, for phase 10's robust eval."""
     import pathlib
 
     from aware_tpu_torch import load
@@ -2221,6 +2247,7 @@ def turbo_and_eval(torch, kernels, clips, bits, default_s, records) -> None:
     records["aw_lfilter"]["launches"] = ki.lfilter_scan.launches
     records["aw_sosfilt"]["launches"] = ki.sosfilt_scan.launches
     eval_filter_checks(torch, inputs, records)
+    return (emb, det), results, wall
 
 
 class _FilterInputs:
@@ -2600,6 +2627,303 @@ def host_runtime(torch, kernels, clips, bits) -> None:
         raise RuntimeError("the loader's counts are not 4, 4, 1")
 
 
+# ---- phase 10: the payload and long-form services, and the command line
+MSG_K = 8                                 # payload bits of the ECC messages
+SPEEDS = ((21, 20), (9, 10), (11, 10))    # resample_poly (up, down): speed changes
+STREAM_HOURS = 1.0
+PLANTS, PLANT_SECONDS = 24, 4.0
+MEMORY_RATIO = 1.25  # the hour's peak device memory over its first 10 minutes'
+
+
+def messages(torch, kernels, emb, det, clips, rng) -> np.ndarray:
+    """Phase 10 (a): seeded k = 8 messages through the [20, 8] code into the
+    phase 3 clips (one batch embed, and embed_message on one clip), read
+    back by detect_message, then by detect_message_robust after a 0.9 and
+    a 1.1 speed change.  Returns the messages."""
+    from aware_tpu_torch.ops.resample import resample_poly
+    from aware_tpu_torch.service import ecc
+
+    sr = emb.cfg.detection_net.sample_rate
+    msgs = rng.integers(0, 2, (len(clips), MSG_K))
+    words = np.stack([ecc.encode_message(m, emb.output_length) for m in msgs])
+    run = embed_and_read(torch, kernels, f"ECC messages (k = {MSG_K})", emb, det, clips, words,
+                         phase="10")
+    if run["ber"].any():
+        raise RuntimeError("messages: a lane did not read back its codeword")
+    check_launches("messages", run["launches"], {"iteration_step": 1}, emb.cfg.num_iterations)
+    out = run["out"]
+    for k in kernels:
+        k.launches = 0
+    one = ecc.embed_message(clips[0], sr, msgs[0], emb)
+    check_launches("embed_message", {k.__name__: k.launches for k in kernels},
+                   {"iteration_step": 1}, emb.cfg.num_iterations)
+    reads = {"clean": out, "embed_message": one[None]}
+    dev = torch.device("cuda")
+    for up, down in ((9, 10), (11, 10)):
+        reads[f"speed ({up}, {down})"] = resample_poly(
+            torch.as_tensor(out, device=dev), up, down).cpu().numpy()
+    for label, audio in reads.items():
+        t0 = time.perf_counter()
+        if label.startswith("speed"):
+            got = [ecc.detect_message_robust(a, sr, det, MSG_K) for a in audio]
+            lanes = [f"{kind} {rate}" for _, kind, rate in got]
+            got = [g[0] for g in got]
+        else:
+            got, lanes = [ecc.detect_message(a, sr, det, MSG_K) for a in audio], None
+        wall = time.perf_counter() - t0
+        want = msgs[:1] if label == "embed_message" else msgs
+        ok = sum(np.array_equal(g.msg_bits, m) for g, m in zip(got, want))
+        say(f"phase 10 messages, {label}: {ok}/{len(want)} decoded, margins "
+            f"{[round(g.margin, 4) for g in got]}, p-values "
+            f"{[float(f'{g.pvalue:.3e}') for g in got]}"
+            + (f", lanes {lanes}" if lanes else "") + f", {wall:.3f} s")
+        if ok != len(want):
+            raise RuntimeError(f"messages, {label}: {ok} of {len(want)} decoded")
+    return msgs
+
+
+def robust_detection(torch, det, default_out, bits, turbo, plain_eval, plain_wall) -> None:
+    """Phase 10 (b): desync-robust detection of phase 3's default-card
+    embeds after speed changes and on the clean clips, the stretch
+    readings, and the robust eval beside phase 8's plain one."""
+    from aware_tpu_torch import detect_watermark_batch
+    from aware_tpu_torch.attacks.vocoder import time_stretch
+    from aware_tpu_torch.eval import run_robustness_eval
+    from aware_tpu_torch.ops.resample import resample_poly
+    from aware_tpu_torch.service.robust import detect_watermark_robust
+
+    sr = det.cfg.detection_net.sample_rate
+    dev = torch.device("cuda")
+    y = torch.as_tensor(default_out, device=dev)
+
+    def robust_all(audio):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = [detect_watermark_robust(a, sr, det, return_confidence=True) for a in audio]
+        wall = (time.perf_counter() - t0) / len(audio)
+        ber = np.array([np.mean(r.bits != b) * 100.0 for r, b in zip(res, bits)])
+        return res, ber, wall
+
+    cases = [("clean", None, default_out)]
+    cases += [(f"speed ({up}, {down})", (up, down), resample_poly(y, up, down).cpu().numpy())
+              for up, down in SPEEDS]
+    for label, speed, audio in cases:
+        res, ber, wall = robust_all(audio)
+        plain = np.mean(detect_watermark_batch(audio, sr, det) != bits, axis=1) * 100.0
+        lanes = [(r.kind, r.rate) for r in res]
+        say(f"phase 10 robust, {label}: BER % per lane robust {ber.tolist()} plain "
+            f"{plain.tolist()}; lanes {lanes}; {wall:.4f} s a clip (full grid, refine)")
+        if ber.any():
+            raise RuntimeError(f"robust, {label}: a lane did not read back")
+        if speed is None:
+            if any(lane != ("resample", 1.0) for lane in lanes):
+                raise RuntimeError(f"robust, clean: lanes {lanes}, not the identity")
+            continue
+        rate = speed[1] / speed[0]
+        if any(r.kind != "resample" or abs(r.rate - rate) >= 0.06 for r in res):
+            raise RuntimeError(f"robust, {label}: lanes {lanes}, not resample near {rate:.4f}")
+    for rate in (0.9, 1.1):
+        audio = time_stretch(y, rate).cpu().numpy()
+        res, ber, wall = robust_all(audio)
+        plain = np.mean(detect_watermark_batch(audio, sr, det) != bits, axis=1) * 100.0
+        say(f"phase 10 robust, time_stretch {rate} (a reading): mean BER robust {ber.mean():.2f} "
+            f"% plain {plain.mean():.2f} %; lanes {[(r.kind, r.rate) for r in res]}; "
+            f"{wall:.4f} s a clip")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_robustness_eval(n_clips=EVAL_CLIPS, seed=0, model=turbo, robust=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = {k: (round(results[k], 4), round(plain_eval[k], 4)) for k in sorted(results)}
+    say(f"phase 10 robust eval, turbo card, {EVAL_CLIPS} clips x 22 attacks: wall {wall:.3f} s "
+        f"(phase 8's plain eval {plain_wall:.3f} s); (robust, plain) per key: {json.dumps(rows)}")
+    if set(results) != set(plain_eval) or results["clean_ber"] != 0.0:
+        raise RuntimeError("the robust eval's keys differ from the plain eval's, or clean_ber != 0")
+
+
+def speech_stream(torch, seconds: float, sr: int, seed: int = 77) -> np.ndarray:
+    """Continuous speech-like audio as tools/streaming_eval.py's
+    build_stream makes it: the eval harness's 10 s fixtures
+    (synthesize_speech_clip(seed * 1000 + i)) end to end, each at a gain
+    drawn from default_rng(seed).  The draws are numpy's, in the fixture's
+    order; the harmonics are summed on the card in float64 (numpy takes
+    tens of seconds for an hour)."""
+    n, clip = int(np.ceil(seconds / 10.0)), 10 * sr
+    u = np.empty((n, 27))
+    noise = np.empty((n, clip))
+    for i in range(n):
+        r = np.random.default_rng(seed * 1000 + i)
+        u[i] = r.random(27)  # f0, its modulation rate, 24 phases, the envelope's rate
+        noise[i] = r.standard_normal(clip)
+    gain = np.random.default_rng(seed).uniform(0.4, 1.0, n)[:, None]
+    dev = torch.device("cuda")
+    u = torch.as_tensor(u, device=dev)
+    t = torch.arange(clip, dtype=torch.float64, device=dev) / sr
+    f0 = 100.0 + 60.0 * u[:, :1] + 30.0 * torch.sin(2 * np.pi * (1.5 + u[:, 1:2]) * t)
+    phase = torch.cumsum(2 * np.pi * f0 / sr, dim=-1)
+    del f0
+    x = torch.zeros_like(phase)
+    for k in range(1, 25):
+        x += torch.cos(k * phase + u[:, 1 + k : 2 + k] * 6.28) / k
+    del phase
+    env = 0.35 + 0.65 * torch.clamp(torch.sin(2 * np.pi * (2.5 + u[:, 26:27]) * t), min=0)
+    x = x * env + 0.02 * torch.as_tensor(noise, device=dev)
+    x = (x / x.abs().amax(dim=1, keepdim=True)).float()
+    out = (x.cpu().numpy() * gain).astype(np.float32).reshape(-1)[: int(seconds * sr)]
+    del x, env, t, u
+    torch.cuda.empty_cache()
+    return out
+
+
+def streaming(torch, kernels, emb, det, seed) -> None:
+    """Phase 10 (c): one hour of speech with 24 planted 4 s marks carrying
+    k = 8 messages (one batch embed), localized by StreamingDetector with
+    the auto threshold, 2 s windows and a 1 s hop, as tools/streaming_eval.py
+    builds and scores it; the hour's peak device memory against its first
+    10 minutes'."""
+    from aware_tpu_torch import embed_watermark_batch
+    from aware_tpu_torch.eval import synthesize_speech_clip
+    from aware_tpu_torch.service import ecc
+    from aware_tpu_torch.service.streaming import IN_FLIGHT, StreamingDetector
+
+    sr = emb.cfg.detection_net.sample_rate
+    t0 = time.perf_counter()
+    stream = speech_stream(torch, STREAM_HOURS * 3600, sr, 77 + seed)
+    make_s = time.perf_counter() - t0
+    # the plants, their messages, offsets and gains: the tool's draws
+    rng = np.random.default_rng(11 + seed)
+    plant_len = int(PLANT_SECONDS * sr)
+    plants = np.stack([synthesize_speech_clip(5000 + i, seconds=PLANT_SECONDS)[:plant_len]
+                       for i in range(PLANTS)])
+    msgs = rng.integers(0, 2, size=(PLANTS, MSG_K)).astype(np.int32)
+    words = np.stack([ecc.encode_message(m, emb.output_length) for m in msgs])
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    marked = embed_watermark_batch(plants, sr, words, emb)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    check_launches("streaming plants", {k.__name__: k.launches for k in kernels},
+                   {"iteration_step": 1}, emb.cfg.num_iterations)
+    # non-overlapping arbitrary offsets with a window of clearance, each
+    # peak-normalized mark at a gain of 0.5-1.0
+    window = 2 * sr
+    min_gap = marked.shape[1] + 2 * window
+    slots = rng.choice((len(stream) - min_gap) // min_gap, size=PLANTS, replace=False)
+    offsets = np.sort(slots * min_gap + rng.integers(0, min_gap - plant_len, PLANTS))
+    gains = []
+    for off, m in zip(offsets, marked):
+        gains.append(float(rng.uniform(0.5, 1.0)))
+        stream[off : off + len(m)] = m / np.abs(m).max() * gains[-1]
+
+    sd = StreamingDetector(det, window_seconds=2.0, hop_seconds=1.0, threshold="auto")
+    peaks = {}
+    for label, audio in (("10 minutes", stream[: 600 * sr]), ("hour", stream)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = sd.detect(audio, sr)
+        wall = time.perf_counter() - t0
+        peaks[label] = torch.cuda.max_memory_allocated()
+    n_win = len(res.window_starts)
+    spans = [(o / sr, (o + marked.shape[1]) / sr) for o in offsets]
+    found, msg_ok, bit_err, matched = 0, 0, [], set()
+    for p, ((s0, s1), word, msg) in enumerate(zip(spans, words, msgs)):
+        near = [(i, s) for i, s in enumerate(res.segments)
+                if s.start_seconds < s1 + 2.0 and s.end_seconds > s0 - 2.0]
+        if not near:
+            inside = (res.window_starts >= s0) & (res.window_starts + 2.0 <= s1)
+            say(f"phase 10 streaming: plant {p} at {s0:.4f} s (gain {gains[p]:.3f}) missed: "
+                f"the confidences of its windows {res.confidences[inside].round(4).tolist()}, "
+                f"threshold {res.threshold:.4f}")
+            continue
+        i, seg = max(near, key=lambda p: p[1].confidence)
+        found += 1
+        matched.add(i)
+        bit_err.append(float(np.mean(seg.bits != word)) * 100.0)
+        inside = (res.window_starts >= seg.start_seconds) & (res.window_starts <= seg.end_seconds)
+        msg_ok += bool(np.array_equal(ecc.decode_message_windows(res.values[inside], MSG_K)
+                                      .msg_bits, msg))
+    false = len(res.segments) - len(matched)
+    ratio = peaks["hour"] / peaks["10 minutes"]
+    say(f"phase 10 streaming: {STREAM_HOURS:g} h of speech made in {make_s:.2f} s, {PLANTS} plants "
+        f"of {PLANT_SECONDS:g} s embedded in {embed_s:.3f} s; {n_win} windows (2 s, hop 1 s) in "
+        f"{wall:.3f} s: {n_win / wall:.1f} windows/s, realtime factor "
+        f"{STREAM_HOURS * 3600 / wall:.1f}; threshold {res.threshold:.4f}; segments found "
+        f"{found}/{PLANTS}, false {false}, rejected {res.rejected_segments}; messages "
+        f"{msg_ok}/{PLANTS}; hit bit error {np.mean(bit_err) if bit_err else float('nan'):.3f} %")
+    say(f"phase 10 streaming peak device memory (max_memory_allocated, IN_FLIGHT {IN_FLIGHT}): "
+        f"10 minutes {peaks['10 minutes'] / 2**20:.1f} MiB, hour {peaks['hour'] / 2**20:.1f} "
+        f"MiB, ratio {ratio:.3f}")
+    if n_win != int(STREAM_HOURS * 3600) - 1 or found != PLANTS or false or msg_ok != PLANTS:
+        raise RuntimeError(f"streaming: windows {n_win}, segments {found}, false {false}, "
+                           f"messages {msg_ok}")
+    if ratio > MEMORY_RATIO:
+        raise RuntimeError(f"streaming: the hour's peak memory is {ratio:.3f}x the 10 minutes'")
+
+
+def command_line(torch, clips, sr) -> None:
+    """Phase 10 (d): ``python -m aware_tpu_torch`` on the card, as
+    subprocesses: embed --message, detect --message-k, and detect --robust
+    on a 0.9 speed change of the marked file."""
+    import os
+    import pathlib
+    import tempfile
+
+    from aware_tpu_torch.ops.resample import resample_poly
+    from aware_tpu_torch.service.ecc import encode_message
+    from aware_tpu_torch.utils.io import read_wav, write_wav
+
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+
+    def cli(*argv) -> str:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "aware_tpu_torch", *argv], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise RuntimeError(f"aware_tpu_torch {argv[0]} failed ({run.returncode}):\n"
+                               f"{run.stdout}{run.stderr}")
+        say(f"phase 10 command line, {argv[0]} {' '.join(argv[2 + (argv[0] == 'embed'):])}: "
+            f"{time.perf_counter() - t0:.2f} s")
+        return run.stdout
+
+    msg = "10110101"
+    word = encode_message(np.array([int(c) for c in msg]), 20)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out, sped = f"{tmp}/in.wav", f"{tmp}/out.wav", f"{tmp}/sped.wav"
+        write_wav(src, clips[0], sr)
+        said = cli("embed", src, out, "--message", msg)
+        if "codeword: " + "".join(map(str, word)) not in said:
+            raise RuntimeError(f"embed --message printed {said!r}")
+        got = json.loads(cli("detect", out, "--message-k", str(MSG_K)))
+        audio, _ = read_wav(out)
+        x = resample_poly(torch.as_tensor(audio, device=torch.device("cuda")), 9, 10)
+        write_wav(sped, x.cpu().numpy(), sr)
+        line = cli("detect", sped, "--robust").strip().splitlines()[-1]
+    bits = np.array([int(c) for c in line.split()[1]])
+    ber = float(np.mean(bits != word)) * 100.0
+    say(f"phase 10 command line: message {got['message']} (margin {got['margin']:.4f}, p-value "
+        f"{got['pvalue']:.3e}); detect --robust on the (9, 10) speed change: {line!r}, BER {ber} %")
+    if got["message"] != msg or ber != 0.0:
+        raise RuntimeError("the command line's round trips failed")
+
+
+def services(torch, kernels, emb, det, clips, default_out, bits, turbo, plain_eval, plain_wall,
+             smi, seed) -> None:
+    """Phase 10: (a) ECC messages, (b) robust detection and the robust eval,
+    (c) streaming over an hour, (d) the command line (module docstring)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 10])
+    say(f"phase 10 card: {smi}")
+    messages(torch, kernels, emb, det, clips, rng)
+    robust_detection(torch, det, default_out, bits, turbo, plain_eval, plain_wall)
+    streaming(torch, kernels, emb, det, seed)
+    command_line(torch, clips, emb.cfg.detection_net.sample_rate)
+    say(f"phase 10: {time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2878,9 +3202,13 @@ def main() -> int:
     # ---- phase 8: the filter kernels, the turbo card and the eval
     records.update(filter_checks(torch, np.random.default_rng([args.seed, 8]), args.quick))
     if not args.quick:
-        turbo_and_eval(torch, kernels, clips, bits, default_s, records)
+        turbo, plain_eval, plain_wall = turbo_and_eval(torch, kernels, clips, bits, default_s,
+                                                       records)
         # ---- phase 9: every solver mode, and the host runtime
         solver_modes(torch, kernels, clips, bits, det_cpu)
+        # ---- phase 10: the payload and long-form services, the command line
+        services(torch, kernels, emb, det, clips, default_out, bits, turbo, plain_eval,
+                 plain_wall, smi, args.seed)
         for name, rec in records.items():
             if rec["launches"] < 1:
                 raise RuntimeError(f"kernel {name} was not launched on any path")

@@ -140,13 +140,16 @@ def test_wav_io_reads_as_the_jax_reader(tmp_path):
         np.testing.assert_allclose(y, x, atol=7e-5 if bits == 16 else 0)
 
 
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="service/robust.py"):
-        ph.run_robustness_eval(robust=True, attacks=[])
+def test_unported_modes_raise(monkeypatch):
+    """``--extended`` raises; ``--robust-detect`` (ported with
+    ``service/robust.py``) reaches ``run_robustness_eval(robust=True)``,
+    which ``tests/test_torch_robust.py`` holds against the JAX harness."""
     with pytest.raises(NotImplementedError, match="voice_codecs"):
         ph.main(["--extended", "--cpu"])
-    with pytest.raises(NotImplementedError, match="robust"):
-        ph.main(["--robust-detect", "--cpu"])
+    calls = []
+    monkeypatch.setattr(ph, "run_robustness_eval", lambda *a, **k: calls.append(k) or {})
+    ph.main(["--robust-detect", "--cpu"])
+    assert calls == [{"model": None, "robust": True, "device": "cpu"}]
 
 
 @pytest.mark.slow

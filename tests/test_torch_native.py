@@ -144,6 +144,27 @@ def test_batch_loader_is_deterministic_on_a_short_final_batch(lib, tmp_path):
                 np.testing.assert_array_equal(x, y)
 
 
+def test_batch_loader_hands_out_batches_in_file_order_under_load(lib, tmp_path):
+    """37 files in batches of 4 (the last holds one), 8 threads and room
+    for one batch, the consumer slow enough that the queue stays full: the
+    workers that close batches j and j+1 race for the queue, and the
+    batches must still leave in file order, 50 times over."""
+    import time
+
+    files = _wavs(tmp_path, 37)
+    want = list(tn.BatchLoader(files, 4, 6000, n_threads=1, prefetch=1))
+    assert [b[3] for b in want] == [4] * 9 + [1]
+    for _ in range(50):
+        got = []
+        for b in tn.BatchLoader(files, 4, 6000, n_threads=8, prefetch=1):
+            got.append(b)
+            time.sleep(0.0005)
+        assert [b[3] for b in got] == [b[3] for b in want]
+        for a, b in zip(got, want):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+
+
 def test_load_gates_with_the_gmm_vad(lib, speechlike):
     """``load(vad="webrtc_gmm")``: the service's gate is the GMM classifier,
     decided as the JAX package's ``_gate_silent``; a silent clip raises in
