@@ -22,13 +22,15 @@ __all__ = [
     "detect_watermark",
     "embed_watermark_batch",
     "detect_watermark_batch",
+    "embed_watermark_oneshot",
+    "embed_watermark_turbo",
 ]
 
 
 def __getattr__(name):
     # lazy, so that importing a kernel module does not pull in the service
     if name in __all__:
-        from aware_tpu_torch.service import api
+        from aware_tpu_torch import service
 
-        return getattr(api, name)
+        return getattr(service, name)
     raise AttributeError(f"module 'aware_tpu_torch' has no attribute {name!r}")

@@ -1,7 +1,8 @@
 """Command line: embed / detect / eval (the port of ``aware_tpu/__main__.py``).
 
     python -m aware_tpu_torch embed  in.wav out.wav [--bits 1011...] [--card turbo]
-    python -m aware_tpu_torch embed  in.wav out.wav --message 10110101
+    python -m aware_tpu_torch embed  in.wav out.wav --message 10110101 [--oneshot]
+    python -m aware_tpu_torch embed  in.wav out.wav --oneshot [--variant diverse]
     python -m aware_tpu_torch detect in.wav [--robust]
     python -m aware_tpu_torch detect in.wav --message-k 8 [--robust]
     python -m aware_tpu_torch detect long.wav --streaming [--window 2 --win-hop 1]
@@ -16,9 +17,6 @@ import argparse
 import json
 
 import numpy as np
-
-_ONESHOT = ("the one-shot embed (service/fast.py, the amortized embedder) is not ported")
-
 
 def _parse_bits(s: str, n: int) -> np.ndarray:
     bits = np.array([int(c) for c in s if c in "01"], dtype=np.int32)
@@ -49,8 +47,6 @@ def cmd_embed(args) -> None:
     from aware_tpu_torch.service.api import embed_watermark
     from aware_tpu_torch.utils.io import read_wav, write_wav
 
-    if args.oneshot or args.variant is not None:
-        raise NotImplementedError(f"--oneshot / --variant: {_ONESHOT}")
     embedder, _ = _load(args)
     audio, sr = read_wav(args.input)
     if args.message is not None:
@@ -67,7 +63,17 @@ def cmd_embed(args) -> None:
         bits = np.random.default_rng(args.seed).integers(
             0, 2, embedder.output_length, dtype=np.int32)
         print("bits:", "".join(map(str, bits)))
-    out = embed_watermark(audio, sr, bits, embedder)
+    if args.oneshot:
+        from aware_tpu_torch.service import embed_watermark_oneshot
+
+        if sr != embedder.cfg.detection_net.sample_rate:
+            raise SystemExit(
+                "one-shot embed operates at the model rate (16 kHz); "
+                "resample the input or use the solver path"
+            )
+        out = embed_watermark_oneshot(audio, sr, bits, embedder, variant=args.variant)
+    else:
+        out = embed_watermark(audio, sr, bits, embedder)
     write_wav(args.output, out, sr)
     print(f"wrote {args.output} ({out.shape[0]} samples @ {sr} Hz)")
 
@@ -157,9 +163,10 @@ def main(argv=None) -> None:
                         "soft-decision ECC instead of raw slot bits; decode with "
                         "`detect --message-k K`")
     p.add_argument("--oneshot", action="store_true",
-                   help="the one-shot amortized embed (not ported: raises)")
-    p.add_argument("--variant", default=None,
-                   help="one-shot bundle variant (not ported: raises)")
+                   help="one forward pass of the amortized embedder (no solver loop)")
+    p.add_argument("--variant", default="default",
+                   help="one-shot bundle variant (service/fast.py _VARIANTS: default, "
+                        "speech_v1, diverse, diverse_tol2, diverse_tol2_eot)")
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_embed)
 

@@ -51,6 +51,14 @@ def _plan(t_in: int, rate: float, device: torch.device, dtype: torch.dtype):
     return torch.as_tensor(lo, device=device), torch.as_tensor(hi, device=device), frac, omega
 
 
+def stretched_length(length: int, rate: float) -> int:
+    """Samples of ``time_stretch`` of ``length`` samples by ``rate``: its
+    analysis steps taken on the host as ``_plan`` takes them."""
+    if rate == 1.0:
+        return length
+    return (len(np.arange(0.0, length // _HOP, rate)) - 1) * _HOP
+
+
 def time_stretch(x: torch.Tensor, rate: float) -> torch.Tensor:
     """Stretch the playback speed of (..., L) by ``rate`` (rate > 1: a
     shorter output, ``(len(steps) - 1) * hop`` samples)."""

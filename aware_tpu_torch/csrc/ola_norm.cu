@@ -9,17 +9,20 @@
 //   aw_ola_bwd_cluster, aw_ola_bwd_stream <- ola_normalize VJP
 //                                            (_ola_vjp_bwd :167, _bwd_kernel :77)
 //
-// What they compute, per clip b of a batch (R = n_fft / hop = 4 slabs,
-// PAD = (n_fft / 2) / hop = 2 rows of centre crop, e = 1e-8, lr = T - 1):
+// What they compute, per clip b of a batch (R = n_fft / hop slabs and
+// PAD = (n_fft / 2) / hop rows of centre crop, both given at run time as
+// the TPU kernel reads them off its shapes: 4 and 2 on the default card,
+// 2 and 1 at n_fft 1024 / hop 512, 8 and 4 at 2048 / 256; e = 1e-8,
+// lr = T - 1):
 //
-//   forward:  acc[i]  = sum_{k<4, 0<=i-k<T} wf[i-k, k*hop:(k+1)*hop], in k = 0..3
+//   forward:  acc[i]  = sum_{k<R, 0<=i-k<T} wf[i-k, k*hop:(k+1)*hop], in k = 0..R-1
 //                       order from 0 (the TPU kernel's row adds),
 //             y_env[j] = acc[j + PAD] / env[j]                       for j < lr,
 //             m1 = max |y_env|,  c = (m1 + e) * (m1 / (m1 + e) + e),  y2 = y_env / c;
 //   VJP:      q = sum g * y2,  m2b = max |y2|,  mask = |y2| == m2b,  ties = sum mask,
 //             n = m1 / (m1 + e),  K = (n + e) * q * (e + c) / (c * c),
 //             g_env = g / c - K * sign(y2) * mask / ties,   grows[j + PAD] = g_env[j] / env[j]
-//             (zero elsewhere in T + 3 rows),  dwf[t, k*hop:(k+1)*hop] = grows[t + k].
+//             (zero elsewhere in T + R - 1 rows),  dwf[t, k*hop:(k+1)*hop] = grows[t + k].
 //
 // The tie mask comes from y2 itself (ola_norm.py:95-99): rebuilding y_env
 // as y2 * c rounds, can match no element and would divide by ties = 0.
@@ -39,11 +42,12 @@
 // (cluster, B), one cluster per clip, CTA `rank` owning the contiguous
 // rows [rank lr / C, (rank + 1) lr / C) of y_env (and of g and y2), and the
 // rows of grows that those feed, the edge CTAs also the zero rows of the
-// centre crop.  One launch each, no memset, no atomics, nothing
-// intermediate in device memory:
-//   forward: each CTA adds its rows of acc from the four frame slices that
-//     feed them (16-byte loads; each frame element feeds one element of
-//     acc, so nothing is read twice), divides by env and keeps y_env in
+// centre crop (PAD before, R - PAD after).  One launch each, no memset, no
+// atomics, nothing intermediate in device memory:
+//   forward: each CTA adds its rows of acc from the R frame slices that
+//     feed them, four loads in flight at a time (16-byte loads; each frame
+//     element feeds one element of acc, so nothing is read twice), divides
+//     by env and keeps y_env in
 //     shared memory with its max |y_env| beside it; after a cluster
 //     barrier every CTA reads all the CTAs' maxima through distributed
 //     shared memory (one lane a rank), so every CTA has the same m1, rank
@@ -52,7 +56,7 @@
 //     its y2 and m1 are the same bits;
 //   VJP: only the tie split needs the clip's sums, and it touches only the
 //     elements at the clip's peak.  So each CTA streams its rows once: it
-//     writes each grows row into its up-to-four places of dwf as if no
+//     writes each grows row into its up-to-R places of dwf as if no
 //     element were a tie (g / c / env: c comes from the input m1), keeps
 //     its rows of y2 in shared memory and takes its partial q = sum g * y2
 //     (each thread's elements in order, then the block's xor butterfly)
@@ -83,7 +87,7 @@
 // launches: per-block partial max |y2| and sum g*y2, then every block
 // finishes its clip's partials in one fixed order (no float atomics, so a
 // run repeats bit for bit) and counts its ties with an integer atomicAdd,
-// then one elementwise launch that writes each row of grows into its four
+// then one elementwise launch that writes each row of grows into its R
 // places of dwf.
 //
 // Each kernel runs on the caller's stream and allocates nothing; each C
@@ -92,6 +96,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -99,11 +105,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kElems = 4;  // elements per thread
 constexpr int kChunk = kThreads * kElems;  // elements per block (ops/kernels/ola_norm.py CHUNK)
-constexpr int kR = 4;
-constexpr int kPad = 2;
 constexpr float kEps = 1e-8f;
 constexpr int kClusterThreads = 1024;  // a CTA of the cluster variant (ola_norm.py CLUSTER_THREADS)
 constexpr int kMaxCluster = 16;       // the non-portable cluster size Hopper allows
+constexpr int kSliceGroup = 4;        // frame slices whose loads the cluster forward keeps in flight
 
 struct MaxOp {
   __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
@@ -147,22 +152,35 @@ __device__ __forceinline__ float peak_scale(float m1, float* n_out) {
 
 // ------------------------------------------------------- stream variant ---
 
-// wf (B, T, 4 hop), env (lr, hop) -> y (B, lr, hop) = y_env, m1 bits (B,) by atomicMax.
+// Every kernel with slab loops is a template on R: R > 0 fixes r = R and
+// pad = R / 2 at compile time, so that its slab loops unroll as in the
+// first design (the entries take R = 2, 4 and 8, the geometries of the
+// port's paths); R = 0 reads r and pad from its arguments.  Both give the
+// same bits: the adds run in k order either way.
+template <int R>
+__device__ __forceinline__ int slabs_of(int r_arg) { return R > 0 ? R : r_arg; }
+template <int R>
+__device__ __forceinline__ int pad_of(int pad_arg) { return R > 0 ? R / 2 : pad_arg; }
+
+// wf (B, T, r hop), env (lr, hop) -> y (B, lr, hop) = y_env, m1 bits (B,) by atomicMax.
+template <int R>
 __global__ void ola_fwd_rows(const float* __restrict__ wf, const float* __restrict__ env,
-                             float* __restrict__ y, unsigned int* m1_bits, int t, int hop) {
+                             float* __restrict__ y, unsigned int* m1_bits, int t, int hop,
+                             int r_arg, int pad_arg) {
+  const int r = slabs_of<R>(r_arg), pad = pad_of<R>(pad_arg);
   const int b = blockIdx.y;
   const long long n = (long long)(t - 1) * hop;
-  const long long nfft = (long long)kR * hop;
+  const long long nfft = (long long)r * hop;
   const float* wfb = wf + (long long)b * t * nfft;
   float mx = 0.f;
   for (int e = 0; e < kElems; ++e) {
     const long long idx = elem(e);
     if (idx >= n) break;
     const int j = (int)(idx / hop), c = (int)(idx % hop);
-    const int i = j + kPad;
+    const int i = j + pad;
     float acc = 0.f;
 #pragma unroll
-    for (int k = 0; k < kR; ++k) {
+    for (int k = 0; k < r; ++k) {
       const int f = i - k;
       if (f >= 0 && f < t) acc = __fadd_rn(acc, wfb[f * nfft + k * hop + c]);
     }
@@ -238,17 +256,19 @@ __global__ void ola_bwd_ties(const float* __restrict__ y2, const float* __restri
   }
 }
 
-// dwf (B, T, 4 hop): row i of grows (T + 3 rows of hop), computed once,
+// dwf (B, T, r hop): row i of grows (T + r - 1 rows of hop), computed once,
 // written to dwf[i - k, k*hop:(k+1)*hop] for each k with 0 <= i - k < T.
+template <int R>
 __global__ void ola_bwd_rows(const float* __restrict__ g, const float* __restrict__ y2,
                              const float* __restrict__ env, const float* __restrict__ m1,
                              const float* __restrict__ scal, const int* __restrict__ ties,
-                             float* __restrict__ dwf, int t, int hop) {
+                             float* __restrict__ dwf, int t, int hop, int r_arg, int pad_arg) {
+  const int r = slabs_of<R>(r_arg), pad = pad_of<R>(pad_arg);
   const int b = blockIdx.y;
   const int lr = t - 1;
   const long long n = (long long)lr * hop;
-  const long long rows = (long long)(t + kR - 1) * hop;
-  const long long nfft = (long long)kR * hop;
+  const long long rows = (long long)(t + r - 1) * hop;
+  const long long nfft = (long long)r * hop;
   float nn;
   const float c = peak_scale(m1[b], &nn);
   const float m2b = scal[2 * b];
@@ -260,7 +280,7 @@ __global__ void ola_bwd_rows(const float* __restrict__ g, const float* __restric
     const long long idx = elem(e);
     if (idx >= rows) break;
     const int i = (int)(idx / hop), col = (int)(idx % hop);
-    const int j = i - kPad;
+    const int j = i - pad;
     float v = 0.f;
     if (j >= 0 && j < lr) {
       const long long src = (long long)j * hop + col;
@@ -272,7 +292,7 @@ __global__ void ola_bwd_rows(const float* __restrict__ g, const float* __restric
       v = __fdiv_rn(g_env, env[src]);
     }
 #pragma unroll
-    for (int k = 0; k < kR; ++k) {
+    for (int k = 0; k < r; ++k) {
       const int f = i - k;
       if (f >= 0 && f < t) out[f * nfft + k * hop + col] = v;
     }
@@ -344,12 +364,15 @@ __device__ __forceinline__ T remote(cg::cluster_group& cluster, T* mine, int siz
   return lane < size ? *cluster.map_shared_rank(mine, lane) : identity;
 }
 
-// wf (B, T, 4 hop), env (lr, hop) -> y2 (B, lr, hop), m1 (B,); grid
+// wf (B, T, r hop), env (lr, hop) -> y2 (B, lr, hop), m1 (B,); grid
 // (cluster, B), one cluster a clip; dynamic shared memory: the CTA's rows
 // of y_env, ceil(lr / cluster) hop floats.
+template <int R>
 __global__ void __launch_bounds__(kClusterThreads, 1)
     ola_fwd_cluster(const float4* __restrict__ wf, const float4* __restrict__ env,
-                    float4* __restrict__ y2, float* __restrict__ m1, int t, int hop) {
+                    float4* __restrict__ y2, float* __restrict__ m1, int t, int hop, int r_arg,
+                    int pad_arg) {
+  const int r = slabs_of<R>(r_arg), pad = pad_of<R>(pad_arg);
   extern __shared__ float4 y_env[];
   __shared__ float part;  // this CTA's max |y_env|
   cg::cluster_group cluster = cg::this_cluster();
@@ -358,19 +381,29 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   int r0, r1;
   cta_rows(lr, rank, size, &r0, &r1);
   const int n4 = (r1 - r0) * q4;
-  const long long nfft4 = (long long)kR * q4;
+  const long long nfft4 = (long long)r * q4;
   const float4* wfb = wf + (long long)b * t * nfft4;
   float mx = 0.f;
   for (Walk w(r0, q4); w.e < n4; w.next()) {
-    const int i = w.j + kPad;
-    float4 slice[kR];
-#pragma unroll
-    for (int k = 0; k < kR; ++k)  // the loads first, all in flight together
-      if (i - k >= 0 && i - k < t) slice[k] = __ldg(wfb + (i - k) * nfft4 + k * q4 + w.col);
+    const int i = w.j + pad;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    // four slices at a time: their loads first, all in flight together,
+    // then their adds in k order
 #pragma unroll
-    for (int k = 0; k < kR; ++k)
-      if (i - k >= 0 && i - k < t) acc = add4(acc, slice[k]);
+    for (int k0 = 0; k0 < r; k0 += kSliceGroup) {
+      float4 slice[kSliceGroup];
+#pragma unroll
+      for (int d = 0; d < kSliceGroup; ++d) {
+        const int k = k0 + d;
+        if (k < r && i - k >= 0 && i - k < t)
+          slice[d] = __ldg(wfb + (i - k) * nfft4 + k * q4 + w.col);
+      }
+#pragma unroll
+      for (int d = 0; d < kSliceGroup; ++d) {
+        const int k = k0 + d;
+        if (k < r && i - k >= 0 && i - k < t) acc = add4(acc, slice[d]);
+      }
+    }
     const float4 v = div4(acc, __ldg(env + w.j * q4 + w.col));
     y_env[w.e] = v;
     mx = absmax4(mx, v);
@@ -380,7 +413,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   cluster.sync();
   const float mine = remote(cluster, &part, size, 0.f);
   float m = 0.f;
-  for (int r = 0; r < size; ++r) m = fmaxf(m, __shfl_sync(0xffffffffu, mine, r));
+  for (int k = 0; k < size; ++k) m = fmaxf(m, __shfl_sync(0xffffffffu, mine, k));
   cluster_arrive();
   if (rank == 0 && threadIdx.x == 0) m1[b] = m;
   float nn;
@@ -390,13 +423,15 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   cluster_wait();
 }
 
-// g, y2 (B, lr, hop), env (lr, hop), m1 (B,) -> dwf (B, T, 4 hop); grid
+// g, y2 (B, lr, hop), env (lr, hop), m1 (B,) -> dwf (B, T, r hop); grid
 // (cluster, B); dynamic shared memory: the CTA's rows of y2, ceil(lr /
 // cluster) hop floats.
+template <int R>
 __global__ void __launch_bounds__(kClusterThreads, 1)
     ola_bwd_cluster(const float4* __restrict__ g, const float4* __restrict__ y2,
                     const float4* __restrict__ env, const float* __restrict__ m1,
-                    float4* __restrict__ dwf, int t, int hop) {
+                    float4* __restrict__ dwf, int t, int hop, int r_arg, int pad_arg) {
+  const int r = slabs_of<R>(r_arg), pad = pad_of<R>(pad_arg);
   extern __shared__ float4 ys[];
   __shared__ float part[2];  // this CTA's max |y2| and sum g * y2
   __shared__ int part_ties;  // its count of |y2| == m2b
@@ -406,24 +441,25 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   int r0, r1;
   cta_rows(lr, rank, size, &r0, &r1);
   const int n4 = (r1 - r0) * q4;
-  const long long off = ((long long)b * lr + r0) * q4, nfft4 = (long long)kR * q4;
+  const long long off = ((long long)b * lr + r0) * q4, nfft4 = (long long)r * q4;
   const float4* envr = env + (long long)r0 * q4;
   float4* out = dwf + (long long)b * t * nfft4;
   // row i of grows into its places dwf[i - k, k*hop:(k+1)*hop], 0 <= i - k < T
   auto put = [&](int i, int col, float4 v) {
 #pragma unroll
-    for (int k = 0; k < kR; ++k) {
+    for (int k = 0; k < r; ++k) {
       const int f = i - k;
       if (f >= 0 && f < t) out[f * nfft4 + k * q4 + col] = v;
     }
   };
   float nn;
   const float c = peak_scale(m1[b], &nn);
-  // the edge CTAs' zero rows of the centre crop: grows rows 0, 1 and T+1, T+2
-  for (int e = threadIdx.x; e < 2 * kPad * q4; e += kClusterThreads) {
+  // the edge CTAs' zero rows of the centre crop: grows rows [0, pad) and
+  // [lr + pad, lr + r) (0, 1 and T+1, T+2 on the default card)
+  for (int e = threadIdx.x; e < r * q4; e += kClusterThreads) {
     const int z = e / q4;
-    if (z < kPad ? rank == 0 : rank == size - 1)
-      put(z < kPad ? z : lr + z, e % q4, make_float4(0.f, 0.f, 0.f, 0.f));
+    if (z < pad ? rank == 0 : rank == size - 1)
+      put(z < pad ? z : lr + z, e % q4, make_float4(0.f, 0.f, 0.f, 0.f));
   }
   float mx = 0.f, s = 0.f;
   for (Walk w(r0, q4); w.e < n4; w.next()) {  // this thread's elements in order
@@ -436,7 +472,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     s = __fadd_rn(s, __fmul_rn(gv.w, yv.w));
     mx = absmax4(mx, yv);
     // every element as if it were no tie (its tie term 0): g / c / env
-    put(w.j + kPad, w.col, div4(div4(gv, c), ev));
+    put(w.j + pad, w.col, div4(div4(gv, c), ev));
   }
   mx = block_reduce<kClusterThreads>(mx, 0.f, MaxOp());
   s = block_reduce<kClusterThreads>(s, 0.f, SumOp());
@@ -448,9 +484,9 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   const float rm = remote(cluster, &part[0], size, 0.f);
   const float rs = remote(cluster, &part[1], size, 0.f);
   float m2b = 0.f, q = 0.f;
-  for (int r = 0; r < size; ++r) {
-    m2b = fmaxf(m2b, __shfl_sync(0xffffffffu, rm, r));
-    q = __fadd_rn(q, __shfl_sync(0xffffffffu, rs, r));
+  for (int k = 0; k < size; ++k) {
+    m2b = fmaxf(m2b, __shfl_sync(0xffffffffu, rm, k));
+    q = __fadd_rn(q, __shfl_sync(0xffffffffu, rs, k));
   }
   int count = 0;
   for (int e = threadIdx.x; e < n4; e += kClusterThreads) {
@@ -463,7 +499,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   cluster.sync();  // also: every CTA has read the partials above
   const int rt = remote(cluster, &part_ties, size, 0);
   int ties = 0;
-  for (int r = 0; r < size; ++r) ties += __shfl_sync(0xffffffffu, rt, r);
+  for (int k = 0; k < size; ++k) ties += __shfl_sync(0xffffffffu, rt, k);
   cluster_arrive();
 
   // the tie split: each float4 that holds a tie written again, every lane
@@ -487,7 +523,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
       const float tie = __fdiv_rn(__fmul_rn(__fmul_rn(kc, sgn), mask), nties);
       vl[l] = __fdiv_rn(__fsub_rn(__fdiv_rn(gl[l], c), tie), el[l]);
     }
-    put(w.j + kPad, w.col, make_float4(vl[0], vl[1], vl[2], vl[3]));
+    put(w.j + pad, w.col, make_float4(vl[0], vl[1], vl[2], vl[3]));
   }
   cluster_wait();
 }
@@ -516,10 +552,23 @@ cudaError_t allow_cluster(Kernel kernel) {
   return err;
 }
 
+template <int R>
 cudaError_t ready(int vjp) {
-  static const cudaError_t fwd = allow_cluster(ola_fwd_cluster);
-  static const cudaError_t bwd = allow_cluster(ola_bwd_cluster);
+  static const cudaError_t fwd = allow_cluster(ola_fwd_cluster<R>);
+  static const cudaError_t bwd = allow_cluster(ola_bwd_cluster<R>);
   return vjp ? bwd : fwd;
+}
+
+// f(std::integral_constant<int, R>) for the kernels' instance of r slabs
+// and pad rows of crop: R = r for r = 2, 4, 8 with pad = r / 2, else 0.
+template <class F>
+auto with_slabs(int r, int pad, F&& f) {
+  if (2 * pad == r) {
+    if (r == 4) return f(std::integral_constant<int, 4>{});
+    if (r == 2) return f(std::integral_constant<int, 2>{});
+    if (r == 8) return f(std::integral_constant<int, 8>{});
+  }
+  return f(std::integral_constant<int, 0>{});
 }
 
 cudaLaunchConfig_t cluster_config(int batch, int cluster, int smem, cudaStream_t st,
@@ -541,11 +590,16 @@ cudaLaunchConfig_t cluster_config(int batch, int cluster, int smem, cudaStream_t
 // What the cluster variant cannot take: a cluster past 16 or a clip
 // shorter than 2 frames, hop not a multiple of 4 (16-byte rows), or rows
 // past the opt-in shared memory (the kernels' static shared memory aside).
+template <int R>
 cudaError_t refuse(int vjp, int t, int hop, int cluster) {
   if (cluster < 1 || cluster > kMaxCluster || t < 2 || hop < 4 || hop % 4)
     return cudaErrorInvalidValue;
-  return ready(vjp);
+  return ready<R>(vjp);
 }
+
+// What neither variant can take: fewer than one slab, or a centre crop
+// past the slabs.
+bool bad_geometry(int r, int pad) { return r < 1 || pad < 0 || pad >= r; }
 
 int finish(cudaError_t launched) {
   const cudaError_t last = cudaGetLastError();
@@ -556,71 +610,90 @@ int finish(cudaError_t launched) {
 
 extern "C" {
 
-// wframes (B, T, 4 hop) f32, env (T-1, hop) f32 -> y2 (B, T-1, hop) f32, m1 (B,) f32.
+// wframes (B, T, r hop) f32, env (T-1, hop) f32 -> y2 (B, T-1, hop) f32, m1 (B,) f32,
+// with r slabs and pad rows of centre crop.
 int aw_ola_fwd_stream(const float* wframes, const float* env, float* y2, float* m1, int batch,
-                      int t, int hop, void* stream) {
+                      int t, int hop, int r, int pad, void* stream) {
+  if (bad_geometry(r, pad)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)(t - 1) * hop;
   cudaMemsetAsync(m1, 0, sizeof(float) * batch, st);
-  ola_fwd_rows<<<grid_for(n, batch), kThreads, 0, st>>>(
-      wframes, env, y2, reinterpret_cast<unsigned int*>(m1), t, hop);
+  with_slabs(r, pad, [&](auto k) {
+    ola_fwd_rows<decltype(k)::value><<<grid_for(n, batch), kThreads, 0, st>>>(
+        wframes, env, y2, reinterpret_cast<unsigned int*>(m1), t, hop, r, pad);
+  });
   ola_fwd_scale<<<grid_for(n, batch), kThreads, 0, st>>>(y2, m1, n);
   return (int)cudaGetLastError();
 }
 
 // g, y2 (B, T-1, hop) f32, env (T-1, hop) f32, m1 (B,) f32; scratch part
 // (B, ceil((T-1) hop / 1024), 2) f32, scal (B, 2) f32, ties (B,) int32
-// -> dwf (B, T, 4 hop) f32.
+// -> dwf (B, T, r hop) f32.
 int aw_ola_bwd_stream(const float* g, const float* y2, const float* env, const float* m1,
                       float* part, float* scal, int* ties, float* dwf, int batch, int t, int hop,
-                      void* stream) {
+                      int r, int pad, void* stream) {
+  if (bad_geometry(r, pad)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)(t - 1) * hop;
   cudaMemsetAsync(ties, 0, sizeof(int) * batch, st);
   ola_bwd_partials<<<grid_for(n, batch), kThreads, 0, st>>>(g, y2, part, n);
   ola_bwd_ties<<<grid_for(n, batch), kThreads, 0, st>>>(y2, part, scal, ties, n);
-  ola_bwd_rows<<<grid_for((long long)(t + kR - 1) * hop, batch), kThreads, 0, st>>>(
-      g, y2, env, m1, scal, ties, dwf, t, hop);
+  with_slabs(r, pad, [&](auto k) {
+    ola_bwd_rows<decltype(k)::value>
+        <<<grid_for((long long)(t + r - 1) * hop, batch), kThreads, 0, st>>>(
+            g, y2, env, m1, scal, ties, dwf, t, hop, r, pad);
+  });
   return (int)cudaGetLastError();
 }
 
 // The forward as one launch of a cluster of `cluster` CTAs per clip; the
 // operands as aw_ola_fwd_stream's, each 16-byte aligned.
 int aw_ola_fwd_cluster(const float* wframes, const float* env, float* y2, float* m1, int batch,
-                       int t, int hop, int cluster, void* stream) {
-  cudaError_t err = refuse(0, t, hop, cluster);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      cluster_config(batch, cluster, cluster_smem(t, hop, cluster), (cudaStream_t)stream, &attr);
-  return finish(cudaLaunchKernelEx(&cfg, ola_fwd_cluster, (const float4*)wframes,
-                                   (const float4*)env, (float4*)y2, m1, t, hop));
+                       int t, int hop, int r, int pad, int cluster, void* stream) {
+  if (bad_geometry(r, pad)) return (int)cudaErrorInvalidValue;
+  return with_slabs(r, pad, [&](auto k) {
+    constexpr int R = decltype(k)::value;
+    cudaError_t err = refuse<R>(0, t, hop, cluster);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(batch, cluster, cluster_smem(t, hop, cluster),
+                                                  (cudaStream_t)stream, &attr);
+    return finish(cudaLaunchKernelEx(&cfg, ola_fwd_cluster<R>, (const float4*)wframes,
+                                     (const float4*)env, (float4*)y2, m1, t, hop, r, pad));
+  });
 }
 
 // The VJP as one launch of a cluster of `cluster` CTAs per clip; the
 // operands as aw_ola_bwd_stream's (no scratch), each 16-byte aligned.
 int aw_ola_bwd_cluster(const float* g, const float* y2, const float* env, const float* m1,
-                       float* dwf, int batch, int t, int hop, int cluster, void* stream) {
-  cudaError_t err = refuse(1, t, hop, cluster);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      cluster_config(batch, cluster, cluster_smem(t, hop, cluster), (cudaStream_t)stream, &attr);
-  return finish(cudaLaunchKernelEx(&cfg, ola_bwd_cluster, (const float4*)g, (const float4*)y2,
-                                   (const float4*)env, m1, (float4*)dwf, t, hop));
+                       float* dwf, int batch, int t, int hop, int r, int pad, int cluster,
+                       void* stream) {
+  if (bad_geometry(r, pad)) return (int)cudaErrorInvalidValue;
+  return with_slabs(r, pad, [&](auto k) {
+    constexpr int R = decltype(k)::value;
+    cudaError_t err = refuse<R>(1, t, hop, cluster);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(batch, cluster, cluster_smem(t, hop, cluster),
+                                                  (cudaStream_t)stream, &attr);
+    return finish(cudaLaunchKernelEx(&cfg, ola_bwd_cluster<R>, (const float4*)g,
+                                     (const float4*)y2, (const float4*)env, m1, (float4*)dwf, t,
+                                     hop, r, pad));
+  });
 }
 
 // The cluster variant's forward (vjp = 0) or VJP kernel at T frames, hop
-// and a cluster size: its registers, static shared memory and local
-// (spilled) bytes a thread, the dynamic shared memory a CTA takes, and
-// cudaOccupancyMaxActiveClusters at that size.
+// and a cluster size, the default card's instance (r = 4): its registers,
+// static shared memory and local (spilled) bytes a thread, the dynamic
+// shared memory a CTA takes, and cudaOccupancyMaxActiveClusters at that
+// size.
 int aw_ola_cluster_config(int vjp, int t, int hop, int cluster, int* regs, int* static_smem,
                           int* local_bytes, int* dyn_smem, int* max_clusters) {
-  cudaError_t err = refuse(vjp, t, hop, cluster);
+  cudaError_t err = refuse<4>(vjp, t, hop, cluster);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes fa;
-  err = vjp ? cudaFuncGetAttributes(&fa, ola_bwd_cluster)
-            : cudaFuncGetAttributes(&fa, ola_fwd_cluster);
+  err = vjp ? cudaFuncGetAttributes(&fa, ola_bwd_cluster<4>)
+            : cudaFuncGetAttributes(&fa, ola_fwd_cluster<4>);
   if (err != cudaSuccess) return (int)err;
   *regs = fa.numRegs;
   *static_smem = (int)fa.sharedSizeBytes;
@@ -628,8 +701,8 @@ int aw_ola_cluster_config(int vjp, int t, int hop, int cluster, int* regs, int* 
   *dyn_smem = cluster_smem(t, hop, cluster);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(1, cluster, *dyn_smem, nullptr, &attr);
-  err = vjp ? cudaOccupancyMaxActiveClusters(max_clusters, ola_bwd_cluster, &cfg)
-            : cudaOccupancyMaxActiveClusters(max_clusters, ola_fwd_cluster, &cfg);
+  err = vjp ? cudaOccupancyMaxActiveClusters(max_clusters, ola_bwd_cluster<4>, &cfg)
+            : cudaOccupancyMaxActiveClusters(max_clusters, ola_fwd_cluster<4>, &cfg);
   return finish(err);
 }
 

@@ -15,3 +15,11 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def float32_products() -> None:
+    """TF32 off for float32 matmuls and convolutions on the card (process-wide
+    switches of torch): the port's float32 products are held against the
+    JAX package's float32 ones, which TF32 would not match."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -137,8 +137,8 @@ from aware_tpu_torch.ops.kernels.iteration import (
     step_buffers,
 )
 from aware_tpu_torch.ops.kernels.ola_norm import ola_normalize
+from aware_tpu_torch.ops.kernels.ola_norm import slabs as ola_slabs
 from aware_tpu_torch.ops.kernels.roundtrip import (
-    PAD,
     R,
     band_analysis,
     edge_corrections,
@@ -179,17 +179,22 @@ class EmbedResult(NamedTuple):
 
 
 def check_supported(cfg: AwareConfig) -> None:
-    """Raise for a configuration that would need a path not ported."""
+    """Raise ValueError for a configuration that the JAX package cannot run
+    either, NotImplementedError for one that would need a path not ported."""
+    n_fft, hop = cfg.frame_length, cfg.hop_length
+    if cfg.win_length != n_fft:
+        raise ValueError(
+            f"win_length {cfg.win_length} != frame_length {n_fft}: the window is not padded "
+            "to the frame, and the JAX package's STFT raises there too (a (T, n_fft) by "
+            "(win_length,) broadcast)")
+    if cfg.use_pallas_ola and cfg.use_matmul_dft:
+        try:
+            ola_slabs(n_fft, hop)
+        except ValueError as err:
+            raise ValueError(f"use_pallas_ola at {n_fft}/{hop}: {err}") from None
     unported = []
     if cfg.matmul_precision not in MATMUL_PRECISIONS:
         unported.append(f"matmul_precision {cfg.matmul_precision!r}")
-    if cfg.frame_length != R * cfg.hop_length or cfg.hop_length % 128:
-        unported.append(
-            f"frame geometry {cfg.frame_length}/{cfg.hop_length} "
-            "(the kernels need n_fft == 4 * hop, hop % 128 == 0)"
-        )
-    if cfg.win_length != cfg.frame_length:
-        unported.append("win_length != frame_length")
     if cfg.eot_ste_codecs:
         unported.append(
             f"eot_ste_codecs {cfg.eot_ste_codecs!r} (the voice card): these views run the "
@@ -325,11 +330,13 @@ def build_problem(
 
     * not ``use_matmul_dft``: "fft" (``aware_tpu/embed/solver.py:638-652``);
     * else the out-of-band windowed frames; without the slab decomposition
-      (``use_pallas_ola`` or not ``use_slab_dft``, ``:352-357``) "ola" or
-      "frames" (``:591-616``);
+      (``use_pallas_ola``, not ``use_slab_dft``, or a hop that divides
+      neither n_fft nor n_fft / 2, ``:352-357``) "ola" or "frames"
+      (``:578-600``);
     * else the out-of-band waveform; without the kernels' geometry
-      (``use_pallas_roundtrip=False`` or ``matmul_precision == "highest"``,
-      ``:383-390``) "slab" (``:554-589``);
+      (``use_pallas_roundtrip=False``, ``matmul_precision == "highest"``,
+      n_fft != 4 hop or hop % 128, ``:383-390``) "slab" over its r =
+      n_fft / hop slabs (``:540-576``);
     * else past ``MAX_FRAMES`` frames the time-tiled kernels' constants
       (``:434-443``), and up to it the whole-clip kernels': with
       ``cfg.use_pallas_detector``, where the JAX package's gate holds
@@ -337,8 +344,9 @@ def build_problem(
       constants from the keyed ``net``, and with ``cfg.use_pallas_iteration``
       and no EOT view the whole-iteration kernels' (``:483-511``).
 
-    ``check_supported`` holds the frame geometry every path here assumes
-    (n_fft == 4 hop, hop % 128 == 0)."""
+    The kernel paths are those of n_fft == 4 hop with hop % 128 == 0 (the
+    default card's 1024 / 256, and 2048 / 512 with its 512 padded band
+    columns), as the JAX gate's."""
     n_fft, hop = cfg.frame_length, cfg.hop_length
     dev = audios.device
     window = get_window(cfg.window, cfg.win_length)
@@ -403,7 +411,8 @@ def build_problem(
     ab_in = torch.cat([aw[lo:hi], bw[lo:hi]], dim=0)  # (2nb, n_fft)
     cs_np = np.concatenate([c_np[:, lo:hi], s_np[:, lo:hi]], axis=1)  # (n_fft, 2nb)
 
-    if cfg.use_pallas_ola or not cfg.use_slab_dft:
+    slab_ok = n_fft % hop == 0 and (n_fft // 2) % hop == 0
+    if cfg.use_pallas_ola or not cfg.use_slab_dft or not slab_ok:
         return problem(
             path="ola" if cfg.use_pallas_ola else "frames",
             plain=PlainConsts(cos_in, sin_in, window_t, ab_in,
@@ -413,7 +422,8 @@ def build_problem(
     y_const = istft_synthesis(frames_const, n_fft, hop, window).reshape(
         -1, t_frames - 1, hop
     ).contiguous()
-    if not cfg.use_pallas_roundtrip or cfg.matmul_precision == "highest":
+    kernel_geometry = n_fft == R * hop and hop % 128 == 0
+    if not cfg.use_pallas_roundtrip or cfg.matmul_precision == "highest" or not kernel_geometry:
         # the kernels are single-pass bf16: "highest" keeps the float32 slabs
         return problem(
             path="slab",
@@ -513,13 +523,14 @@ def _plain_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfi
         return net(F.pad(m2, (0, 0, pb.lo, m.shape[1] - pb.hi)), prec), y
     reim = torch.cat([coeffs * c.cos, coeffs * c.sin], dim=-1)  # (B, T, 2nb)
     if pb.path == "slab":
-        # OLA as R shifted row adds of hop-wide slabs; the out-of-band
+        # OLA as r shifted row adds of hop-wide slabs; the out-of-band
         # part enters after the envelope as a waveform
+        r, pad = n_fft // hop, n_fft // 2 // hop
         yd = sum(
-            F.pad(matmul(reim, c.ab[:, k * hop : (k + 1) * hop], prec), (0, 0, k, R - 1 - k))
-            for k in range(R)
+            F.pad(matmul(reim, c.ab[:, k * hop : (k + 1) * hop], prec), (0, 0, k, r - 1 - k))
+            for k in range(r)
         )
-        u = yd[:, PAD : PAD + t_frames - 1] / pb.env + pb.y_const
+        u = yd[:, pad : pad + t_frames - 1] / pb.env + pb.y_const
         # the double peak-norm as one scale: the second max is
         # m1 / (m1 + e) exactly
         m1 = u.abs().amax(dim=(1, 2), keepdim=True)
@@ -527,9 +538,9 @@ def _plain_pred(ct: torch.Tensor, pb: Problem, net: DetectorNet, cfg: AwareConfi
         half = n_fft // 2
         yp = torch.cat(
             [y2[:, 1 : half + 1].flip(-1), y2, y2[:, -half - 1 : -1].flip(-1)], dim=-1
-        ).reshape(batch, t_frames + R - 1, hop)
+        ).reshape(batch, t_frames + r - 1, hop)
         cs2 = sum(matmul(yp[:, k : k + t_frames], c.cs[k * hop : (k + 1) * hop], prec)
-                  for k in range(R))
+                  for k in range(r))
     else:
         frames = c.frames_const + matmul(reim, c.ab, prec)  # (B, T, n_fft)
         if pb.path == "ola":
@@ -674,14 +685,29 @@ def solve(pb: Problem, net: DetectorNet, cfg: AwareConfig):
         return _solve_autograd(pb, net, cfg)
 
 
+def warm_start(pb: Problem, init_coeffs: torch.Tensor | None) -> None:
+    """Start the solve at ``init_coeffs`` (B, n_band, T) instead of the
+    unperturbed magnitudes: mapped into the carry layout first, then
+    clipped into the box, as ``aware_tpu/embed/solver.py:797-802``; the
+    solvers' best snapshot (and on "iteration_step" the kernel's state)
+    start there."""
+    if init_coeffs is None:
+        return
+    warm = torch.zeros_like(pb.ct0)
+    warm[..., : pb.nb] = init_coeffs.to(pb.ct0).transpose(1, 2)
+    pb.ct0 = torch.minimum(torch.maximum(warm, pb.lower), pb.upper)
+
+
 def embed_batch(
     net: DetectorNet,
     audios: torch.Tensor,
     watermarks: torch.Tensor,
     cfg: AwareConfig,
+    init_coeffs: torch.Tensor | None = None,
 ) -> EmbedResult:
     """Embed B bipolar patterns (B, n_bits) into B equal-length clips
-    (B, L), all on ``audios.device``."""
+    (B, L), all on ``audios.device``; ``init_coeffs`` (B, n_band, T)
+    warm-starts the solve (``warm_start``)."""
     if cfg.optimizer_name == "lbfgs":
         raise ValueError(
             "lbfgs is a host-loop optimizer over one clip and cannot run in the batched "
@@ -689,6 +715,7 @@ def embed_batch(
         )
     check_supported(cfg)
     pb = build_problem(net, audios, watermarks, cfg)
+    warm_start(pb, init_coeffs)
     best, best_loss, loss = solve(pb, net, cfg)
     with torch.no_grad():
         best_coeffs = best[..., : pb.nb].transpose(1, 2)
@@ -701,9 +728,11 @@ def embed_lbfgs(
     audio: torch.Tensor,
     watermark: torch.Tensor,
     cfg: AwareConfig,
+    init_coeffs: torch.Tensor | None = None,
 ) -> EmbedResult:
     """L-BFGS embed of one clip (L,) with a bipolar pattern (n_bits,), on
-    ``audio.device``: the port of ``aware_tpu/embed/solver.py:825-883``.
+    ``audio.device``: the port of ``aware_tpu/embed/solver.py:825-883``;
+    ``init_coeffs`` (n_band, T) warm-starts it, clipped into the box.
 
     One quasi-Newton iteration (``embed/lbfgs.py``) per solver iteration,
     on the flat (T, P) carry, with one value and gradient of the objective
@@ -716,6 +745,7 @@ def embed_lbfgs(
     ((T-1)*hop,), scalar losses, coeffs (n_band, T)."""
     check_supported(cfg)
     pb = build_problem(net, audio[None], watermark[None], cfg)
+    warm_start(pb, None if init_coeffs is None else init_coeffs[None])
     params = cfg.opt_params
     mem = LBFGSMemory(history_size=int(params.get("history_size", HISTORY_SIZE)))
     sched = get_scheduler(cfg.scheduler_name, **cfg.sched_params)

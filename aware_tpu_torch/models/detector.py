@@ -166,6 +166,15 @@ class DetectorNet(nn.Module):
         product at ``precision`` (:func:`matmul`)."""
         return self._stack(matmul(self.mel_basis, mag, precision), precision)
 
+    def forward_with(self, params: dict[str, torch.Tensor], mag: torch.Tensor,
+                     precision: str = "highest") -> torch.Tensor:
+        """:meth:`forward` with the conv weights of ``params`` (the JAX
+        package's names) in place of the module's frozen ones, through
+        ``torch.func.functional_call``: differentiable w.r.t. them, for
+        training the detector jointly.  The serving path keeps the
+        buffers."""
+        return torch.func.functional_call(self, params, (mag, precision))
+
     def forward_banded(self, band_mag: torch.Tensor, lo: int, hi: int,
                        precision: str = "highest") -> torch.Tensor:
         """Forward from the in-band rows (..., hi-lo, T) alone: identical to
@@ -242,9 +251,17 @@ def detect_values_batch(
     precision: str = "highest",
 ) -> torch.Tensor:
     """Waveforms (B, L) -> detector values (B, output_length), the
-    detector's products at ``precision`` (:func:`matmul`)."""
+    detector's products at ``precision`` (:func:`matmul`).  The frames are
+    the net's n_fft long and the window the card's ``win_length``, as in
+    the JAX package's ``detect_values``: a card whose frame length is not
+    the net's n_fft raises ValueError here, as the JAX package's broadcast
+    of the window over the frames does."""
     cfg = net.cfg
     w = get_window(window, win_length or cfg.n_fft)
+    if len(w) != cfg.n_fft:
+        raise ValueError(
+            f"Incompatible shapes for broadcasting: frames (T, {cfg.n_fft}) of the detector's "
+            f"n_fft and a window of {len(w)} (the card's win_length)")
     lo, hi = in_band_bins(cfg.sample_rate, cfg.n_fft, embedding_bands)
     with torch.no_grad():
         return net(preprocess_magnitude(audios, cfg.n_fft, hop_length, w, lo, hi), precision)

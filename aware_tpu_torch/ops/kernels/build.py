@@ -73,11 +73,11 @@ SIGNATURES = {
     "aw_synth_tiled_reim": [_P] * 4 + [_I] * 3 + [_P],
     "aw_synth_tiled_gemm": [_P] * 6 + [_I] * 7 + [_P],
     "aw_synth_tiled_fwd_wmma": [_P] * 7 + [_I] * 5 + [_P],
-    "aw_ola_fwd_stream": [_P] * 4 + [_I] * 3 + [_P],
-    "aw_ola_bwd_stream": [_P] * 8 + [_I] * 3 + [_P],
+    "aw_ola_fwd_stream": [_P] * 4 + [_I] * 5 + [_P],
+    "aw_ola_bwd_stream": [_P] * 8 + [_I] * 5 + [_P],
     # the cluster variant takes the cluster size last
-    "aw_ola_fwd_cluster": [_P] * 4 + [_I] * 4 + [_P],
-    "aw_ola_bwd_cluster": [_P] * 5 + [_I] * 4 + [_P],
+    "aw_ola_fwd_cluster": [_P] * 4 + [_I] * 6 + [_P],
+    "aw_ola_bwd_cluster": [_P] * 5 + [_I] * 6 + [_P],
     "aw_ola_cluster_config": [_I] * 4 + [_P] * 5,
     # x, coefs, zi (null for none), y, then batch, length and the state
     # length (lfilter) or the sections (sosfilt)

@@ -1,5 +1,6 @@
-"""Service layer: load / embed / detect, the pattern codec, the ECC
-message layer, desync-robust detection and streaming localization."""
+"""Service layer: load / embed / detect, the one-shot and turbo embeds, the
+pattern codec, the ECC message layer, desync-robust detection and
+streaming localization."""
 
 from aware_tpu_torch.service.api import (
     AWAREDetector,
@@ -19,6 +20,7 @@ from aware_tpu_torch.service.ecc import (
     embed_message,
     encode_message,
 )
+from aware_tpu_torch.service.fast import embed_watermark_oneshot, embed_watermark_turbo
 from aware_tpu_torch.service.robust import detect_watermark_robust
 from aware_tpu_torch.service.streaming import (
     StreamingDetector,
@@ -27,6 +29,8 @@ from aware_tpu_torch.service.streaming import (
 )
 
 __all__ = [
+    "embed_watermark_oneshot",
+    "embed_watermark_turbo",
     "detect_watermark_robust",
     "AWAREEmbedder",
     "AWAREDetector",

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from aware_tpu_torch.config import AwareConfig, DetectorNetConfig
-from aware_tpu_torch.device import resolve_device
+from aware_tpu_torch.device import float32_products, resolve_device
 from aware_tpu_torch.embed.losses import get_loss_fn
 from aware_tpu_torch.embed.optim import get_optimizer
 from aware_tpu_torch.embed.schedulers import get_scheduler
@@ -214,8 +214,7 @@ def load(
         raise NotImplementedError(
             "only the default detector architecture has key bundles in the port"
         )
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    float32_products()
     net = DetectorNet(params_from_jax(load_key_params(net_cfg.key_file)), net_cfg).to(dev)
     return (
         AWAREEmbedder(net=net, cfg=cfg, device=dev),

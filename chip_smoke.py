@@ -228,6 +228,30 @@ with a non-zero exit on any error:
    python -m aware_tpu_torch as subprocesses: embed --message, detect
    --message-k (the message back) and detect --robust on a (9, 10) speed
    change of the marked file (0 % BER).
+11. the frame geometries and the amortized embedder: (a) 768/192,
+   1024/512, 2048/256 (the float32 slab path at r = 4, 2, 8) and 1024/200
+   (the frames path) on the phase 3 clips (8 x 10 s x 400): the path, no
+   kernel launched, the embed s and peak memory, 0 % BER where the
+   detector's n_fft is the frame length and detection's ValueError
+   elsewhere (the JAX package's behaviour); (b) 2048/512, T = 313, P = 512
+   ("band_analysis"): a 400-iteration solve with 400 launches of each of
+   rows 1-4 and no other kernel, every lane's loss lowered, a 10-iteration
+   card-vs-CPU solve, and rows 1-4 on its operands against their plain
+   versions (phase 2's tolerance) timed in turns beside their bounds; one
+   40 s pair (T = 1251, the tiled path) over a 20-iteration solve, rows
+   12-13 held and timed the same way; rows 14-15 at r = 2 (1024/512), 4
+   (768/192) and 8 (2048/256) on "ola", both variants against the plain
+   version (the cluster forward the stream forward's bits), with a
+   20-iteration solve's launches; each reading kept in the kernel's record
+   under "geometries"; (c) each one-shot variant and a U-Net bundle
+   (amortized_embed) on the phase 3 clips (ms a clip, BER and SNR
+   readings), one clip against the CPU's to ONESHOT_TOL; (d) the turbo
+   embed of each clip at 100 iterations (row 11 x 100 a clip, 0 % BER), 20
+   adversarial steps at 8 x 2 s with the desync and compression branches
+   and a joint step (finite losses, steps/s), a checkpoint round trip,
+   generate_targets of 8 clips at 20 iterations (row 11 x 20) and 5 steps
+   of each distill step (finite losses); (e) python -m aware_tpu_torch
+   embed --oneshot --variant diverse, then detect, as subprocesses.
 
 The last lines are one JSON object with a record per kernel
 ({"kernels": [...]}), nvidia-smi's name/power line, and
@@ -2924,6 +2948,470 @@ def services(torch, kernels, emb, det, clips, default_out, bits, turbo, plain_ev
     say(f"phase 10: {time.perf_counter() - t0:.1f} s ({smi})")
 
 
+# ---- phase 11: the frame geometries and the amortized embedder
+
+# the frame geometries the JAX gate takes off the default kernels, each
+# with the path both gates take (n_fft, hop) -> path
+GEOMETRY_PATHS = {(768, 192): "slab", (1024, 512): "slab", (2048, 256): "slab",
+                  (1024, 200): "frames"}
+OLA_GEOMETRIES = ((1024, 512), (768, 192), (2048, 256))  # rows 14-15 at r = 2, 4, 8
+KERNEL_GEOMETRY = (2048, 512)  # rows 1-4 at P = 512, hop = 512; past 1024 frames rows 12-13
+SHORT_ITERS = 20  # the solves that count a geometry's launches
+TURBO_ITERS = 100
+TRAIN_STEPS = 20
+DISTILL_STEPS = 5
+ONESHOT_TOL = 1e-4  # one clip's one-shot embed, card against CPU (float32, TF32 off)
+
+
+def _geometry(n_fft: int, hop: int, **flags) -> dict:
+    return dict(frame_length=n_fft, hop_length=hop, win_length=n_fft, **flags)
+
+
+def _counted(torch, kernels, run):
+    """``run()`` with every count set to 0 just before and read just
+    after: (its result, wall s, {kernel: launches} of those launched)."""
+    for k in kernels:
+        k.launches = 0
+        if hasattr(k, "variants"):
+            k.variants = dict.fromkeys(k.variants, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k.__name__: k.launches for k in kernels if k.launches}
+
+
+def _snr(out, ref) -> np.ndarray:
+    ref = ref[:, : out.shape[1]]
+    return 10 * np.log10(np.mean(out**2, 1) / np.mean((out - ref) ** 2, 1))
+
+
+def frame_geometries(torch, kernels, clips, bits, smi) -> None:
+    """Phase 11 (a): 768/192, 1024/512, 2048/256 and 1024/200 on the
+    phase 3 clips (8 x 10 s x 400): the path, no kernel launched, the embed
+    s and peak memory, the BER where the JAX package detects (frame length
+    1024: 0 % on every lane) and the ValueError where it raises."""
+    from aware_tpu_torch import detect_watermark_batch, embed_watermark_batch, load
+    from aware_tpu_torch.embed.solver import build_problem
+
+    dev = torch.device("cuda")
+    x = torch.as_tensor(clips, device=dev)
+    wm = torch.as_tensor(2.0 * bits - 1.0, device=dev, dtype=torch.float32)
+    for (n_fft, hop), path in GEOMETRY_PATHS.items():
+        emb, det = load(device=dev, **_geometry(n_fft, hop))
+        sr = emb.cfg.detection_net.sample_rate
+        got = build_problem(det.net, x, wm, emb.cfg).path
+        if got != path:
+            raise RuntimeError(f"{n_fft}/{hop} took the {got} path, not {path}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, embed_s, launched = _counted(
+            torch, kernels, lambda: embed_watermark_batch(clips, sr, bits, emb))
+        n_out = (clips.shape[1] // hop) * hop
+        if out.shape != (BATCH, n_out) or not np.isfinite(out).all() or launched:
+            raise RuntimeError(f"{n_fft}/{hop}: output {out.shape}, kernels {launched}")
+        if n_fft == emb.cfg.detection_net.n_fft:
+            ber = np.mean(detect_watermark_batch(out, sr, det) != bits, axis=1) * 100.0
+            read = f"BER % per lane {ber.tolist()}"
+            if ber.any():
+                raise RuntimeError(f"{n_fft}/{hop}: a lane did not read back its message")
+        else:
+            try:
+                detect_watermark_batch(out, sr, det)
+            except ValueError as err:
+                read = f"detection raises ValueError as in the JAX package ({err})"
+            else:
+                raise RuntimeError(f"{n_fft}/{hop}: detection did not raise")
+        say(f"phase 11 geometry {n_fft}/{hop} ({path}): B={BATCH} x {clips.shape[1] / sr:g} s x "
+            f"{emb.cfg.num_iterations}: embed {embed_s:.3f} s, mean SNR "
+            f"{_snr(out, clips).mean():.2f} dB, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, no kernel; {read} ({smi})")
+
+
+def _geometry_reading(torch, name, rec, kernel, plain, flops, nbytes, launches, shape,
+                      smi) -> None:
+    """A kernel at a new geometry: held to TOL * max|plain| against its plain
+    version, kernel and plain timed in turns, its bound; kept in the
+    kernel's record under "geometries"."""
+    err = _close_flat(f"{name} at {shape}", kernel(), plain())
+    turns = in_turns(torch, {"ms": kernel, "plain_ms": plain})
+    reading = _record(name, rec["source"], rec["replaces"], err, flops, nbytes)
+    reading.update({k: sum(v) / len(v) for k, v in turns.items()}, launches=launches,
+                   shape=shape)
+    for key in ("name", "route", "source", "replaces", "library_ms"):
+        reading.pop(key)
+    rec.setdefault("geometries", []).append(reading)
+    say(f"phase 11 kernel {name} at {shape}: max_abs_err {err:.3e}, in turns (kernel, plain, "
+        f"then reversed) device ms " + "; ".join(f"{k} {v[0]:.5f} {v[1]:.5f}"
+                                                 for k, v in turns.items())
+        + f", bound_us {reading['bound_ms'] * 1e3:.2f} ({reading['bound_by']}), launches "
+        f"{launches} ({smi})")
+
+
+def kernel_geometry(torch, kernels, records, clips, bits, rng, smi) -> None:
+    """Phase 11 (b): rows 1-4 at 2048/512 on the phase 3 clips (B = 8,
+    T = 313, P = 512): a 400-iteration solve on "band_analysis" (400
+    launches each, no other kernel), each against its plain version and
+    timed in turns, a 10-iteration card-vs-CPU solve; rows 12-13 on one
+    40 s pair (T = 1251, the tiled path) held the same way over a short
+    solve; rows 14-15 at r = 2, 4 (hop 192) and 8 on "ola", each variant
+    against the plain version, with a short solve's launches."""
+    from aware_tpu_torch import load
+    from aware_tpu_torch.embed.solver import build_problem, embed_batch
+    from aware_tpu_torch.ops.kernels import ola_norm as on
+    from aware_tpu_torch.ops.kernels import roundtrip as rt
+    from aware_tpu_torch.ops.kernels import roundtrip_tiled as rtt
+
+    dev = torch.device("cuda")
+    n_fft, hop = KERNEL_GEOMETRY
+    emb, det = load(device=dev, **_geometry(n_fft, hop))
+    cfg = emb.cfg
+    sr = cfg.detection_net.sample_rate
+    x = torch.as_tensor(clips, device=dev)
+    wm = torch.as_tensor(2.0 * bits - 1.0, device=dev, dtype=torch.float32)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)
+
+    pb = build_problem(det.net, x, wm, cfg)
+    bsz, t, p = pb.ct0.shape
+    if (pb.path, t, p) != ("band_analysis", clips.shape[1] // hop + 1, 512):
+        raise RuntimeError(f"{n_fft}/{hop}: {pb.path} at T = {t}, P = {p}")
+    lr = t - 1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, embed_s, launched = _counted(torch, kernels, lambda: embed_batch(det.net, x, wm, cfg))
+    per = {k: cfg.num_iterations for k in ("synth_norm_fwd", "synth_norm_bwd",
+                                           "band_analysis_fwd", "band_analysis_bwd")}
+    finite = torch.isfinite(res.audio).all() and torch.isfinite(res.best_loss).all()
+    if launched != per or not finite:
+        raise RuntimeError(f"{n_fft}/{hop}: launches {launched}, not {per}, or a non-finite result")
+    ref = embed_batch(det.net, x, wm, cfg.replace(num_iterations=1))
+    say(f"phase 11 {n_fft}/{hop} (band_analysis, T = {t}, P = {p}): B={BATCH} x "
+        f"{clips.shape[1] / sr:g} s x "
+        f"{cfg.num_iterations}: embed {embed_s:.3f} s, best loss per lane "
+        f"{[round(v, 4) for v in res.best_loss.tolist()]} (first iteration's "
+        f"{[round(v, 4) for v in ref.final_loss.tolist()]}), mean SNR "
+        f"{_snr(res.audio.cpu().numpy(), clips).mean():.2f} dB, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, launches {launched} ({smi})")
+    if not (res.best_loss < ref.final_loss).all():
+        raise RuntimeError(f"{n_fft}/{hop}: the solve did not lower every lane's loss")
+    pair = clips[:2, : 2 * sr]
+    short = cfg.replace(num_iterations=10)
+    _, det_c = load(device="cpu", **_geometry(n_fft, hop))
+    res_k = embed_batch(det.net, torch.as_tensor(pair, device=dev), wm[:2], short)
+    res_p = embed_batch(det_c.net, torch.as_tensor(pair), wm[:2].cpu(), short)
+    dloss = float((res_k.best_loss.cpu() - res_p.best_loss).abs().max())
+    say(f"phase 11 reference, {n_fft}/{hop}: 10-iteration best_loss card vs CPU plain |diff| "
+        f"{dloss:.3e} ({smi})")
+    if not dloss < 0.02:
+        raise RuntimeError(f"{n_fft}/{hop}: the card's solve departs from the plain solve")
+
+    ct = pb.ct0.contiguous()
+    y2, m1 = rt.synth_norm_fwd_plain(ct, pb.csin, pb.y_const, pb.env, pb.ab)
+    g_y2, g_cs = rand(bsz, lr, hop), rand(bsz, t, 2 * p)
+    basis = n_fft * 2 * p * BF16
+    y2_bytes, cs_bytes = bsz * lr * hop * F32, bsz * t * 2 * p * F32
+    shape = f"{n_fft}/{hop}, B={bsz}, T={t}, P={p}"
+    for name, kernel, plain, flops, nbytes in (
+        ("synth_norm_fwd", lambda: rt.synth_norm_fwd(ct, pb.csin, pb.y_const, pb.env, pb.ab),
+         lambda: rt.synth_norm_fwd_plain(ct, pb.csin, pb.y_const, pb.env, pb.ab),
+         2 * bsz * lr * hop * (rt.R * 2 * p),
+         bsz * t * p * F32 + bsz * t * 2 * p * BF16 + 2 * y2_bytes + lr * hop * F32 + basis
+         + bsz * F32),
+        ("synth_norm_bwd", lambda: rt.synth_norm_bwd(g_y2, y2, m1, pb.csin, pb.env, pb.abt),
+         lambda: rt.synth_norm_bwd_plain(g_y2, y2, m1, pb.csin, pb.env, pb.abt),
+         2 * bsz * t * (2 * p) * (rt.R * hop) + 2 * bsz * t * p,
+         2 * y2_bytes + bsz * F32 + bsz * t * 2 * p * BF16 + lr * hop * F32 + basis
+         + bsz * t * p * F32),
+        ("band_analysis_fwd", lambda: rt.band_analysis_fwd(y2, pb.csw),
+         lambda: rt.band_analysis_fwd_plain(y2, pb.csw),
+         2 * bsz * t * (2 * p) * (rt.R * hop), y2_bytes + basis + cs_bytes),
+        ("band_analysis_bwd", lambda: rt.band_analysis_bwd(g_cs, pb.cswt),
+         lambda: rt.band_analysis_bwd_plain(g_cs, pb.cswt),
+         2 * bsz * lr * hop * (rt.R * 2 * p), cs_bytes + basis + y2_bytes),
+    ):
+        _geometry_reading(torch, name, records[name], kernel, plain, flops, nbytes,
+                          launched[name], shape, smi)
+    del pb, y2, g_y2, g_cs
+
+    # rows 12-13: one 40 s pair past 1024 frames
+    long_rng = np.random.default_rng([int(rng.integers(1 << 30)), 40])
+    pair = np.stack([speechlike(long_rng, 40.0, sr) for _ in range(2)])
+    xl = torch.as_tensor(pair, device=dev)
+    pb = build_problem(det.net, xl, wm[:2], cfg)
+    _, t, p = pb.ct0.shape
+    if (pb.path, t) != ("tiled", pair.shape[1] // hop + 1):
+        raise RuntimeError(f"40 s at {n_fft}/{hop}: {pb.path} at T = {t}")
+    scfg = cfg.replace(num_iterations=SHORT_ITERS)
+    res, long_s, launched = _counted(torch, kernels,
+                                     lambda: embed_batch(det.net, xl, wm[:2], scfg))
+    want = {"shift_mm": 3 * SHORT_ITERS, "synth_tiled_fwd": SHORT_ITERS}
+    if launched != want or not torch.isfinite(res.audio).all():
+        raise RuntimeError(f"40 s at {n_fft}/{hop}: launches {launched}, not {want}")
+    say(f"phase 11 {n_fft}/{hop} 40 s pair (tiled, T = {t}): {SHORT_ITERS} iterations in "
+        f"{long_s:.3f} s, launches {launched} ({smi})")
+    tc, ct, lr = pb.tiled, pb.ct0.contiguous(), t - 1
+    u, _ = rtt.synth_tiled_fwd_plain(ct, tc.csinp, pb.y_const, pb.env, tc.w_sf)
+    xa = torch.nn.functional.pad(u, (0, 0, rtt.HALO - 1, 0)).contiguous()
+    rows = rtt.m1_rows(lr)
+    shape = f"{n_fft}/{hop}, B=2, T={t}, P={p}"
+    _geometry_reading(
+        torch, "shift_mm", records["shift_mm"], lambda: rtt.shift_mm(xa, tc.w_af, t),
+        lambda: rtt.shift_mm_plain(xa, tc.w_af, t), 2 * 2 * t * hop * (rtt.R * 2 * p),
+        xa.numel() * F32 + tc.w_af.numel() * BF16 + 2 * t * 2 * p * F32, launched["shift_mm"],
+        shape + " (the analysis use)", smi)
+    _geometry_reading(
+        torch, "synth_tiled_fwd", records["synth_tiled_fwd"],
+        lambda: rtt.synth_tiled_fwd(ct, tc.csinp, pb.y_const, pb.env, tc.w_sf),
+        lambda: rtt.synth_tiled_fwd_plain(ct, tc.csinp, pb.y_const, pb.env, tc.w_sf),
+        2 * 2 * rows * hop * (rtt.R * 2 * p),
+        ct.numel() * F32 + tc.csinp.numel() * F32 + 2 * pb.y_const.numel() * F32
+        + pb.env.numel() * F32 + tc.w_sf.numel() * BF16 + 2 * F32,
+        launched["synth_tiled_fwd"], shape, smi)
+    del pb, u, xa, res
+
+    # rows 14-15 at r = 2, 4 (hop 192) and 8
+    for n_fft_o, hop_o in OLA_GEOMETRIES:
+        e_o, d_o = load(device=dev, **_geometry(n_fft_o, hop_o, use_pallas_ola=True))
+        pb = build_problem(d_o.net, x, wm, e_o.cfg)
+        if pb.path != "ola":
+            raise RuntimeError(f"use_pallas_ola at {n_fft_o}/{hop_o} took {pb.path}")
+        bsz, t, _ = pb.ct0.shape
+        r = n_fft_o // hop_o
+        c = pb.plain
+        coeffs = pb.ct0[..., : pb.nb]
+        frames = (c.frames_const + torch.cat([coeffs * c.cos, coeffs * c.sin], -1) @ c.ab
+                  ).contiguous()
+        y2p, m1p = on.ola_normalize_fwd_plain(frames, pb.env)
+        g = rand(*y2p.shape)
+        ref = on.ola_normalize_bwd_plain(g, y2p, pb.env, m1p, n_fft_o)
+        outs = {v: on._ola_fwd_variant(frames, pb.env, v) for v in on.VARIANTS}
+        err_f = max(max(_close_ola(f"ola_normalize_fwd {v} r={r}", yy, y2p, OLA_FWD_TOL),
+                        _close_ola(f"ola_normalize_fwd {v} r={r} m1", mm, m1p, OLA_FWD_TOL))
+                    for v, (yy, mm) in outs.items())
+        if not all(torch.equal(a, b) for a, b in zip(outs["cluster"], outs["stream"])):
+            raise RuntimeError(f"ola_normalize_fwd r={r}: the variants' bits differ")
+        err_b = max(_close_ola(f"ola_normalize_bwd {v} r={r}",
+                               on._ola_bwd_variant(g, y2p, pb.env, m1p, v, n_fft=n_fft_o), ref,
+                               OLA_VJP_TOL) for v in on.VARIANTS)
+        scfg = e_o.cfg.replace(num_iterations=SHORT_ITERS)
+        res, ola_s, launched = _counted(torch, kernels,
+                                        lambda: embed_batch(d_o.net, x, wm, scfg))
+        want = {"ola_normalize_fwd": SHORT_ITERS, "ola_normalize_bwd": SHORT_ITERS}
+        variants = {k.__name__: dict(k.variants) for k in on.KERNELS}
+        if launched != want or not torch.isfinite(res.audio).all():
+            raise RuntimeError(f"ola r={r}: launches {launched}, not {want}")
+        say(f"phase 11 ola r={r} ({n_fft_o}/{hop_o}, T = {t}): {SHORT_ITERS} iterations in "
+            f"{ola_s:.3f} s, launches by variant {variants}; max_abs_err fwd {err_f:.3e} "
+            f"VJP {err_b:.3e} (every variant) ({smi})")
+        rows = bsz * (t - 1) * hop_o * F32
+        shape = f"{n_fft_o}/{hop_o} (r={r}), B={bsz}, T={t}"
+        _geometry_reading(
+            torch, "ola_normalize_fwd", records["ola_normalize_fwd"],
+            lambda: on.ola_normalize_fwd(frames, pb.env),
+            lambda: on.ola_normalize_fwd_plain(frames, pb.env), 0,
+            frames.numel() * F32 + pb.env.numel() * F32 + rows + bsz * F32,
+            launched["ola_normalize_fwd"], shape, smi)
+        _geometry_reading(
+            torch, "ola_normalize_bwd", records["ola_normalize_bwd"],
+            lambda: on.ola_normalize_bwd(g, y2p, pb.env, m1p, n_fft_o),
+            lambda: on.ola_normalize_bwd_plain(g, y2p, pb.env, m1p, n_fft_o), 0,
+            2 * rows + pb.env.numel() * F32 + bsz * F32 + frames.numel() * F32,
+            launched["ola_normalize_bwd"], shape, smi)
+        del pb, frames, res
+
+
+def oneshot_and_turbo(torch, kernels, records, emb, det, clips, bits, smi) -> None:
+    """Phase 11 (c) and the turbo half of (d): each one-shot variant and
+    a U-Net bundle (``amortized_embed``) on the phase 3 clips (BER and SNR
+    readings, s a clip), one clip against the CPU's; the turbo embed of
+    each clip at TURBO_ITERS iterations (row 11 x TURBO_ITERS a clip,
+    0 % BER)."""
+    from aware_tpu_torch import detect_watermark_batch, load
+    from aware_tpu_torch.models.detector import KEY_DIR
+    from aware_tpu_torch.service import fast
+    from aware_tpu_torch.train.adversarial import amortized_embed
+
+    sr = emb.cfg.detection_net.sample_rate
+    for variant in sorted(fast._VARIANTS):
+        outs, wall, launched = _counted(torch, kernels, lambda: np.stack([
+            fast.embed_watermark_oneshot(c, sr, b, emb, variant=variant)
+            for c, b in zip(clips, bits)]))
+        ber = np.mean(detect_watermark_batch(outs, sr, det) != bits, axis=1) * 100.0
+        if launched or not np.isfinite(outs).all():
+            raise RuntimeError(f"one-shot {variant}: kernels {launched} or a non-finite output")
+        say(f"phase 11 one-shot {variant}: {wall / BATCH * 1e3:.2f} ms a "
+            f"{clips.shape[1] / sr:g} s clip, BER % per "
+            f"lane {ber.tolist()} (mean {ber.mean():.2f}), mean SNR "
+            f"{_snr(outs, clips).mean():.2f} dB ({smi})")
+    with np.load(KEY_DIR / "amortized_unet_speech.npz") as z:
+        unet = {k: z[k] for k in z.files}
+    pats = 2.0 * bits - 1.0
+    outs, wall, _ = _counted(torch, kernels, lambda: np.stack([
+        amortized_embed(unet, None, c, p, emb.cfg) for c, p in zip(clips, pats)]))
+    ber = np.mean(detect_watermark_batch(outs, sr, det) != bits, axis=1) * 100.0
+    say(f"phase 11 amortized_embed, U-Net (amortized_unet_speech): {wall / BATCH * 1e3:.2f} ms "
+        f"a clip, BER % per lane {ber.tolist()}, mean SNR {_snr(outs, clips).mean():.2f} dB "
+        f"({smi})")
+    emb_c, _ = load(device="cpu")
+    card = fast.embed_watermark_oneshot(clips[0], sr, bits[0], emb)
+    cpu = fast.embed_watermark_oneshot(clips[0], sr, bits[0], emb_c)
+    diff = float(np.abs(card - cpu).max())
+    say(f"phase 11 one-shot default, clip 0: card vs CPU max |diff| {diff:.3e} ({smi})")
+    if not diff <= ONESHOT_TOL:
+        raise RuntimeError(f"the one-shot embed departs from the CPU's by {diff:.3e}")
+
+    outs, wall, launched = _counted(torch, kernels, lambda: np.stack([
+        fast.embed_watermark_turbo(c, sr, b, emb, num_iterations=TURBO_ITERS)
+        for c, b in zip(clips, bits)]))
+    ber = np.mean(detect_watermark_batch(outs, sr, det) != bits, axis=1) * 100.0
+    want = {"iteration_step": BATCH * TURBO_ITERS}
+    say(f"phase 11 turbo ({TURBO_ITERS} iterations from the default bundle): "
+        f"{wall / BATCH:.3f} s a {clips.shape[1] / sr:g} s clip, BER % per lane {ber.tolist()}, "
+        f"mean SNR "
+        f"{_snr(outs, clips).mean():.2f} dB, launches {launched} ({smi})")
+    if launched != want or ber.any():
+        raise RuntimeError(f"turbo: launches {launched}, not {want}, or a lane lost bits")
+    records["iteration_step"]["turbo_launches"] = launched["iteration_step"]
+
+
+def training(torch, kernels, records, emb, smi) -> None:
+    """Phase 11 (d): TRAIN_STEPS adversarial steps on 8 x 2 s diverse clips
+    with the desync and compression branches, a joint step (detector_lr,
+    dual view), a checkpoint round trip; generate_targets of 8 clips at
+    SHORT_ITERS iterations (row 11 x SHORT_ITERS) and DISTILL_STEPS steps
+    of each distill step: every loss finite."""
+    import tempfile
+
+    from aware_tpu_torch.models.detector import load_key_params
+    from aware_tpu_torch.train import adversarial as adv
+    from aware_tpu_torch.train import distill
+
+    cfg = emb.cfg
+    d_params = load_key_params()
+    clips = np.stack([distill.diverse_clip(i, 2.0) for i in range(BATCH)])
+    rng = np.random.default_rng(5)
+    gen = torch.Generator().manual_seed(5)
+    tcfg = adv.TrainConfig(desync_attacks=True, compression_attacks=True)
+    state = adv.init_train_state(cfg, tcfg, d_params)
+    step = adv.make_train_step(cfg, tcfg)
+    losses = []
+
+    def run():
+        nonlocal state
+        for _ in range(TRAIN_STEPS):
+            state, m = step(state, clips, adv.training_patterns(rng, BATCH, 20), gen)
+            losses.append({k: float(v) for k, v in m.items()})
+
+    _, wall, launched = _counted(torch, kernels, run)
+    say(f"phase 11 adversarial training, B={BATCH} x 2 s, desync + compression branches: "
+        f"{TRAIN_STEPS} steps in {wall:.3f} s ({TRAIN_STEPS / wall:.2f} steps/s); loss first "
+        f"{losses[0]['loss']:.4f} last {losses[-1]['loss']:.4f}, hard_ber last "
+        f"{losses[-1]['hard_ber']:.3f}; kernels {launched} ({smi})")
+    if not all(np.isfinite(v) for m in losses for v in m.values()) or launched:
+        raise RuntimeError("adversarial training: a non-finite metric or a kernel launched")
+    jcfg = adv.TrainConfig(train_detector=True, detector_lr=1e-4, dual_view=True)
+    joint = adv.init_train_state(cfg, jcfg, d_params)
+    t0 = time.perf_counter()
+    joint, m = adv.make_train_step(cfg, jcfg)(joint, clips, adv.training_patterns(rng, BATCH, 20),
+                                              gen)
+    torch.cuda.synchronize()
+    say(f"phase 11 joint step (detector_lr 1e-4, dual view): {time.perf_counter() - t0:.3f} s, "
+        f"loss {float(m['loss']):.4f} ({smi})")
+    if not np.isfinite(float(m["loss"])):
+        raise RuntimeError("the joint step's loss is not finite")
+    with tempfile.TemporaryDirectory() as tmp:
+        adv.save_checkpoint(tmp, joint)
+        back = adv.restore_checkpoint(tmp)
+    same = all(torch.equal(back.e_params[k], joint.e_params[k]) for k in joint.e_params) and all(
+        torch.equal(back.d_params[k], joint.d_params[k]) for k in joint.d_params)
+    say(f"phase 11 checkpoint round trip: step {back.step}, the same tensors: {same} ({smi})")
+    if not same or back.step != joint.step:
+        raise RuntimeError("the checkpoint round trip changed the state")
+
+    targets, wall, launched = _counted(torch, kernels, lambda: distill.generate_targets(
+        emb.net, cfg, BATCH, batch=BATCH, seed=0, solver_iterations=SHORT_ITERS))
+    clips_t, bands, pats, tgt = targets
+    want = {"iteration_step": SHORT_ITERS}
+    say(f"phase 11 generate_targets, {BATCH} x 2 s x {SHORT_ITERS} iterations: {wall:.3f} s, "
+        f"launches {launched} ({smi})")
+    if launched != want or not np.isfinite(tgt).all():
+        raise RuntimeError(f"generate_targets: launches {launched}, not {want}")
+    records["iteration_step"]["generate_targets_launches"] = launched["iteration_step"]
+    for name, make, ecfg, batch in (
+        ("make_distill_step", distill.make_distill_step, adv.AmortizedEmbedderConfig(),
+         (bands, pats, tgt)),
+        ("make_distill_step_visible", distill.make_distill_step_visible,
+         adv.AmortizedEmbedderConfig(phase_conditioned=True), (clips_t, pats, tgt)),
+    ):
+        tc = adv.TrainConfig(embedder=ecfg)
+        e = adv._as_params(adv.init_embedder_params(ecfg, bands.shape[1], 20), emb.device)
+        st = adv.TrainState(e, adv._as_params(d_params, emb.device),
+                            distill.distill_optimizer(tc).init({"e": e}), 0)
+        fn = make(cfg, tc)
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(DISTILL_STEPS):
+            st, m = fn(st, *batch)
+            out.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        say(f"phase 11 {name}: {DISTILL_STEPS} steps in {time.perf_counter() - t0:.3f} s, "
+            f"losses {[round(v, 4) for v in out]} ({smi})")
+        if not np.isfinite(out).all():
+            raise RuntimeError(f"{name}: a non-finite loss")
+
+
+def oneshot_command_line(torch, clips, bits, sr, smi) -> None:
+    """Phase 11 (e): python -m aware_tpu_torch embed --oneshot --variant
+    diverse, then detect, as subprocesses."""
+    import os
+    import pathlib
+    import tempfile
+
+    from aware_tpu_torch.utils.io import write_wav
+
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    word = "".join(map(str, bits))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = f"{tmp}/in.wav", f"{tmp}/oneshot.wav"
+        write_wav(src, clips, sr)
+        lines = []
+        for argv in (["embed", src, out, "--oneshot", "--variant", "diverse", "--bits", word],
+                     ["detect", out]):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-m", "aware_tpu_torch", *argv], cwd=root,
+                                 env=env, capture_output=True, text=True, timeout=600)
+            if run.returncode != 0:
+                raise RuntimeError(f"aware_tpu_torch {argv[0]} failed ({run.returncode}):\n"
+                                   f"{run.stdout}{run.stderr}")
+            lines.append(run.stdout.strip().splitlines()[-1])
+            say(f"phase 11 command line, {' '.join(argv[:1] + argv[3:])}: "
+                f"{time.perf_counter() - t0:.2f} s: {lines[-1]!r} ({smi})")
+    got = lines[-1].split()[-1]
+    if len(got) != len(word):
+        raise RuntimeError(f"detect printed {lines[-1]!r}")
+    say(f"phase 11 command line: one-shot (diverse) bits read back {got} of {word}, BER "
+        f"{np.mean(np.array(list(got)) != np.array(list(word))) * 100:.1f} % ({smi})")
+
+
+def geometries_and_amortized(torch, kernels, records, emb, det, clips, bits, smi,
+                             seed) -> None:
+    """Phase 11: (a) the frame geometries, (b) the kernels at their new
+    shapes, (c) the one-shot embeds, (d) turbo and training, (e) the
+    command line (module docstring)."""
+    t0 = time.perf_counter()
+    say(f"phase 11 card: {smi}")
+    frame_geometries(torch, kernels, clips, bits, smi)
+    kernel_geometry(torch, kernels, records, clips, bits, np.random.default_rng([seed, 11]), smi)
+    oneshot_and_turbo(torch, kernels, records, emb, det, clips, bits, smi)
+    training(torch, kernels, records, emb, smi)
+    oneshot_command_line(torch, clips[0], bits[0], emb.cfg.detection_net.sample_rate, smi)
+    say(f"phase 11: {time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3209,6 +3697,8 @@ def main() -> int:
         # ---- phase 10: the payload and long-form services, the command line
         services(torch, kernels, emb, det, clips, default_out, bits, turbo, plain_eval,
                  plain_wall, smi, args.seed)
+        # ---- phase 11: the frame geometries and the amortized embedder
+        geometries_and_amortized(torch, kernels, records, emb, det, clips, bits, smi, args.seed)
         for name, rec in records.items():
             if rec["launches"] < 1:
                 raise RuntimeError(f"kernel {name} was not launched on any path")

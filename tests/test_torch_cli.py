@@ -9,7 +9,10 @@ command line reading the same files.
 * The two repairs over the JAX command line: the codeword has the
   embedder's ``output_length`` slots, and a ``--message`` with a character
   other than 0 or 1 is refused.
-* ``--oneshot`` / ``--variant`` and ``eval --extended`` raise
+* ``embed --oneshot --variant diverse`` writes the JAX command line's
+  file (to a PCM step) and reads back through ``detect`` as the JAX
+  command line reads it; ``--oneshot`` refuses a 44.1 kHz file and an
+  unknown variant, as the JAX one.  ``eval --extended`` raises
   NotImplementedError; ``eval --robust-detect`` reaches the harness's
   ``robust=True``; an unknown card name is refused.
 """
@@ -120,11 +123,30 @@ def test_non_binary_message_is_refused(files, message):
     assert not out.exists()
 
 
+def test_oneshot_round_trip_as_the_jax_cli(files, capsys):
+    d, _, wav = files
+    ours, ref = str(d / "oneshot.wav"), str(d / "oneshot_jax.wav")
+    main(["embed", wav, ours, "--oneshot", "--variant", "diverse", "--bits", BITS, "--cpu"])
+    jax_main(["embed", wav, ref, "--oneshot", "--variant", "diverse", "--bits", BITS])
+    capsys.readouterr()
+    a, sr = read_wav(ours)
+    b, _ = read_wav(ref)
+    assert sr == 16000 and a.shape == b.shape == (32000,)
+    np.testing.assert_allclose(a, b, atol=2.0 / 32768)
+    main(["detect", ours, "--cpu"])
+    got = capsys.readouterr().out.split()
+    jax_main(["detect", ours])
+    assert got == capsys.readouterr().out.split() and got[0] == "bits:"
+
+
 def test_unported_modes_and_bad_cards(files, monkeypatch):
     d, card, wav = files
-    for extra in (["--oneshot"], ["--variant", "v2"]):
-        with pytest.raises(NotImplementedError, match="service/fast.py"):
-            main(["embed", wav, str(d / "x.wav"), "--cpu", *extra])
+    wav44 = str(d / "in44.wav")
+    write_wav(wav44, ph.synthesize_speech_clip(901)[:22050], 44100)
+    with pytest.raises(SystemExit, match="16 kHz"):
+        main(["embed", wav44, str(d / "x.wav"), "--oneshot", "--cpu"])
+    with pytest.raises(FileNotFoundError, match="v2"):
+        main(["embed", wav, str(d / "x.wav"), "--oneshot", "--variant", "v2", "--cpu"])
     with pytest.raises(NotImplementedError, match="voice_codecs"):
         main(["eval", "--extended", "--cpu"])
     with pytest.raises(SystemExit, match="unknown card"):

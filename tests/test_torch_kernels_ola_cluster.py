@@ -362,8 +362,8 @@ def test_fwd_wrapper_refuses_before_any_launch(launches, case):
         wf, env = _meta(2, t, N_FFT), _meta(t - 1, HOP)
     elif case == "dtype":
         wf = wf.double()
-    elif case == "n_fft":
-        wf = _meta(b, t, 2 * HOP)
+    elif case == "n_fft":  # hop divides neither n_fft nor n_fft / 2
+        wf = _meta(b, t, 2 * HOP + 64)
     elif case == "env":
         env = _meta(t - 2, HOP)
     elif case == "contiguity":
@@ -377,8 +377,9 @@ def test_fwd_wrapper_refuses_before_any_launch(launches, case):
         variant = "stream" if case else "cluster"
         (entry, args), = launches
         assert entry == f"aw_ola_fwd_{variant}" and y2.shape == (wf.shape[0], t - 1, HOP)
-        assert args[4:] == ((wf.shape[0], t, HOP, on.CLUSTER) if variant == "cluster"
-                            else (wf.shape[0], t, HOP)) and m1.shape == (wf.shape[0],)
+        assert args[4:] == ((wf.shape[0], t, HOP, on.R, on.PAD, on.CLUSTER)
+                            if variant == "cluster" else (wf.shape[0], t, HOP, on.R, on.PAD))
+        assert m1.shape == (wf.shape[0],)
         assert on.ola_normalize_fwd.launches == 1
         assert on.ola_normalize_fwd.variants == {"cluster": int(not case), "stream": int(case == "long")}
         return
@@ -414,8 +415,9 @@ def test_bwd_wrapper_refuses_before_any_launch(launches, case):
         variant = "stream" if case else "cluster"
         (entry, args), = launches
         assert entry == f"aw_ola_bwd_{variant}" and dwf.shape == (g.shape[0], t, N_FFT)
-        assert args[-4 if variant == "cluster" else -3:] == (
-            (g.shape[0], t, HOP, on.CLUSTER) if variant == "cluster" else (g.shape[0], t, HOP))
+        assert args[-6 if variant == "cluster" else -5:] == (
+            (g.shape[0], t, HOP, on.R, on.PAD, on.CLUSTER) if variant == "cluster"
+            else (g.shape[0], t, HOP, on.R, on.PAD))
         assert on.ola_normalize_bwd.launches == 1
         assert on.ola_normalize_bwd.variants == {"cluster": int(not case), "stream": int(case == "long")}
         return
