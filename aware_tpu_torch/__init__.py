@@ -13,10 +13,14 @@ first use; the attack suite's IIR filters are scan kernels
 batch loader: ``native.py``) is C++ built by g++ at first use.  This
 package imports torch, numpy and the standard library (and scipy in the
 host metrics and the MP3 codec's alignment); it never imports jax or
-aware_tpu.
+aware_tpu.  Its multi-device paths (``parallel``) run on
+``torch.distributed``.
 """
 
+from aware_tpu_torch.version import __version__
+
 __all__ = [
+    "__version__",
     "load",
     "embed_watermark",
     "detect_watermark",
@@ -29,7 +33,7 @@ __all__ = [
 
 def __getattr__(name):
     # lazy, so that importing a kernel module does not pull in the service
-    if name in __all__:
+    if name in __all__[1:]:
         from aware_tpu_torch import service
 
         return getattr(service, name)

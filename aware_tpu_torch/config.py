@@ -15,7 +15,13 @@ import numpy as np
 
 @dataclasses.dataclass(frozen=True)
 class DetectorNetConfig:
-    """Architecture of the keyed detector CNN (the default card's)."""
+    """Architecture of the keyed detector CNN, with the JAX package's
+    fields and defaults.  ``kernel_size`` enters only the fresh init's fan
+    (the convolutions are 1x1, as there; ``stride`` and ``padding`` are
+    read by nothing); ``norm_layer`` is "instance" or "none", any other
+    raising at the forward; an unknown ``activation`` is relu, and an
+    unknown ``final_activation`` raises at the forward
+    (``models/detector.py``)."""
 
     sample_rate: int = 16000
     n_fft: int = 1024
@@ -24,10 +30,20 @@ class DetectorNetConfig:
     initial_pool_size: int = 2
     initial_pool_stride: int = 2
     n_filters: tuple[int, ...] = (512, 1024, 1024)
+    kernel_size: int = 1
+    stride: int = 1
+    padding: int = 0
+    norm_layer: str = "instance"
+    activation: str = "leaky_relu"
     output_length: int = 20
+    final_activation: str = "tanh"
+    # the seed of the fresh init (models/detector.py init_params); the
+    # default architecture with this seed and no key_file is the golden key
+    seed: int = 328656719
     # the key bundle: a file name under the JAX package's models/_key, or an
-    # absolute path; empty selects the default key (aware_key_v1.npz).
-    # Re-keyed cards (the desync card) name theirs here
+    # absolute path; empty selects the golden key (aware_key_v1.npz) for
+    # the default architecture and a fresh init otherwise.  Re-keyed cards
+    # (the desync card) name theirs here
     key_file: str = ""
 
     def __post_init__(self) -> None:
@@ -204,15 +220,6 @@ class AwareConfig:
                 kwargs["scheduler_params"] = dict(value.get("params", {}))
             elif key == "detection_net_cfg":
                 net = dict(value)
-                for k in ("activation", "final_activation", "norm_layer"):
-                    default = {"activation": "leaky_relu",
-                               "final_activation": "tanh",
-                               "norm_layer": "instance"}[k]
-                    if net.pop(k, default) != default:
-                        raise NotImplementedError(
-                            f"detection_net_cfg.{k} other than {default!r} "
-                            "is not ported"
-                        )
                 if "n_filters" in net:
                     net["n_filters"] = tuple(net["n_filters"])
                 kwargs["detection_net"] = DetectorNetConfig(**net)

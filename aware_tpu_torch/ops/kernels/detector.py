@@ -169,16 +169,18 @@ def fused_detector_consts(
 
 
 def fused_detector_supported(cfg, nb: int, t_frames: int, n_fft: int | None = None) -> bool:
-    """Whether the fused kernels implement this detector configuration: the
-    gate of ``aware_tpu/ops/pallas/detector.py:fused_detector_supported``.
-
-    ``cfg`` is the port's ``DetectorNetConfig``; its norm, activation and
-    final activation are always instance / leaky ReLU / tanh (the port's
-    config refuses others), the rest of the JAX gate is checked here.
+    """Whether the fused kernels implement this detector configuration (the
+    port's ``DetectorNetConfig``): the gate of
+    ``aware_tpu/ops/pallas/detector.py:fused_detector_supported``, field
+    for field.  Any other architecture (another norm, activation, final
+    activation, pool or channel count) runs the plain banded forward.
     """
     ch_ok = all(c % 128 == 0 for c in cfg.channels[:-1])
     return (
         (n_fft is None or cfg.n_fft == n_fft)
+        and cfg.norm_layer == "instance"
+        and cfg.activation == "leaky_relu"
+        and cfg.final_activation == "tanh"
         and cfg.initial_pool_size == 2
         and cfg.initial_pool_stride == 2
         and cfg.num_blocks == 3

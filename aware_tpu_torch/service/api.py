@@ -23,7 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from aware_tpu_torch.config import AwareConfig, DetectorNetConfig
+from aware_tpu_torch.config import AwareConfig
 from aware_tpu_torch.device import float32_products, resolve_device
 from aware_tpu_torch.embed.losses import get_loss_fn
 from aware_tpu_torch.embed.optim import get_optimizer
@@ -32,7 +32,7 @@ from aware_tpu_torch.embed.solver import check_supported, embed_batch, embed_lbf
 from aware_tpu_torch.models.detector import (
     DetectorNet,
     detect_values_batch,
-    load_key_params,
+    init_params,
     params_from_jax,
 )
 from aware_tpu_torch.ops.resample import resample
@@ -153,9 +153,15 @@ def load(
     (``aware_tpu/cards/<name>.yaml``, read as data); with none, the
     default card's values.  ``device`` defaults to the CUDA card and raises
     where there is none.  A card or keyword that asks for a path this port
-    does not have raises NotImplementedError.  The detector's weights come
-    from the card's ``detection_net_cfg.key_file`` (the desync card's
-    re-keyed bundle), else from the golden key.
+    does not have raises NotImplementedError.  The detector is the card's
+    ``detection_net_cfg`` (any architecture of the JAX package's schema);
+    its weights are those ``models.detector.init_params`` chooses: the
+    bundle its ``key_file`` names (the desync card's re-keyed bundle), the
+    golden key for the default architecture, or the JAX package's fresh
+    init of any other, bit for bit.  Another architecture than the default
+    card's (another norm, activation or width) stays off the detector
+    kernels, as the JAX gate keeps it off them, and its solver runs the
+    detector in plain torch.
 
     The embed solver takes the JAX package's paths, selected as there
     (``embed/solver.py`` names them).  By default, the kernel paths (bf16
@@ -209,13 +215,9 @@ def load(
     get_loss_fn(cfg.loss)
     get_optimizer(cfg.optimizer_name, **cfg.opt_params)
     get_scheduler(cfg.scheduler_name, **cfg.sched_params)
-    net_cfg = cfg.detection_net
-    if dataclasses.replace(net_cfg, key_file="") != DetectorNetConfig():
-        raise NotImplementedError(
-            "only the default detector architecture has key bundles in the port"
-        )
     float32_products()
-    net = DetectorNet(params_from_jax(load_key_params(net_cfg.key_file)), net_cfg).to(dev)
+    net_cfg = cfg.detection_net
+    net = DetectorNet(params_from_jax(init_params(net_cfg)), net_cfg).to(dev)
     return (
         AWAREEmbedder(net=net, cfg=cfg, device=dev),
         AWAREDetector(net=net, cfg=cfg, device=dev),

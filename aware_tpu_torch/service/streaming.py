@@ -19,8 +19,9 @@ there and sent to the device; at most ``IN_FLIGHT`` batches have been sent
 and not read back, and the oldest is read back (a sync) before the next is
 sent.  So the peak is that of ``IN_FLIGHT`` batches, whatever the file's
 length.  (A file at another sample rate is resampled whole on the
-device first.)  The mesh-global mode (``detect_global``) is the JAX
-package's ``parallel/streaming.py``, not ported.
+device first.)  The mesh-global mode (``detect_global``) detects the
+whole file at once, its frames split over a mesh's ``seq`` ranks
+(``parallel/streaming.py``).
 """
 
 from __future__ import annotations
@@ -207,14 +208,24 @@ class StreamingDetector:
         return self.detect(audio, sr)
 
     def detect_global(self, audio: np.ndarray, sample_rate: int) -> np.ndarray:
-        """One mesh-sharded detection over the whole file: the JAX
-        package's ``parallel/streaming.py``, not ported."""
+        """One detection over the WHOLE file, its frames split over the
+        ``seq`` axis of the detector's mesh (``parallel/streaming.py``:
+        per-device memory O(L / n)).  Returns the decoded bits.  A
+        collective call: every rank of the mesh calls it with the file."""
         if self.mesh is None:
             raise ValueError("detect_global requires a mesh")
-        raise NotImplementedError(
-            "detect_global: the sequence-parallel detection (parallel/streaming.py) "
-            "is not ported"
-        )
+        from aware_tpu_torch.parallel import Mesh, streaming_detect_values
+
+        if not isinstance(self.mesh, Mesh):
+            raise TypeError(f"mesh must be an aware_tpu_torch.parallel Mesh, not {self.mesh!r}")
+        audio = np.asarray(audio, dtype=np.float32)
+        if audio.ndim == 2:
+            audio = audio.mean(axis=1)
+        if sample_rate != self.sr:
+            audio = _resample_nd(audio, sample_rate, self.sr, self.mesh.device)
+        values = streaming_detect_values(self.detector.net, audio, self.detector.cfg, self.mesh)
+        det = self.detector
+        return decode_pattern(values.cpu().numpy(), det.pattern_mode, det.threshold)
 
 
 def detect_watermark_streaming(

@@ -49,6 +49,7 @@ from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from aware_tpu_torch.config import AwareConfig, DetectorNetConfig, in_band_bins
@@ -569,14 +570,28 @@ def _clip_loss(cfg: AwareConfig, e_params, d_params, audio, pattern, draws, atta
     return det_loss, percept, soft_ber, hard_ber
 
 
-def make_train_step(cfg: AwareConfig, tcfg: TrainConfig):
+def make_train_step(cfg: AwareConfig, tcfg: TrainConfig, group=None):
     """``step(state, audios, patterns, gen=None, draws=None) -> (state,
     metrics)``: one adversarial step on clips (B, L) and bipolar patterns
     (B, n_bits) on the state's device.  Each clip's attack is drawn from
     the CPU generator ``gen``, or given in ``draws`` (one (branch, values)
     a clip, as ``draw_attack`` returns them).  The new state holds new
-    parameter dicts; the old state's are left as they were."""
+    parameter dicts; the old state's are left as they were.
+
+    With ``group`` (the ``data`` axis's process group), the clips are this
+    rank's rows of a batch split evenly over the group: the gradients
+    (the detector's too, when it trains) and the metrics are averaged over
+    the group before the clip and the optimizer, so that every rank takes
+    the step of the whole batch and the parameters stay replicated."""
     opt = _optimizer(tcfg)
+
+    def mean_over_group(tensors: list) -> list:
+        if group is None:
+            return tensors
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=group)
+        flat = flat / dist.get_world_size(group)
+        return list(torch.split(flat, [t.numel() for t in tensors]))
 
     def step(state: TrainState, audios, patterns, gen=None, draws=None):
         trainable = {n: dict(d) for n, d in _trainable(state, tcfg).items()}
@@ -599,13 +614,16 @@ def make_train_step(cfg: AwareConfig, tcfg: TrainConfig):
             loss = det.mean() + tcfg.lambda_percept * percept.mean()
             flat = [v for d in leaves.values() for v in d.values()]
             grads_flat = torch.autograd.grad(loss, flat)
+        grads_flat = mean_over_group(list(grads_flat))
         it = iter(grads_flat)
-        grads = {n: {k: next(it) for k in d} for n, d in leaves.items()}
+        grads = {n: {k: next(it).reshape(v.shape) for k, v in d.items()}
+                 for n, d in leaves.items()}
         with torch.no_grad():
             opt_state = opt.update(grads, state.opt_state, trainable)
-        metrics = {"loss": loss.detach(), "det_loss": det.mean().detach(),
-                   "percept": percept.mean().detach(), "soft_ber": soft_ber.mean().detach(),
-                   "hard_ber": hard_ber.mean().detach()}
+        names = ("loss", "det_loss", "percept", "soft_ber", "hard_ber")
+        values = mean_over_group([t.detach().reshape(1) for t in (
+            loss, det.mean(), percept.mean(), soft_ber.mean(), hard_ber.mean())])
+        metrics = {k: v.reshape(()) for k, v in zip(names, values)}
         return TrainState(trainable["e"], trainable.get("d", state.d_params), opt_state,
                           state.step + 1), metrics
 
@@ -637,36 +655,62 @@ def train_amortized_embedder(
     ``clip_sampler(step) -> (batch_size, L)`` supplies audio;
     ``init_e_params`` warm-starts the embedder.  The patterns come from
     ``np.random.default_rng(seed)`` as in the JAX package, the attacks'
-    draws from ``torch.Generator().manual_seed(seed)``."""
+    draws from ``torch.Generator().manual_seed(seed)``.
+
+    With ``mesh`` (an ``aware_tpu_torch.parallel`` mesh; every rank calls
+    this with the same arguments), the batch is split over its ``data``
+    axis, on each rank's device: every rank draws the patterns and every
+    clip's attack for the whole batch from the same seed and takes its own
+    rows, so the run is the unsharded run's; the gradients and the
+    history's metrics are averaged over ``data``, and only rank 0 writes
+    checkpoints."""
     from aware_tpu_torch.utils.logger import logger
 
+    group = None
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (data-parallel training) is not ported: ROADMAP queue 1, item 9 "
-            "(parallel, torch.distributed)")
+        from aware_tpu_torch.parallel import Mesh
+        from aware_tpu_torch.parallel.batch import local_rows
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be an aware_tpu_torch.parallel Mesh, not {mesh!r}")
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        device, group = mesh.device, mesh.group("data")
+    writer = mesh is None or dist.get_rank() == 0
     float32_products()
     state = init_train_state(cfg, tcfg, d_params, device)
     dev = state.e_params["w0" if "w0" in state.e_params else "u_stem_w"].device
     if init_e_params is not None:
         state = state._replace(e_params=_as_params(init_e_params, dev))
         state = state._replace(opt_state=_optimizer(tcfg).init(_trainable(state, tcfg)))
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = make_train_step(cfg, tcfg, group)
     rng = np.random.default_rng(seed)
     gen = torch.Generator().manual_seed(seed)
     history: list[dict[str, float]] = []
     n_bits = cfg.detection_net.output_length
     for i in range(tcfg.steps):
-        audios = torch.as_tensor(np.asarray(clip_sampler(i), np.float32), device=dev)
+        audios = np.asarray(clip_sampler(i), np.float32)
         patterns = training_patterns(rng, audios.shape[0], n_bits)
-        state, metrics = step_fn(state, audios, patterns, gen)
+        # every clip's attack, drawn for the whole batch in the batch's order
+        length = (audios.shape[-1] // cfg.hop_length) * cfg.hop_length
+        attacks, _ = make_attack_list(length, desync=tcfg.desync_attacks,
+                                      stretch_rates=tcfg.stretch_rates,
+                                      compression=tcfg.compression_attacks)
+        draws = [draw_attack(gen, attacks, length) for _ in range(audios.shape[0])]
+        if mesh is None:
+            x, rows = torch.as_tensor(audios, device=dev), slice(None)
+        else:
+            x = local_rows(audios, mesh, "data")
+            rows = slice(mesh.index("data") * len(x), (mesh.index("data") + 1) * len(x))
+        state, metrics = step_fn(state, x, patterns[rows], draws=draws[rows])
         history.append({k: float(v) for k, v in metrics.items()})
         if i % 50 == 0:
             logger.info("train step %d: loss=%.4f soft_ber=%.4f hard_ber=%.4f percept=%.5f",
                         i, history[-1]["loss"], history[-1]["soft_ber"],
                         history[-1]["hard_ber"], history[-1]["percept"])
-        if checkpoint_dir and (i + 1) % checkpoint_every == 0:
+        if writer and checkpoint_dir and (i + 1) % checkpoint_every == 0:
             save_checkpoint(checkpoint_dir, state)
-    if checkpoint_dir:
+    if writer and checkpoint_dir:
         save_checkpoint(checkpoint_dir, state)
     return state, history
 

@@ -252,6 +252,23 @@ with a non-zero exit on any error:
    generate_targets of 8 clips at 20 iterations (row 11 x 20) and 5 steps
    of each distill step (finite losses); (e) python -m aware_tpu_torch
    embed --oneshot --variant diverse, then detect, as subprocesses.
+12. the multi-device path (aware_tpu_torch/parallel) in an NCCL world of
+   one on cuda:0, joined through file:// (NCCL takes one rank a device; the
+   ranks' exchange is held by tests/test_torch_parallel.py's gloo world):
+   get_mesh(("data",)) and ("seq",); sharded_embed_batch of the phase 3
+   clips (8 x 10 s x 400, row 11 x 400 and no other kernel, 0 % BER, its
+   audio within 1e-5 of embed_batch's on the same clips);
+   sharded_detect_batch against detect_values_batch; detect_global of
+   phase 5's first 60 s embed (its bits); streaming_detect_values over
+   phase 10's hour against one detect_values of it (atol 1e-4, rtol 1e-3),
+   each one's wall s and peak memory; two training steps with the batch
+   over data against two unsharded ones, in turns (the history to 1e-4
+   relative, the embedder within 5 % of the rate).  Then a card whose detector is
+   another architecture (ARCH_CARD: gelu, no norm, a sigmoid readout,
+   256-512-512, a fresh init) on the phase 3 clips x 400: the first
+   slice's path, rows 1-4 400 launches each and no detector kernel (the
+   JAX gate's), its BER a reading, and a 10-iteration card-vs-CPU solve
+   (best loss within 0.02).
 
 The last lines are one JSON object with a record per kernel
 ({"kernels": [...]}), nvidia-smi's name/power line, and
@@ -2800,12 +2817,12 @@ def speech_stream(torch, seconds: float, sr: int, seed: int = 77) -> np.ndarray:
     return out
 
 
-def streaming(torch, kernels, emb, det, seed) -> None:
+def streaming(torch, kernels, emb, det, seed) -> np.ndarray:
     """Phase 10 (c): one hour of speech with 24 planted 4 s marks carrying
     k = 8 messages (one batch embed), localized by StreamingDetector with
     the auto threshold, 2 s windows and a 1 s hop, as tools/streaming_eval.py
     builds and scores it; the hour's peak device memory against its first
-    10 minutes'."""
+    10 minutes'.  Returns the hour with its plants."""
     from aware_tpu_torch import embed_watermark_batch
     from aware_tpu_torch.eval import synthesize_speech_clip
     from aware_tpu_torch.service import ecc
@@ -2885,6 +2902,7 @@ def streaming(torch, kernels, emb, det, seed) -> None:
                            f"messages {msg_ok}")
     if ratio > MEMORY_RATIO:
         raise RuntimeError(f"streaming: the hour's peak memory is {ratio:.3f}x the 10 minutes'")
+    return stream
 
 
 def command_line(torch, clips, sr) -> None:
@@ -2935,17 +2953,19 @@ def command_line(torch, clips, sr) -> None:
 
 
 def services(torch, kernels, emb, det, clips, default_out, bits, turbo, plain_eval, plain_wall,
-             smi, seed) -> None:
+             smi, seed) -> np.ndarray:
     """Phase 10: (a) ECC messages, (b) robust detection and the robust eval,
-    (c) streaming over an hour, (d) the command line (module docstring)."""
+    (c) streaming over an hour, (d) the command line (module docstring).
+    Returns (c)'s hour, for phase 12."""
     t0 = time.perf_counter()
     rng = np.random.default_rng([seed, 10])
     say(f"phase 10 card: {smi}")
     messages(torch, kernels, emb, det, clips, rng)
     robust_detection(torch, det, default_out, bits, turbo, plain_eval, plain_wall)
-    streaming(torch, kernels, emb, det, seed)
+    hour = streaming(torch, kernels, emb, det, seed)
     command_line(torch, clips, emb.cfg.detection_net.sample_rate)
     say(f"phase 10: {time.perf_counter() - t0:.1f} s ({smi})")
+    return hour
 
 
 # ---- phase 11: the frame geometries and the amortized embedder
@@ -3412,6 +3432,178 @@ def geometries_and_amortized(torch, kernels, records, emb, det, clips, bits, smi
     say(f"phase 11: {time.perf_counter() - t0:.1f} s ({smi})")
 
 
+# ---- phase 12: the multi-device path in a world of one, and a detector of
+# another architecture
+
+# a card's detector that the kernels' gate takes off rows 5-11: another
+# block activation, no norm, another readout, other widths (a fresh init
+# from its seed, as the JAX package's init_params gives it)
+ARCH_CARD = {"activation": "gelu", "norm_layer": "none", "final_activation": "sigmoid",
+             "n_filters": [256, 512, 512], "seed": 12}
+# the kernels of the path the JAX gate sends such a detector: the first
+# slice's round trip, one launch each an iteration, the detector in plain torch
+FIRST_SLICE = ("synth_norm_fwd", "synth_norm_bwd", "band_analysis_fwd", "band_analysis_bwd")
+VALUE_ATOL, VALUE_RTOL = 1e-4, 1e-3  # detection values, tests/test_parallel.py's
+TRAIN_TOL = 1e-4  # the training metrics, relative (tests/test_torch_train.py's)
+
+
+def _values_diff(a, b) -> tuple[float, bool, int]:
+    """(max |a - b|, within VALUE_ATOL + VALUE_RTOL |b|, sign flips)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    gap = (a - b).abs()
+    return (float(gap.max()), bool((gap <= VALUE_ATOL + VALUE_RTOL * b.abs()).all()),
+            int(((a > 0) != (b > 0)).sum()))
+
+
+def multi_device(torch, kernels, emb, det, clips, bits, long_out, long_bits, hour, smi,
+                 seed) -> None:
+    """Phase 12: the parallel package in an NCCL world of one on cuda:0
+    (NCCL takes one rank a device: the ranks' exchange is the CPU tests'),
+    then one detector of another architecture (module docstring)."""
+    import tempfile
+
+    import torch.distributed as dist
+    import yaml
+
+    from aware_tpu_torch import load
+    from aware_tpu_torch.embed.solver import build_problem, embed_batch
+    from aware_tpu_torch.models.detector import detect_values, detect_values_batch
+    from aware_tpu_torch.models.detector import load_key_params
+    from aware_tpu_torch.parallel import (
+        get_mesh,
+        sharded_detect_batch,
+        sharded_embed_batch,
+        streaming_detect_values,
+    )
+    from aware_tpu_torch.service.streaming import StreamingDetector
+    from aware_tpu_torch.train import adversarial as adv
+
+    t_phase = time.perf_counter()
+    cfg = emb.cfg
+    sr = cfg.detection_net.sample_rate
+    dev = torch.device("cuda", 0)
+    det_kw = dict(hop_length=cfg.hop_length, window=cfg.window, win_length=cfg.win_length,
+                  embedding_bands=cfg.embedding_bands, precision=cfg.matmul_precision)
+    wm = (2.0 * bits - 1.0).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                                rank=0)
+        try:
+            data, seq = get_mesh(("data",)), get_mesh(("seq",))
+            say(f"phase 12 world: {dist.get_world_size()} rank, {dist.get_backend()}; {data}, "
+                f"{seq} ({smi})")
+            if data.shape != {"data": 1} or seq.shape != {"seq": 1} or data.device != dev:
+                raise RuntimeError(f"the meshes of a world of one: {data}, {seq}")
+
+            # (a) the sharded embed of phase 3's clips, and embed_batch's
+            res, wall, launched = _counted(
+                torch, kernels, lambda: sharded_embed_batch(det.net, clips, wm, cfg, data))
+            values = sharded_detect_batch(det.net, res.audio, cfg, data)
+            ber = ((values.cpu().numpy() > 0) != bits).mean(axis=1) * 100.0
+            ref = embed_batch(det.net, torch.as_tensor(clips, device=dev),
+                              torch.as_tensor(wm, device=dev), cfg)
+            audio_diff = float((res.audio - ref.audio).abs().max())
+            say(f"phase 12 sharded_embed_batch, B={BATCH} x {clips.shape[1] / sr:g} s x "
+                f"{cfg.num_iterations}: {wall:.3f} s, launches {launched}, BER % per lane "
+                f"{ber.tolist()}, max |audio - embed_batch's| {audio_diff:.3e} ({smi})")
+            if launched != {"iteration_step": cfg.num_iterations} or ber.any():
+                raise RuntimeError("the sharded embed: its launches or a lane's bits")
+            if audio_diff > 1e-5 or not torch.isfinite(res.audio).all():
+                raise RuntimeError("the sharded embed departs from embed_batch")
+            # (b) the sharded detect against detect_values_batch
+            plain = detect_values_batch(det.net, res.audio, **det_kw)
+            diff, close, flips = _values_diff(values, plain)
+            say(f"phase 12 sharded_detect_batch vs detect_values_batch: max |diff| {diff:.3e}, "
+                f"sign flips {flips}")
+            if not close or flips:
+                raise RuntimeError("the sharded detect departs from detect_values_batch")
+
+            # (c) detect_global of phase 5's first 60 s embed (its first
+            # collective sets up the NCCL communicator)
+            t0 = time.perf_counter()
+            got = StreamingDetector(det, mesh=seq, threshold=0.1).detect_global(long_out[0], sr)
+            ber = float(np.mean(np.asarray(got) != long_bits[0]) * 100.0)
+            say(f"phase 12 detect_global of a 60 s embed: BER {ber} %, "
+                f"{time.perf_counter() - t0:.3f} s")
+            if ber:
+                raise RuntimeError("detect_global did not read the 60 s embed's bits")
+
+            # (d) sequence-parallel detection of phase 10's hour against
+            # one detect_values of it
+            readings = {}
+            for label, run in (
+                ("streaming_detect_values", lambda: streaming_detect_values(det.net, hour, cfg, seq)),
+                ("detect_values", lambda: detect_values(
+                    det.net, torch.as_tensor(hour, device=dev), **det_kw)),
+            ):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                readings[label] = (out, time.perf_counter() - t0,
+                                   (torch.cuda.max_memory_allocated() - base) / 2**20)
+            (sp, sp_s, sp_mib), (one, one_s, one_mib) = readings.values()
+            diff, close, flips = _values_diff(sp, one)
+            say(f"phase 12 hour ({len(hour)} samples): streaming_detect_values {sp_s:.3f} s, peak "
+                f"{sp_mib:.1f} MiB above the start; detect_values {one_s:.3f} s, {one_mib:.1f} "
+                f"MiB; max |diff| {diff:.3e} (atol {VALUE_ATOL}, rtol {VALUE_RTOL}), sign flips "
+                f"{flips} ({smi})")
+            if not close or sp.shape != (cfg.detection_net.output_length,):
+                raise RuntimeError("sequence-parallel detection departs from detect_values")
+
+            # (e) two training steps with the batch over data, and unsharded
+            tcfg = adv.TrainConfig(batch_size=BATCH, steps=2)
+            short = clips[:, : 2 * sr]
+            runs, walls = {}, {"sharded": [], "unsharded": []}
+            for label in ("sharded", "unsharded", "unsharded", "sharded"):  # in turns
+                kw = {"mesh": data} if label == "sharded" else {"device": dev}
+                t0 = time.perf_counter()
+                runs[label] = adv.train_amortized_embedder(cfg, tcfg, load_key_params(),
+                                                           lambda i: short, seed=seed, **kw)
+                torch.cuda.synchronize()
+                walls[label].append(f"{time.perf_counter() - t0:.3f}")
+            (s1, h1), (s0, h0) = runs["sharded"], runs["unsharded"]
+            hist = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(h1, h0) for k in b)
+            params = max(float((s1.e_params[k] - s0.e_params[k]).abs().max()) for k in s0.e_params)
+            say(f"phase 12 training, B={BATCH} x 2 s x 2 steps, in turns: sharded "
+                f"{' / '.join(walls['sharded'])} s, unsharded {' / '.join(walls['unsharded'])} s; "
+                f"max relative |history diff| {hist:.3e}, max |embedder diff| {params:.3e} "
+                f"(learning rate {tcfg.learning_rate})")
+            if hist > TRAIN_TOL or params > 0.05 * tcfg.learning_rate:
+                raise RuntimeError("the sharded training steps depart from the unsharded ones")
+        finally:
+            dist.destroy_process_group()
+
+        # (f) a detector of another architecture, from a card file
+        card = f"{tmp}/arch.yaml"
+        with open(card, "w") as f:
+            yaml.safe_dump({"detection_net_cfg": ARCH_CARD}, f)
+        e_a, d_a = load(card, device=dev)
+        _, d_cpu = load(card, device="cpu")
+    x = torch.as_tensor(clips, device=dev)
+    path = build_problem(d_a.net, x, torch.as_tensor(wm, device=dev), e_a.cfg).path
+    label = f"detector {ARCH_CARD} ({path})"
+    run = embed_and_read(torch, kernels, label, e_a, d_a, clips, bits, phase="12")
+    check_launches(label, run["launches"], dict.fromkeys(FIRST_SLICE, 1), e_a.cfg.num_iterations)
+    if path != "band_analysis":
+        raise RuntimeError(f"{label}: not the first slice's path")
+    pair = torch.as_tensor(clips[:2, : 2 * sr])
+    wm2 = torch.as_tensor(wm[:2])
+    ten = e_a.cfg.replace(num_iterations=10)
+    res_k = embed_batch(d_a.net, pair.to(dev), wm2.to(dev), ten)
+    res_p = embed_batch(d_cpu.net, pair, wm2, ten)
+    dloss = float((res_k.best_loss.cpu() - res_p.best_loss).abs().max())
+    say(f"phase 12 reference, {label}: 10-iteration best_loss card vs CPU plain |diff| "
+        f"{dloss:.3e}; its BER (a reading: a sigmoid readout reads every bit as 1) "
+        f"{run['ber'].mean():.2f} %")
+    if not dloss < 0.02:
+        raise RuntimeError(f"{label}: the card's solve departs from the plain solve")
+    say(f"phase 12: {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3598,8 +3790,9 @@ def main() -> int:
             raise RuntimeError("the single-clip embed did not run the whole-step kernel")
 
         # ---- phase 5: long clips, the tiled path
-        solve_path(torch, kernels, "long clips (tiled path)", emb, det, long_clips, long_bits,
-                   {"shift_mm": 3, "synth_tiled_fwd": 1}, records, phase="5")
+        long_out, _ = solve_path(torch, kernels, "long clips (tiled path)", emb, det, long_clips,
+                                 long_bits, {"shift_mm": 3, "synth_tiled_fwd": 1}, records,
+                                 phase="5")
         prof_cfg = cfg.replace(num_iterations=20)
         trace = f"{args.trace}/trace_long.json" if args.trace else None
         say(f"phase 5 profile, long clips, B={BATCH} x 60 s x 20 iterations: " + profile_solve(
@@ -3695,10 +3888,13 @@ def main() -> int:
         # ---- phase 9: every solver mode, and the host runtime
         solver_modes(torch, kernels, clips, bits, det_cpu)
         # ---- phase 10: the payload and long-form services, the command line
-        services(torch, kernels, emb, det, clips, default_out, bits, turbo, plain_eval,
-                 plain_wall, smi, args.seed)
+        hour = services(torch, kernels, emb, det, clips, default_out, bits, turbo, plain_eval,
+                        plain_wall, smi, args.seed)
         # ---- phase 11: the frame geometries and the amortized embedder
         geometries_and_amortized(torch, kernels, records, emb, det, clips, bits, smi, args.seed)
+        # ---- phase 12: the multi-device path, a detector of another architecture
+        multi_device(torch, kernels, emb, det, clips, bits, long_out, long_bits, hour, smi,
+                     args.seed)
         for name, rec in records.items():
             if rec["launches"] < 1:
                 raise RuntimeError(f"kernel {name} was not launched on any path")

@@ -90,11 +90,23 @@ def test_voice_card_names_the_host_codecs():
     assert "eot_ste_codecs" in str(err.value)
 
 
-def test_a_detector_other_than_by_its_key_is_refused(tmp_path):
+def test_a_detector_other_than_by_its_key_is_refused(tmp_path, speechlike):
+    """A key bundle of another architecture (128 mel channels into conv0)
+    under n_mels: 64: both packages load the card and raise at the first
+    product that meets the key, the detection (JAX's dot_general a
+    TypeError, torch's matmul a RuntimeError)."""
+    from aware_tpu.service.api import load as jax_load
+
     card = tmp_path / "card.yaml"
     card.write_text("detection_net_cfg: {n_mels: 64, key_file: desync_key_v1.npz}\n")
-    with pytest.raises(NotImplementedError, match="architecture"):
-        aware_tpu_torch.load(card, device="cpu")
+    _, jdet = jax_load(str(card))
+    _, det = aware_tpu_torch.load(card, device="cpu")
+    assert det.cfg.detection_net == AwareConfig.from_dict(
+        {"detection_net_cfg": {"n_mels": 64, "key_file": "desync_key_v1.npz"}}).detection_net
+    with pytest.raises(TypeError, match="contracting dimensions"):
+        jdet.detect(speechlike, 16000)
+    with pytest.raises(RuntimeError, match="64"):
+        det.detect(speechlike, 16000)
 
 
 @pytest.mark.parametrize("field, value", [

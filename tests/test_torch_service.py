@@ -6,6 +6,7 @@ different orders); the VAD's decisions, the codec's outputs and the
 config values must be equal.
 """
 
+import dataclasses
 import importlib
 
 import numpy as np
@@ -128,5 +129,9 @@ def test_config_from_dict_reads_the_jax_key_names():
     assert turbo.matmul_precision == "default" and turbo.scan_unroll == 2
     with pytest.raises(NotImplementedError, match="matmul_precision"):
         AwareConfig.from_dict({"matmul_precision": "fastest"})
-    with pytest.raises(NotImplementedError, match="activation"):
-        AwareConfig.from_dict({"detection_net_cfg": {"activation": "gelu"}})
+    # every architecture field of the JAX schema loads, as the JAX package's
+    arch = {"activation": "gelu", "norm_layer": "none", "final_activation": "sigmoid",
+            "kernel_size": 3, "seed": 5}
+    net = AwareConfig.from_dict({"detection_net_cfg": arch}).detection_net
+    ref = JaxConfig.from_dict({"detection_net_cfg": arch}).detection_net
+    assert dataclasses.asdict(net) == dataclasses.asdict(ref)

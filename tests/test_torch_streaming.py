@@ -7,7 +7,7 @@ against the JAX package's (``aware_tpu/service/streaming.py``), on the CPU.
 * Segment grouping (bridge, confirm, weighted vote, bit agreement) equal
   to JAX's on patched window values, as ``tests/test_streaming_service.py``.
 * At most ``IN_FLIGHT`` window batches are sent and not read back.
-* ``detect_file``, ``detect_watermark_streaming``; ``detect_global`` raises.
+* ``detect_file``, ``detect_watermark_streaming``; ``detect_global`` without a mesh raises.
 * (slow) A 2 s mark in 20 s of speech is found and read, as the JAX test.
 """
 
@@ -173,11 +173,14 @@ def test_file_and_one_call_paths(handles, carrier, tmp_path):
     assert sd.detect(carrier[: 3 * 8000], 8000).values.shape == (2, 20)  # 3 s
 
 
-def test_detect_global_is_not_ported(handles):
+def test_detect_global_needs_a_mesh(handles):
+    """Without a mesh detect_global raises ValueError, as the JAX
+    package's; an object that is not the port's Mesh raises TypeError
+    (tests/test_torch_parallel.py holds the mesh-global detection)."""
     det, _ = handles
     with pytest.raises(ValueError, match="mesh"):
         streaming.StreamingDetector(det, threshold=0.1).detect_global(np.zeros(100), 16000)
-    with pytest.raises(NotImplementedError, match="parallel/streaming.py"):
+    with pytest.raises(TypeError, match="Mesh"):
         streaming.StreamingDetector(det, threshold=0.1, mesh=object()).detect_global(
             np.zeros(100), 16000)
 

@@ -347,8 +347,8 @@ def test_training_loop_patterns_checkpoints_and_mesh(d_params, tmp_path, monkeyp
     seen = []
     real = adv.make_train_step
 
-    def spy(cfg_, tcfg_):
-        step = real(cfg_, tcfg_)
+    def spy(cfg_, tcfg_, group=None):
+        step = real(cfg_, tcfg_, group)
 
         def wrapped(state, audios, patterns, gen=None, draws=None):
             seen.append(np.asarray(patterns))
@@ -364,7 +364,9 @@ def test_training_loop_patterns_checkpoints_and_mesh(d_params, tmp_path, monkeyp
         np.testing.assert_array_equal(got, rng.integers(0, 2, (2, 20)) * 2 - 1)
     assert len(hist) == 3 and state.step == 3 and all(np.isfinite(h["loss"]) for h in hist)
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_2", "step_3"]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a mesh that is not the port's Mesh (tests/test_torch_parallel.py
+    # holds the data-parallel loop)
+    with pytest.raises(TypeError, match="Mesh"):
         adv.train_amortized_embedder(cfg, tcfg, d_params, lambda i: _clips(2), mesh=object(),
                                      device="cpu")
     out = adv.amortized_embed(state, d_params, _clips(1)[0], _patterns(1)[0], cfg, device="cpu")
