@@ -6,7 +6,7 @@
     python -m aware_tpu_torch detect in.wav [--robust]
     python -m aware_tpu_torch detect in.wav --message-k 8 [--robust]
     python -m aware_tpu_torch detect long.wav --streaming [--window 2 --win-hop 1]
-    python -m aware_tpu_torch eval   [audio_dir] [--clips 4] [--robust-detect]
+    python -m aware_tpu_torch eval   [audio_dir] [--clips 4] [--extended] [--robust-detect]
 
 Every command runs on the CUDA card; ``--cpu`` runs it on the CPU.
 """
@@ -150,7 +150,7 @@ def main(argv=None) -> None:
     common = argparse.ArgumentParser(add_help=False)
     common.add_argument("--card", default=None,
                         help="config card: a bare card name of the JAX package's "
-                             "(robust/compression/turbo/desync) or a YAML path")
+                             "(robust/compression/voice/turbo/desync) or a YAML path")
     common.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the kernels' plain versions) instead of the CUDA card")
 
@@ -190,7 +190,8 @@ def main(argv=None) -> None:
     p.add_argument("--clips", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--extended", action="store_true",
-                   help="the real voice-codec rows (not ported: raises)")
+                   help="add the real-codec rows (Opus/GSM/AAC/Vorbis/Speex/G.722/soxr) "
+                        "beyond the reference's 22-attack suite")
     p.add_argument("--robust-detect", action="store_true",
                    help="detect through the rate-search compensation detector")
     p.set_defaults(fn=cmd_eval)

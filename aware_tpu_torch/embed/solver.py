@@ -61,11 +61,14 @@ and, where the slab decomposition and the kernels' geometry both hold
         "band_analysis" path's tail; the VJPs are shift_mm twice more
         (ops/kernels/roundtrip_tiled.py).
 
-EOT views (``cfg.eot_*``, the robust, desync and compression cards; the
-port of ``aware_tpu/embed/solver.py:180-316``): each iteration also
-scores the live waveform y2 of the round trip after a differentiable edit
+EOT views (``cfg.eot_*``, the robust, desync, compression and voice
+cards; the port of ``aware_tpu/embed/solver.py:180-316``): each iteration
+also scores the live waveform y2 of the round trip after an edit
 (attacks/: vocoder time stretch "ts", pitch shift "ps", mp3_approx "mp3",
-celp_approx "celp"), then peak-norm -> STFT -> |.| of the band -> the
+celp_approx "celp", differentiable; or the voice card's real codec "ste",
+``opus_<k>k`` or ``gsm_fr``, run on the host lane by lane with a
+straight-through gradient, ``StraightThroughHost``, its host seconds in
+``HOST_VIEW_TIMES``), then peak-norm -> STFT -> |.| of the band -> the
 float32 banded detector -> the card's loss, and adds eot_weight x that loss
 to each clip's; "cycle" takes view it % n_views in iteration it, "all" the
 mean over the views.  The views need y2, so that, as in the JAX package's
@@ -103,6 +106,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -112,6 +116,12 @@ import torch.nn.functional as F
 from aware_tpu_torch.attacks.celp import celp_approx
 from aware_tpu_torch.attacks.codec import mp3_approx
 from aware_tpu_torch.attacks.vocoder import pitch_shift, time_stretch
+from aware_tpu_torch.attacks.voice_codecs import (
+    gsm_available,
+    gsm_roundtrip,
+    opus_available,
+    opus_roundtrip,
+)
 from aware_tpu_torch.config import MATMUL_PRECISIONS, AwareConfig, in_band_bins
 from aware_tpu_torch.embed.lbfgs import HISTORY_SIZE, LBFGSMemory, lbfgs_update
 from aware_tpu_torch.embed.losses import get_loss_fn
@@ -180,7 +190,11 @@ class EmbedResult(NamedTuple):
 
 def check_supported(cfg: AwareConfig) -> None:
     """Raise ValueError for a configuration that the JAX package cannot run
-    either, NotImplementedError for one that would need a path not ported."""
+    either, NotImplementedError for one that would need a path not ported,
+    and RuntimeError, naming the library, for a voice-card codec view
+    (``eot_ste_codecs``) whose system library does not load here.  The JAX
+    package fails there only at its first host callback, inside the solve;
+    the port fails before any device work, its one difference on this card."""
     n_fft, hop = cfg.frame_length, cfg.hop_length
     if cfg.win_length != n_fft:
         raise ValueError(
@@ -192,40 +206,116 @@ def check_supported(cfg: AwareConfig) -> None:
             ola_slabs(n_fft, hop)
         except ValueError as err:
             raise ValueError(f"use_pallas_ola at {n_fft}/{hop}: {err}") from None
-    unported = []
     if cfg.matmul_precision not in MATMUL_PRECISIONS:
-        unported.append(f"matmul_precision {cfg.matmul_precision!r}")
-    if cfg.eot_ste_codecs:
-        unported.append(
-            f"eot_ste_codecs {cfg.eot_ste_codecs!r} (the voice card): these views run the "
-            "real codecs (libopus, libgsm) on the host once per iteration, with a "
-            "straight-through gradient, and the port binds no host codec library"
-        )
-    if unported:
         raise NotImplementedError(
-            "not ported to aware_tpu_torch: " + "; ".join(unported)
-        )
+            f"not ported to aware_tpu_torch: matmul_precision {cfg.matmul_precision!r}")
+    missing = []
+    for name in cfg.eot_ste_codecs:
+        lib, loads = _ste_library(name)
+        if not loads():
+            missing.append(f"{name} needs {lib}, which does not load here")
+    if missing:
+        raise RuntimeError(
+            "the card's real-codec views (eot_ste_codecs) run the system codec libraries on "
+            "the host each iteration: " + "; ".join(missing))
 
 
 def eot_views(cfg: AwareConfig) -> tuple[tuple[str, object], ...]:
     """The EOT views as (kind, value) pairs, in the JAX package's order:
-    stretch rates, pitch shifts in cents, mp3 qualities, celp modes."""
+    stretch rates, pitch shifts in cents, mp3 qualities, celp modes, the
+    real codecs ("ste")."""
     return (
         tuple(("ts", r) for r in cfg.eot_stretch_rates)
         + tuple(("ps", c) for c in cfg.eot_pitch_cents)
         + tuple(("mp3", q) for q in cfg.eot_mp3_qualities)
         + tuple(("celp", m) for m in cfg.eot_celp_modes)
+        + tuple(("ste", s) for s in cfg.eot_ste_codecs)
     )
 
 
+def _ste_library(name: str):
+    """(the system library, its probe) of a real-codec view: ``gsm_fr``
+    libgsm, ``opus_<k>k`` libopus; ValueError for another name."""
+    if name == "gsm_fr":
+        return "libgsm", gsm_available
+    if name.startswith("opus_") and name.endswith("k") and name[5:-1].isdigit():
+        return "libopus", opus_available
+    raise ValueError(f"unknown eot_ste_codecs view {name!r}: opus_<k>k or gsm_fr")
+
+
+def ste_codec(name: str, sr: int):
+    """The host round trip of a real-codec view, (L,) float32 -> (L,):
+    ``gsm_roundtrip`` for ``gsm_fr``, ``opus_roundtrip`` at k kb/s for
+    ``opus_<k>k``, at the detector's rate ``sr``."""
+    lib, _ = _ste_library(name)
+    if lib == "libgsm":
+        return functools.partial(gsm_roundtrip, sr=sr)
+    return functools.partial(opus_roundtrip, sr=sr, bitrate_bps=int(name[5:-1]) * 1000)
+
+
+@dataclasses.dataclass
+class HostViewTimes:
+    """Host seconds of the straight-through views since ``reset``: waiting
+    for the device's queue before the copy out, the copies out and back,
+    and the host function (the codec)."""
+
+    calls: int = 0
+    lanes: int = 0
+    wait_s: float = 0.0
+    copy_s: float = 0.0
+    host_s: float = 0.0
+
+    def reset(self) -> None:
+        self.__init__()
+
+
+HOST_VIEW_TIMES = HostViewTimes()
+
+
+class StraightThroughHost(torch.autograd.Function):
+    """A host function on each lane with a straight-through gradient: the
+    forward copies y (B, L) to the host as float32, runs ``host`` on each
+    lane in lane order and copies the result back to y's device and dtype;
+    the backward returns the incoming gradient unchanged (the JAX
+    package's ``custom_jvp`` around ``pure_callback``, ``vmap_method=
+    "sequential"``: its tangent passes straight through)."""
+
+    @staticmethod
+    def forward(ctx, y: torch.Tensor, host) -> torch.Tensor:
+        times = HOST_VIEW_TIMES
+        t0 = time.perf_counter()
+        if y.is_cuda:
+            torch.cuda.synchronize(y.device)
+        t1 = time.perf_counter()
+        lanes = y.detach().to("cpu", torch.float32).numpy()
+        t2 = time.perf_counter()
+        out = np.stack([np.asarray(host(lane), np.float32) for lane in lanes])
+        t3 = time.perf_counter()
+        res = torch.from_numpy(out).to(y.device, y.dtype)
+        t4 = time.perf_counter()
+        times.calls += 1
+        times.lanes += len(lanes)
+        times.wait_s += t1 - t0
+        times.copy_s += (t2 - t1) + (t4 - t3)
+        times.host_s += t3 - t2
+        return res
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
 def _view(y: torch.Tensor, kind: str, value, sr: int) -> torch.Tensor:
-    """The differentiable edit of one view on waveforms (B, L)."""
+    """The edit of one view on waveforms (B, L): differentiable, or the
+    real codec with a straight-through gradient ("ste")."""
     if kind == "ts":
         return time_stretch(y, value)
     if kind == "ps":  # cents -> semitones, as the eval suite's ps_5 attack
         return pitch_shift(y, value / 100.0)
     if kind == "mp3":
         return mp3_approx(y, sr, int(value))
+    if kind == "ste":
+        return StraightThroughHost.apply(y, ste_codec(str(value), sr))
     return celp_approx(y, sr, str(value))
 
 

@@ -10,14 +10,20 @@ from torch with them (``attacks/attacks.py``).  Clips are the synthesized
 speech-like fixtures unless a WAV directory is given.  Embedding, the
 attacks and the device metrics run on the model's device.
 
+``--extended`` runs ``extended_attack_suite()`` (attacks/voice_codecs.py)
+in place of the 22-attack suite: the real host codecs' rows follow, one
+``ber:<name>`` key each, and a row whose library does not load here is
+left out with a line on standard error that names it and its cause.
+
 Run:  python -m aware_tpu_torch.eval [audio_dir] [--clips N] [--seed S]
-      [--card NAME] [--robust-detect] [--cpu]
+      [--card NAME] [--extended] [--robust-detect] [--cpu]
 """
 
 from __future__ import annotations
 
 import logging
 import pathlib
+import sys
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -131,6 +137,19 @@ def run_robustness_eval(
     return results
 
 
+def extended_suite() -> list[Attack]:
+    """``extended_attack_suite()``, after a line on standard error for each
+    row that this machine's libraries leave out, with its cause."""
+    from aware_tpu_torch.attacks.voice_codecs import (
+        extended_attack_suite,
+        extended_rows_left_out,
+    )
+
+    for name, why in extended_rows_left_out():
+        print(f"extended suite: row {name} left out: {why}", file=sys.stderr)
+    return extended_attack_suite()
+
+
 def main(argv: Sequence[str] | None = None) -> None:
     import argparse
     import json
@@ -140,27 +159,23 @@ def main(argv: Sequence[str] | None = None) -> None:
     ap.add_argument("--clips", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--extended", action="store_true",
-                    help="the real voice-codec rows beyond the reference's 22-attack suite "
-                         "(not ported)")
+                    help="the reference's 22-attack suite plus the real-codec rows "
+                         "(Opus/GSM/AAC/Vorbis/Speex/G.722/soxr) whose libraries load here")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions) instead of the CUDA card")
     ap.add_argument("--card", default=None,
                     help="config card to load: a bare card name of the JAX package's "
-                         "('robust', 'compression', 'turbo', 'desync') or a YAML path; the "
-                         "default card otherwise")
+                         "('robust', 'compression', 'voice', 'turbo', 'desync') or a YAML "
+                         "path; the default card otherwise")
     ap.add_argument("--robust-detect", action="store_true",
                     help="detect through the rate-search compensation detector "
                          "(service/robust.py) instead of the plain forward")
     args = ap.parse_args(argv)
-    if args.extended:
-        raise NotImplementedError(
-            "--extended: the extended suite's host voice codecs (attacks/voice_codecs.py, "
-            "attacks/av_codecs.py: Opus, GSM full-rate, AAC, Vorbis, Speex, G.722) are not ported"
-        )
+    attacks = extended_suite() if args.extended else None
     device = "cpu" if args.cpu else None
     model = load(args.card, device=device) if args.card else None
-    results = run_robustness_eval(args.audio_dir, args.clips, args.seed, model=model,
-                                  robust=args.robust_detect, device=device)
+    results = run_robustness_eval(args.audio_dir, args.clips, args.seed, attacks=attacks,
+                                  model=model, robust=args.robust_detect, device=device)
     print(json.dumps(results, indent=2))
 
 

@@ -67,21 +67,25 @@ SIGNATURES = {
 }
 
 
-def build_native() -> pathlib.Path:
-    """Compile the library if it is not built yet; returns its path and
-    raises RuntimeError, with the compiler's output, where it cannot."""
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    so = BUILD_DIR / f"libaware_native_{digest.hexdigest()[:16]}.so"
+def build_host_library(source: pathlib.Path, stem: str, flags=CXX_FLAGS,
+                       libs=()) -> pathlib.Path:
+    """Compile ``source`` with g++ into ``_build/<stem>_<hash>.so`` if it is
+    not built yet (the hash covers the flags, the libraries and the source;
+    a per-process temporary file, then ``os.replace``, so that concurrent
+    builds never see half a library); returns its path and raises
+    RuntimeError, with the compiler's output, where it cannot."""
+    digest = hashlib.sha256(" ".join((*flags, *libs)).encode())
+    digest.update(source.read_bytes())
+    so = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
     if so.exists():
         return so
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the host runtime cannot be built")
+        raise RuntimeError(f"g++ not found: {source.name} cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     try:
-        run = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+        run = subprocess.run([cxx, *flags, "-o", str(tmp), str(source), *libs],
                              capture_output=True, text=True)
         if run.returncode != 0:
             raise RuntimeError(f"g++ failed ({run.returncode}):\n{run.stdout}{run.stderr}")
@@ -89,6 +93,12 @@ def build_native() -> pathlib.Path:
     finally:
         tmp.unlink(missing_ok=True)
     return so
+
+
+def build_native() -> pathlib.Path:
+    """Compile the library if it is not built yet; returns its path and
+    raises RuntimeError, with the compiler's output, where it cannot."""
+    return build_host_library(SOURCE, "libaware_native")
 
 
 @functools.lru_cache(maxsize=None)

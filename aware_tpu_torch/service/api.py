@@ -178,10 +178,13 @@ def load(
     ``use_slab_dft=False`` the "frames" path; ``use_pallas_ola=True`` the
     "ola" path (the frames round trip through the ``ola_normalize``
     kernel); ``use_matmul_dft=False`` the "fft" path.  Cards with EOT views
-    (``load("robust")``, ``"desync"``, ``"compression"``) never take the
-    whole-iteration kernels, as in the JAX package: by default they run the
-    synthesis kernel, the merged analysis + detector kernels and the views
-    in plain torch.  Every loss, optimizer and scheduler of the card
+    (``load("robust")``, ``"desync"``, ``"compression"``, ``"voice"``)
+    never take the whole-iteration kernels, as in the JAX package: by
+    default they run the synthesis kernel, the merged analysis + detector
+    kernels and the views in plain torch; the voice card's views run the
+    real codecs (libopus, libgsm) on the host, lane by lane, with a
+    straight-through gradient, and ``load`` raises RuntimeError naming a
+    codec library that does not load here.  Every loss, optimizer and scheduler of the card
     schema loads (``loss``, ``optimizer_cfg``, ``scheduler_cfg``, or the
     keywords ``loss=``, ``optimizer_name=`` / ``optimizer_params=``,
     ``scheduler_name=`` / ``scheduler_params=``): a loss or optimizer other

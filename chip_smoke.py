@@ -118,7 +118,7 @@ with a non-zero exit on any error:
    when it reads worse than the CPU plain solve on so many more lanes
    than better that chance gives as many less than once in 1000
    (agreement.short_outcome); the CPU plain solve from the clips moved by
-   1e-6 of themselves is printed beside it;
+   1e-6 of themselves is printed beside it on the default path;
 4. single clip: embed_watermark / detect_watermark of a 2 s clip given at
    44.1 kHz (the resample path), on the default path;
 5. long clips: load() -> embed_watermark_batch of 8 speech-like 60 s
@@ -269,6 +269,29 @@ with a non-zero exit on any error:
    slice's path, rows 1-4 400 launches each and no detector kernel (the
    JAX gate's), its BER a reading, and a 10-iteration card-vs-CPU solve
    (best loss within 0.02).
+13. the host codecs, the voice card and the extended eval: which host
+   libraries load here (libopus, libgsm, libsoxr, libmp3lame + libmpg123,
+   the libavcodec shim's g++ build); where libopus and libgsm load,
+   load("voice") (its real-codec views opus_8k and gsm_fr, run on the host
+   lane by lane each iteration with a straight-through gradient) ->
+   embed_watermark_batch of VOICE_CLIPS of the phase 3 clips (a batch cut
+   from 8: the codecs cost about 44 s of host time a lane at 400
+   iterations) -> detect_watermark_batch: the analysis_detector path, rows
+   1-2 and 5-8 400 launches each and no other kernel, 0 % BER on both
+   lanes, the embed s and the view's host seconds (codec, copies, the wait
+   for the device before the copy out), and the BER after real opus_8k,
+   opus_16k and gsm_fr round trips beside phase 3's default-card embeds of
+   the same clips (readings); where either library is absent,
+   load("voice") must raise the RuntimeError that names it, and the
+   straight-through view then runs on the card with the scipy 8 kHz
+   resample leg of gsm_roundtrip (no codec) as its host function, 2 clips
+   x 20 iterations on the same path (rows 1-2 and 5-8 20 launches each),
+   printed as the plumbing, not the card; then run_robustness_eval with
+   extended_attack_suite() on phase 8's turbo model and fixtures: the rows
+   run and the rows left out with their causes, every row's BER finite,
+   clean, pcm_16 and pcm_24 at 0, the wall s and the attacks' share.
+
+Each phase ends with a line of its wall seconds ("phase N wall ... s").
 
 The last lines are one JSON object with a record per kernel
 ({"kernels": [...]}), nvidia-smi's name/power line, and
@@ -1916,15 +1939,15 @@ def embed_and_read(torch, kernels, label, emb, det, clips, bits, phase="3") -> d
     got = detect_watermark_batch(out, sr, det)
     launches = {k.__name__: k.launches for k in kernels}
     n_out = (clips.shape[1] // cfg.hop_length) * cfg.hop_length
-    if out.shape != (BATCH, n_out) or not np.isfinite(out).all():
+    if out.shape != (len(clips), n_out) or not np.isfinite(out).all():
         raise RuntimeError(f"embed output {out.shape} is not finite of (B, (T-1)*hop)")
     ber = np.mean(got != bits, axis=1) * 100.0
     ref = clips[:, :n_out]
     snr = 10 * np.log10(np.mean(out**2, 1) / np.mean((out - ref) ** 2, 1))
     say(
-        f"phase {phase} {label}: B={BATCH} x {clips.shape[1] / sr:g} s x "
+        f"phase {phase} {label}: B={len(clips)} x {clips.shape[1] / sr:g} s x "
         f"{cfg.num_iterations} iterations: "
-        f"embed {embed_s:.3f} s, {BATCH / embed_s:.3f} clips/s, "
+        f"embed {embed_s:.3f} s, {len(clips) / embed_s:.3f} clips/s, "
         f"BER % per lane {ber.tolist()}, mean SNR {snr.mean():.2f} dB, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
     )
@@ -2373,6 +2396,7 @@ def eval_filter_checks(torch, inputs, records) -> None:
 SHORT_LOSS_TOL = 0.1  # 10-iteration best loss, card vs CPU, below 32 frames
 SIGN_FRAMES = (8, 9)   # the lengths held by the sign test
 SIGN_SEEDS = 16        # its clip pairs a length: seeds 0-15
+MOVED_PATHS = 1        # the paths whose sign test also reads the moved CPU solve
 
 
 def short_clips(torch, paths, det_cpu, rng) -> None:
@@ -2436,12 +2460,15 @@ def short_sign_test(torch, paths, det_cpu) -> None:
     agreement.SHORT_ALPHA.  At these lengths a single solve's BER on a lane
     is a draw, for the reference too: the CPU plain solve from the clips
     moved by 1e-6 of themselves, printed beside it and not gated, reads
-    worse than itself on as many lanes."""
+    worse than itself on as many lanes.  That reading is taken on the
+    first path alone (MOVED_PATHS): the CPU solves are most of the phase's
+    time, and the reference's own spread does not depend on the path."""
     from aware_tpu_torch.embed.solver import embed_batch
     from aware_tpu_torch.ops.kernels import agreement as ag
 
     lanes = {t: [ag.short_lanes(seed, t) for seed in range(SIGN_SEEDS)] for t in SIGN_FRAMES}
-    for label, e, d, _ in paths:
+    for i, (label, e, d, _) in enumerate(paths):
+        moved_too = i < MOVED_PATHS
         ber = {"card": [], "cpu": [], "cpu moved": []}
         for t in SIGN_FRAMES:
             clips, bits, moved = (np.concatenate(v) for v in zip(*lanes[t]))
@@ -2449,17 +2476,20 @@ def short_sign_test(torch, paths, det_cpu) -> None:
             res = embed_batch(d.net, torch.as_tensor(clips, dtype=torch.float32, device=e.device),
                               wm.to(e.device), e.cfg)
             ber["card"].append(ag.lane_ber(d.net, res.audio, bits))
-            for key, x in (("cpu", clips), ("cpu moved", moved)):
+            for key, x in (("cpu", clips), ("cpu moved", moved))[: 1 + moved_too]:
                 res = embed_batch(det_cpu.net, torch.as_tensor(x, dtype=torch.float32), wm, e.cfg)
                 ber[key].append(ag.lane_ber(det_cpu.net, res.audio, bits))
-        ber = {k: np.concatenate(v) for k, v in ber.items()}
+        ber = {k: np.concatenate(v) for k, v in ber.items() if v}
         worse, better, p_val, ok = ag.short_outcome(ber["card"], ber["cpu"])
-        m_worse, m_better, m_p, _ = ag.short_outcome(ber["cpu moved"], ber["cpu"])
-        say(f"phase 3s sign test, {label}, {len(ber['card'])} lanes at {SIGN_FRAMES} frames x "
-            f"{e.cfg.num_iterations} iterations: card vs CPU plain W {worse} L {better} p "
-            f"{p_val:.3e}; mean BER % card {ber['card'].mean():.3f} CPU {ber['cpu'].mean():.3f} "
-            f"CPU moved {ber['cpu moved'].mean():.3f}; CPU moved vs CPU (not gated) W {m_worse} "
-            f"L {m_better} p {m_p:.3e}")
+        line = (f"phase 3s sign test, {label}, {len(ber['card'])} lanes at {SIGN_FRAMES} frames "
+                f"x {e.cfg.num_iterations} iterations: card vs CPU plain W {worse} L {better} p "
+                f"{p_val:.3e}; mean BER % card {ber['card'].mean():.3f} CPU "
+                f"{ber['cpu'].mean():.3f}")
+        if moved_too:
+            m_worse, m_better, m_p, _ = ag.short_outcome(ber["cpu moved"], ber["cpu"])
+            line += (f" CPU moved {ber['cpu moved'].mean():.3f}; CPU moved vs CPU (not gated) "
+                     f"W {m_worse} L {m_better} p {m_p:.3e}")
+        say(line)
         if not ok:
             raise RuntimeError(f"{label}: at {SIGN_FRAMES} frames the card reads worse than the "
                                f"CPU on {worse} lanes, better on {better}: p {p_val:.3e} < "
@@ -3604,6 +3634,201 @@ def multi_device(torch, kernels, emb, det, clips, bits, long_out, long_bits, hou
     say(f"phase 12: {time.perf_counter() - t_phase:.1f} s ({smi})")
 
 
+# ---- phase 13: the host codecs, the voice card, the extended eval
+VOICE_CLIPS = 2       # of phase 3's 8 clips: the real codecs cost about 44 s of host a lane
+PLUMBING_ITERS = 20   # the straight-through view's plumbing run, where the codecs are absent
+VOICE_READINGS = (("opus_8k", "opus", 8000), ("opus_16k", "opus", 16000), ("gsm_fr", "gsm", 0))
+EVAL_KEEP_ZERO = ("clean_ber", "ber:pcm_16", "ber:pcm_24")
+
+
+def host_libraries() -> dict:
+    """Which host libraries load on this machine: name -> "yes" or the cause."""
+    from aware_tpu_torch.attacks import av_codecs, mp3_real, soxr_real
+    from aware_tpu_torch.attacks import voice_codecs as vc
+
+    def no(lib):
+        return f"no ({lib} does not load)"
+
+    reason = av_codecs.avc_unavailable_reason()
+    return {
+        "libopus": "yes" if vc.opus_available() else no("libopus.so.0"),
+        "libgsm": "yes" if vc.gsm_available() else no("libgsm.so.1"),
+        "libsoxr": "yes" if soxr_real.soxr_available() else no("libsoxr.so.0"),
+        "libmp3lame + libmpg123": "yes" if mp3_real.available() else no("libmp3lame.so.0 "
+                                                                          "or libmpg123.so.0"),
+        "libavcodec (the shim, g++ with its headers)": "yes" if not reason else f"no ({reason})",
+    }
+
+
+def _view_times() -> str:
+    from aware_tpu_torch.embed.solver import HOST_VIEW_TIMES as t
+
+    return (f"{t.calls} view calls, {t.lanes} lanes: host function {t.host_s:.3f} s, copies "
+            f"{t.copy_s:.3f} s, waiting for the device before the copy out {t.wait_s:.3f} s")
+
+
+def voice_card(torch, kernels, clips, bits, default_out, det_default) -> None:
+    """Phase 13 where libopus and libgsm load: load("voice") on VOICE_CLIPS
+    of the phase 3 clips at full width (module docstring)."""
+    from aware_tpu_torch import detect_watermark_batch, load
+    from aware_tpu_torch.attacks import voice_codecs as vc
+    from aware_tpu_torch.embed import solver
+
+    dev = det_default.device
+    sr = det_default.cfg.detection_net.sample_rate
+    pair, pair_bits = clips[:VOICE_CLIPS], bits[:VOICE_CLIPS]
+    e, d = load("voice", device=dev)
+    wm = torch.as_tensor(2.0 * pair_bits - 1.0, dtype=torch.float32, device=dev)
+    path = solver.build_problem(d.net, torch.as_tensor(pair, device=dev), wm, e.cfg).path
+    if path != "analysis_detector":
+        raise RuntimeError(f'load("voice") took the {path} path, not analysis_detector')
+    solver.HOST_VIEW_TIMES.reset()
+    run = embed_and_read(torch, kernels, f'voice card (load("voice"), {path}, views '
+                         f'{list(solver.eot_views(e.cfg))})', e, d, pair, pair_bits, phase="13")
+    say(f"phase 13 voice card embed {run['embed_s']:.3f} s: {_view_times()}")
+    if run["ber"].any():
+        raise RuntimeError("voice card: a lane did not read back its message")
+    check_launches("voice card", run["launches"], dict.fromkeys(TWO_KERNEL, 1),
+                   e.cfg.num_iterations)
+    readings = []
+    for name, codec, bps in VOICE_READINGS:
+        for label, out, det in (("voice", run["out"], d),
+                                ("default", default_out[:VOICE_CLIPS], det_default)):
+            coded = np.stack([vc.opus_roundtrip(a, sr, bps) if codec == "opus"
+                              else vc.gsm_roundtrip(a, sr) for a in out])
+            ber = np.mean(detect_watermark_batch(coded, sr, det) != pair_bits) * 100.0
+            readings.append(f"{name} {label} {ber:.2f}")
+    say("phase 13 BER % after the real codecs (readings), voice card vs phase 3's default-card "
+        "embeds of the same clips: " + "; ".join(readings))
+
+
+def voice_plumbing(torch, kernels, clips, bits, det_default, missing) -> None:
+    """Phase 13 where libopus or libgsm is absent: load("voice") must raise
+    the RuntimeError that names the library, then the straight-through
+    view on the card with the scipy 8 kHz resample leg of gsm_roundtrip
+    (no codec) as its host function: the plumbing, not the card."""
+    import yaml
+
+    from aware_tpu_torch import load
+    from aware_tpu_torch.attacks import voice_codecs as vc
+    from aware_tpu_torch.config import AwareConfig
+    from aware_tpu_torch.embed import solver
+    from aware_tpu_torch.service.api import CARDS_DIR
+
+    say(f"phase 13 the voice card cannot run on this machine: {', '.join(missing)} "
+        "does not load")
+    try:
+        load("voice", device=det_default.device)
+    except RuntimeError as err:
+        if not all(lib in str(err) for lib in missing):
+            raise RuntimeError(f'load("voice") raised without naming {missing}: {err}') from err
+        say(f'phase 13 load("voice") raises RuntimeError: {err}')
+    else:
+        raise RuntimeError(f'load("voice") loaded without {missing}')
+
+    dev = det_default.device
+    cfg = AwareConfig.from_dict(yaml.safe_load((CARDS_DIR / "voice.yaml").read_text()))
+    cfg = cfg.replace(num_iterations=PLUMBING_ITERS)
+    if cfg.detection_net != det_default.cfg.detection_net:
+        raise RuntimeError("the voice card's detector is not the default card's")
+
+    def resample_leg(name, sr):
+        def leg(a):
+            return vc._align(vc.gsm_resample(vc.gsm_resample(a, sr, 8000), 8000, sr), a)
+        return leg
+
+    pair = torch.as_tensor(clips[:VOICE_CLIPS], device=dev)
+    wm = torch.as_tensor(2.0 * bits[:VOICE_CLIPS] - 1.0, dtype=torch.float32, device=dev)
+    saved = solver.ste_codec
+    solver.ste_codec = resample_leg
+    try:
+        pb = solver.build_problem(det_default.net, pair, wm, cfg)
+        if pb.path != "analysis_detector":
+            raise RuntimeError(f"the plumbing run took the {pb.path} path")
+        for k in kernels:
+            k.launches = 0
+        solver.HOST_VIEW_TIMES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, best_loss, _ = solver.solve(pb, det_default.net, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        solver.ste_codec = saved
+    launches = {k.__name__: k.launches for k in kernels}
+    say(f"phase 13 PLUMBING, NOT THE VOICE CARD: the straight-through view on the card with "
+        f"the scipy 8 kHz resample leg of gsm_roundtrip (no codec) as its host function, "
+        f"views {list(solver.eot_views(cfg))}, B={VOICE_CLIPS} x "
+        f"{clips.shape[1] / cfg.detection_net.sample_rate:g} s x "
+        f"{PLUMBING_ITERS} iterations: solve {wall:.3f} s, best_loss "
+        f"{best_loss.cpu().tolist()}; {_view_times()}; launches {launches}")
+    check_launches("plumbing", launches, dict.fromkeys(TWO_KERNEL, 1), PLUMBING_ITERS)
+    if not torch.isfinite(best_loss).all():
+        raise RuntimeError("plumbing: the best loss is not finite")
+    if solver.HOST_VIEW_TIMES.calls != PLUMBING_ITERS:
+        raise RuntimeError(f"plumbing: {solver.HOST_VIEW_TIMES.calls} view calls, "
+                           f"not {PLUMBING_ITERS}")
+
+
+def extended_eval(torch, turbo) -> None:
+    """Phase 13's extended eval: run_robustness_eval with extended_attack_suite
+    on the phase 8 turbo model and fixtures (module docstring)."""
+    from aware_tpu_torch.attacks.voice_codecs import (
+        extended_attack_suite,
+        extended_rows_left_out,
+    )
+    from aware_tpu_torch.eval import run_robustness_eval
+
+    suite = extended_attack_suite()
+    left_out = extended_rows_left_out()
+    say(f"phase 13 extended suite: {len(suite)} rows run: {[a.name for a in suite]}")
+    say("phase 13 extended suite, rows left out: " + (
+        "; ".join(f"{name}: {why}" for name, why in left_out) or "none"))
+    spent = [0.0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_robustness_eval(n_clips=EVAL_CLIPS, seed=0, model=turbo,
+                                  attacks=[_Timed(a, spent) for a in suite])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    say(f"phase 13 extended eval, turbo card, {EVAL_CLIPS} clips x {len(suite)} attacks: wall "
+        f"{wall:.3f} s, attacks {spent[0]:.3f} s ({100 * spent[0] / wall:.1f} %)")
+    say("phase 13 extended eval results: " + json.dumps(results))
+    keys = {f"ber:{a.name}" for a in suite} | set(EVAL_KEEP_ZERO)
+    missing = keys - set(results)
+    if missing or not all(np.isfinite(results[k]) for k in keys):
+        raise RuntimeError(f"extended eval: rows missing {sorted(missing)} or not finite")
+    if any(results[k] != 0.0 for k in EVAL_KEEP_ZERO):
+        raise RuntimeError(f"extended eval: {EVAL_KEEP_ZERO} not all 0")
+
+
+def host_codecs(torch, kernels, clips, bits, default_out, det, turbo, smi) -> None:
+    """Phase 13: the host libraries, the voice card (or, without its
+    codecs, the refusal and the plumbing run), the extended eval."""
+    t_phase = time.perf_counter()
+    libs = host_libraries()
+    say("phase 13 host libraries: " + "; ".join(f"{k}: {v}" for k, v in libs.items()))
+    missing = [lib for lib in ("libopus", "libgsm") if libs[lib] != "yes"]
+    if missing:
+        voice_plumbing(torch, kernels, clips, bits, det, missing)
+    else:
+        voice_card(torch, kernels, clips, bits, default_out, det)
+    extended_eval(torch, turbo)
+    say(f"phase 13: {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
+class PhaseClock:
+    """Each phase's wall seconds, on a line of its own as the phase ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        say(f"phase {phase} wall {now - self.t:.1f} s")
+        self.t = now
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3642,6 +3867,7 @@ def main() -> int:
     kernels = (rt.KERNELS + td.KERNELS + tad.KERNELS + it.KERNELS + rtt.KERNELS + on.KERNELS
                + ki.KERNELS)
     t_start = time.perf_counter()
+    clock = PhaseClock()
     # ---- phase 0: the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3658,6 +3884,7 @@ def main() -> int:
             say("  " + line.strip())
     sm90_report(torch, b)
     ola_report(torch, b)
+    clock.lap("0-1")
 
     # ---- phase 2: kernels vs plain on the main path's shapes
     dev = torch.device("cuda")
@@ -3698,6 +3925,7 @@ def main() -> int:
     records.update(check_ola_kernels(torch, pb, np.random.default_rng([args.seed, 14]),
                                      args.quick))
     del pb
+    clock.lap("2")
 
     if not args.quick:
         # ---- phase 3: the four solver paths
@@ -3733,6 +3961,7 @@ def main() -> int:
             turns.append(f"{label} {time.perf_counter() - t0:.3f} s")
         say("phase 3 in turns, embed of B=8 x 10 s x 400 iterations: " + "; ".join(turns))
 
+        clock.lap("3 (the four paths, in turns)")
         # the same short solve on the card (kernels) and on the CPU (plain),
         # on each path
         small = clips[:2, : 2 * sr]
@@ -3747,6 +3976,7 @@ def main() -> int:
                 f"|diff| {dloss:.3e}")
             if not dloss < 0.02:
                 raise RuntimeError(f"{label}: the card's solve departs from the plain solve")
+        clock.lap("3 (the card-vs-CPU reference solves)")
 
         for i, (label, e, d, _) in enumerate(paths):
             prof_cfg = e.cfg.replace(num_iterations=20)
@@ -3768,8 +3998,10 @@ def main() -> int:
         say("phase 3 default path: a 20-iteration loop ran with no host sync")
         del pb
 
+        clock.lap("3 (profiles, the no-sync loop)")
         # ---- phase 3s: short clips on every path
         short_clips(torch, paths, det_cpu, rng)
+        clock.lap("3s")
 
         # ---- phase 4: one clip at 44.1 kHz
         for k in kernels:
@@ -3788,6 +4020,7 @@ def main() -> int:
             raise RuntimeError("single-clip round trip failed")
         if launches44["iteration_step"] != cfg.num_iterations:
             raise RuntimeError("the single-clip embed did not run the whole-step kernel")
+        clock.lap("4")
 
         # ---- phase 5: long clips, the tiled path
         long_out, _ = solve_path(torch, kernels, "long clips (tiled path)", emb, det, long_clips,
@@ -3811,6 +4044,7 @@ def main() -> int:
                 f"|diff| {dloss:.3e}")
             if not dloss < 0.02:
                 raise RuntimeError(f"T = {frames}: the card's tiled solve departs from the plain solve")
+        clock.lap("5")
 
         # ---- phase 6: the float32 round trips, from the default card file
         xla = []
@@ -3875,26 +4109,36 @@ def main() -> int:
             f"launched {launched}")
         if launched or ber.any() or not np.isfinite(out).all():
             raise RuntimeError("1030 frames under the card file: a kernel ran or a lane failed")
+        clock.lap("6")
 
         # ---- phase 7: the EOT cards
         eot_cards(torch, kernels, clips, bits, default_out, det, det_cpu, records,
                   f"{args.trace}/trace_robust.json" if args.trace else None)
+        clock.lap("7")
 
     # ---- phase 8: the filter kernels, the turbo card and the eval
     records.update(filter_checks(torch, np.random.default_rng([args.seed, 8]), args.quick))
     if not args.quick:
         turbo, plain_eval, plain_wall = turbo_and_eval(torch, kernels, clips, bits, default_s,
                                                        records)
+        clock.lap("8")
         # ---- phase 9: every solver mode, and the host runtime
         solver_modes(torch, kernels, clips, bits, det_cpu)
+        clock.lap("9")
         # ---- phase 10: the payload and long-form services, the command line
         hour = services(torch, kernels, emb, det, clips, default_out, bits, turbo, plain_eval,
                         plain_wall, smi, args.seed)
+        clock.lap("10")
         # ---- phase 11: the frame geometries and the amortized embedder
         geometries_and_amortized(torch, kernels, records, emb, det, clips, bits, smi, args.seed)
+        clock.lap("11")
         # ---- phase 12: the multi-device path, a detector of another architecture
         multi_device(torch, kernels, emb, det, clips, bits, long_out, long_bits, hour, smi,
                      args.seed)
+        clock.lap("12")
+        # ---- phase 13: the host codecs, the voice card, the extended eval
+        host_codecs(torch, kernels, clips, bits, default_out, det, turbo, smi)
+        clock.lap("13")
         for name, rec in records.items():
             if rec["launches"] < 1:
                 raise RuntimeError(f"kernel {name} was not launched on any path")

@@ -12,9 +12,10 @@ command line reading the same files.
 * ``embed --oneshot --variant diverse`` writes the JAX command line's
   file (to a PCM step) and reads back through ``detect`` as the JAX
   command line reads it; ``--oneshot`` refuses a 44.1 kHz file and an
-  unknown variant, as the JAX one.  ``eval --extended`` raises
-  NotImplementedError; ``eval --robust-detect`` reaches the harness's
-  ``robust=True``; an unknown card name is refused.
+  unknown variant, as the JAX one.  ``eval --extended`` reaches the
+  harness with ``extended_attack_suite()``, the JAX rows; ``eval
+  --robust-detect`` reaches the harness's ``robust=True``; an unknown card
+  name is refused.
 """
 
 import json
@@ -28,6 +29,7 @@ import pytest
 import torch
 
 from aware_tpu.__main__ import main as jax_main
+from aware_tpu.attacks.voice_codecs import extended_attack_suite as jax_extended
 import aware_tpu_torch.eval.harness as ph
 from aware_tpu_torch.__main__ import main
 from aware_tpu_torch.service import ecc
@@ -147,8 +149,6 @@ def test_unported_modes_and_bad_cards(files, monkeypatch):
         main(["embed", wav44, str(d / "x.wav"), "--oneshot", "--cpu"])
     with pytest.raises(FileNotFoundError, match="v2"):
         main(["embed", wav, str(d / "x.wav"), "--oneshot", "--variant", "v2", "--cpu"])
-    with pytest.raises(NotImplementedError, match="voice_codecs"):
-        main(["eval", "--extended", "--cpu"])
     with pytest.raises(SystemExit, match="unknown card"):
         main(["detect", wav, "--card", "no_such_card", "--cpu"])
     with pytest.raises(SystemExit):
@@ -159,6 +159,12 @@ def test_unported_modes_and_bad_cards(files, monkeypatch):
     (args, kwargs), = calls
     assert args[:3] == (None, 2, 5) and kwargs["robust"] is True
     assert kwargs["device"] == "cpu" and kwargs["model"][0].cfg.num_iterations == 30
+    assert kwargs["attacks"] is None
+    calls.clear()
+    main(["eval", "--extended", "--cpu"])
+    (args, kwargs), = calls
+    assert [a.name for a in kwargs["attacks"]] == [a.name for a in jax_extended()]
+    assert kwargs["robust"] is False and kwargs["model"] is None
 
 
 def test_python_dash_m_runs():

@@ -1,6 +1,7 @@
 """The EOT cards in the port: the robust, desync and compression cards load
-as the JAX package reads them, the voice card is refused with its cause,
-the solver's gate keeps every problem with a view off the whole-iteration
+as the JAX package reads them, the voice card loads with its real-codec
+views and fails at ``load()`` where a codec's library does not load,
+naming it, the solver's gate keeps every problem with a view off the whole-iteration
 kernels, the desync card's re-keyed detector reads as the JAX package's
 with the same key, and a clip with a hard pause keeps the views' gradient
 finite on every path."""
@@ -84,10 +85,35 @@ def test_the_desync_card_carries_its_own_key():
         np.testing.assert_array_equal(absolute[name], value)
 
 
-def test_voice_card_names_the_host_codecs():
-    with pytest.raises(NotImplementedError, match="libopus, libgsm.*host") as err:
-        aware_tpu_torch.load("voice", device="cpu")
-    assert "eot_ste_codecs" in str(err.value)
+def test_voice_card_names_the_host_codecs(monkeypatch):
+    """``load("voice")`` reads the card as the JAX package does, with its
+    views in JAX's order; where a codec's library does not load
+    (``_load_first`` monkeypatched), it raises RuntimeError at ``load()``
+    naming that library."""
+    from aware_tpu_torch.attacks import voice_codecs
+
+    if not (voice_codecs.opus_available() and voice_codecs.gsm_available()):
+        pytest.skip("libopus or libgsm is not installed on this machine")
+    emb, det = aware_tpu_torch.load("voice", device="cpu")
+    ref = JaxConfig.from_dict(yaml.safe_load((CARDS_DIR / "voice.yaml").read_text()))
+    for field in (*EOT_FIELDS, "eot_weight", "eot_mode", "num_iterations", "tolerance_db",
+                  "matmul_precision"):
+        assert getattr(emb.cfg, field) == getattr(ref, field), field
+    assert solver.eot_views(emb.cfg) == (("ste", "opus_8k"), ("ste", "gsm_fr"))
+    assert emb.net is det.net and emb.cfg.use_pallas_roundtrip
+    real = voice_codecs._load_first
+    for absent, other in (("libopus", "libgsm"), ("libgsm", "libopus")):
+        monkeypatch.setattr(voice_codecs, "_load_first",
+                            lambda names, a=absent: None if names[0].startswith(a) else real(names))
+        voice_codecs._opus.cache_clear()
+        voice_codecs._gsm.cache_clear()
+        with pytest.raises(RuntimeError, match=f"needs {absent}, which does not load") as err:
+            aware_tpu_torch.load("voice", device="cpu")
+        assert "eot_ste_codecs" in str(err.value) and other not in str(err.value)
+    monkeypatch.undo()
+    voice_codecs._opus.cache_clear()
+    voice_codecs._gsm.cache_clear()
+    assert aware_tpu_torch.load("voice", device="cpu")[0].cfg == emb.cfg
 
 
 def test_a_detector_other_than_by_its_key_is_refused(tmp_path, speechlike):

@@ -141,15 +141,24 @@ def test_wav_io_reads_as_the_jax_reader(tmp_path):
 
 
 def test_unported_modes_raise(monkeypatch):
-    """``--extended`` raises; ``--robust-detect`` (ported with
-    ``service/robust.py``) reaches ``run_robustness_eval(robust=True)``,
-    which ``tests/test_torch_robust.py`` holds against the JAX harness."""
-    with pytest.raises(NotImplementedError, match="voice_codecs"):
-        ph.main(["--extended", "--cpu"])
+    """The modes refused before they were ported now reach the harness:
+    ``--extended`` (ported with ``attacks/voice_codecs.py``) runs
+    ``extended_attack_suite()``, the JAX rows (tests/test_torch_voice_card.py
+    runs it); ``--robust-detect`` (ported with ``service/robust.py``)
+    reaches ``run_robustness_eval(robust=True)``, which
+    ``tests/test_torch_robust.py`` holds against the JAX harness.  The run
+    itself is monkeypatched: no embed happens."""
+    from aware_tpu.attacks.voice_codecs import extended_attack_suite as jax_extended
+
     calls = []
     monkeypatch.setattr(ph, "run_robustness_eval", lambda *a, **k: calls.append(k) or {})
+    ph.main(["--extended", "--cpu"])
+    (extended,) = calls
+    assert [a.name for a in extended.pop("attacks")] == [a.name for a in jax_extended()]
+    assert extended == {"model": None, "robust": False, "device": "cpu"}
+    calls.clear()
     ph.main(["--robust-detect", "--cpu"])
-    assert calls == [{"model": None, "robust": True, "device": "cpu"}]
+    assert calls == [{"attacks": None, "model": None, "robust": True, "device": "cpu"}]
 
 
 @pytest.mark.slow

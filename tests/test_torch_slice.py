@@ -212,10 +212,9 @@ def test_service_rejects_bad_input(handles, speechlike):
 
 @pytest.mark.parametrize("overrides, error", [
     # a window shorter than the frame, which the JAX package's STFT refuses
-    # too, and the voice card's host codecs, which the port does not bind
-    # (the frame geometries load: tests/test_torch_geometry.py)
+    # too (the frame geometries load: tests/test_torch_geometry.py; the
+    # voice card's host codecs load: test_configurations_that_now_load)
     ({"win_length": 512}, ValueError),
-    ({"eot_ste_codecs": ("gsm_fr",)}, NotImplementedError),
 ])
 def test_unported_paths_raise(overrides, error):
     with pytest.raises(error):
@@ -228,8 +227,14 @@ def test_unported_paths_raise(overrides, error):
     # the solver modes and the GMM gate, refused before they were ported
     {"scheduler_name": "cosine_annealing", "scheduler_params": (("T_max", 400),)},
     {"optimizer_name": "adam"}, {"loss": "hinge"}, {"vad": "webrtc_gmm"},
+    # the voice card's real-codec view (libgsm on the host, straight through)
+    {"eot_ste_codecs": ("gsm_fr",)},
 ])
 def test_configurations_that_now_load(overrides):
+    from aware_tpu_torch.attacks.voice_codecs import gsm_available
+
+    if "eot_ste_codecs" in overrides and not gsm_available():
+        pytest.skip("libgsm is not installed on this machine")
     emb, det = aware_tpu_torch.load(device="cpu", **overrides)
     assert all(getattr(emb.cfg, k) == v for k, v in overrides.items())
     assert det.cfg is emb.cfg
@@ -247,14 +252,21 @@ def test_card_file_is_read_by_path(tmp_path):
                     "optimizer_cfg: {name: nadam, params: {lr: 0.05}}\n")
     emb, _ = aware_tpu_torch.load(card, device="cpu")
     assert emb.cfg.num_iterations == 7 and emb.cfg.opt_params == {"lr": 0.05}
-    # EOT views: the robust card's keys load; the voice card's real host
-    # codecs (eot_ste_codecs) are not ported, and the error names them
+    # EOT views: the robust card's keys load, and the voice card's real host
+    # codecs (eot_ste_codecs)
     robust = tmp_path / "robust.yaml"
     robust.write_text("eot_stretch_rates: [0.98, 1.02]\neot_pitch_cents: [-5.0, 5.0]\n"
                       "eot_mode: cycle\neot_weight: 2.0\n")
     emb, _ = aware_tpu_torch.load(robust, device="cpu")
     assert emb.cfg.eot_stretch_rates == (0.98, 1.02) and emb.cfg.eot_mode == "cycle"
+    from aware_tpu_torch.attacks.voice_codecs import gsm_available, opus_available
+
     voice = tmp_path / "voice.yaml"
     voice.write_text("eot_ste_codecs: [opus_8k, gsm_fr]\n")
-    with pytest.raises(NotImplementedError, match="eot_ste_codecs.*libopus, libgsm"):
-        aware_tpu_torch.load(voice, device="cpu")
+    if not (opus_available() and gsm_available()):
+        with pytest.raises(RuntimeError, match="eot_ste_codecs"):
+            aware_tpu_torch.load(voice, device="cpu")
+        return
+    emb, _ = aware_tpu_torch.load(voice, device="cpu")
+    assert emb.cfg.eot_ste_codecs == ("opus_8k", "gsm_fr")
+    assert solver.eot_views(emb.cfg) == (("ste", "opus_8k"), ("ste", "gsm_fr"))

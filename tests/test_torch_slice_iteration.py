@@ -168,12 +168,20 @@ def test_load_defaults_to_the_whole_step_path():
 
 
 def test_bare_card_names_resolve_against_the_jax_cards():
-    # the robust card (EOT views) loads by its bare name; the voice card's
-    # host codecs are not ported
+    # the robust card (EOT views) loads by its bare name, and the voice card
+    # with its real host codecs where their libraries load (a RuntimeError
+    # that names them at load() where they do not)
+    from aware_tpu_torch.attacks.voice_codecs import gsm_available, opus_available
+
     robust, _ = aware_tpu_torch.load("robust", device="cpu")
     assert robust.cfg.eot_mode == "cycle" and len(robust.cfg.eot_stretch_rates) == 8
-    with pytest.raises(NotImplementedError, match="eot_ste_codecs"):
-        aware_tpu_torch.load("voice", device="cpu")
+    if opus_available() and gsm_available():
+        voice, _ = aware_tpu_torch.load("voice", device="cpu")
+        assert voice.cfg.eot_ste_codecs == ("opus_8k", "gsm_fr")
+        assert voice.cfg.eot_mode == "cycle" and not voice.cfg.eot_stretch_rates
+    else:
+        with pytest.raises(RuntimeError, match="eot_ste_codecs"):
+            aware_tpu_torch.load("voice", device="cpu")
     # the default card file pins matmul_precision: highest, which selects
     # the float32 slab path, as in the JAX package
     by_name, _ = aware_tpu_torch.load("config", device="cpu")
